@@ -3,9 +3,11 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from csrc/, then drives the serving paths
-through the entry points a user calls, at full width on the committed
-checkpoints and datasets (800x800 frames, 256 samples per ray):
+Builds the port's CUDA kernels from csrc/ (one nvcc per source, started
+together), then drives the serving and training paths through the entry
+points a user calls, at full width on the committed checkpoints and
+datasets (800x800 frames, 256 samples per ray; 8,192 rays x 256 samples per
+training step):
 
 1. device: the card's name and power limit;
 2. serve: ``cli.nerf --mode test`` on synth800 (5 test views through K1,
@@ -18,7 +20,19 @@ checkpoints and datasets (800x800 frames, 256 samples per ray):
 4. gif: ``cli.nerf --mode gif`` (2 legacy-compositor frames, then one
    chair800 frame on a white background), each held against the plain
    version;
-5. kernels: one JSON line with every kernel's launches on its path, its
+5. train: ``cli.nerf --mode train`` on synth800 from a seeded init, K2
+   (fused_mse_loss) as the step: ms per step, train rays/s, the logged
+   losses (the last ten must average below the first ten), peak memory;
+   then a second run that resumes from the saved checkpoint for a few steps
+   and renders the validation views through K1;
+6. train_two_kernel: a few steps through K3 (fused_render_train's forward
+   and backward kernels);
+7. train_kernels: on one real batch, K2 and K3 against their plain
+   versions (rgb, loss, every grad tensor), K2's grads against K3's with
+   the MSE cotangent, K2 twice (bit-equal), K2 with and without kept
+   activations, and the eager float32 nn.Module autograd step as the
+   practical yardstick;
+8. kernels: one JSON line with every kernel's launches on its path, its
    error against the plain version, its time at the main-path shape beside
    the plain version's and the card's bound.
 
@@ -31,6 +45,7 @@ when any phase fails.
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -53,6 +68,16 @@ W_TOL, W_TOL_BULK, W_BULK_FRAC = 1e-2, 1e-3, 1e-4
 PSNR_PLAIN = 40.0        # dB, kernel vs plain version (rgb, acc, depth)
 PSNR_MODULE = 40.0       # dB, kernel frame vs float32 nn.Module frame
 PSNR_GT_FLOOR = 25.0     # dB vs ground truth: catches a broken frame only
+# training kernels against their plain versions, per grad tensor: relative
+# error of the tensor's norm and max abs error over the tensor's max abs.
+# bf16 rounding flips of hidden activations and cotangents (the kernel's WMMA
+# and cuBLAS sum in other orders) move the grads; the plain version run in
+# float64 on the same batch flips other roundings, and its distance from the
+# float32 plain version is the second witness: a tensor may be off by the
+# limit or by that spread, whichever is larger.
+GRAD_REL_TOL, GRAD_MAX_TOL = 2e-2, 5e-2
+LOSS_REL_TOL = 1e-3      # kernel loss vs plain version's loss
+TRAIN_STEPS, RESUME_STEPS, K3_STEPS = 200, 12, 12
 PEAK_BF16 = 989e12       # H100 SXM dense bf16 FLOP/s (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12     # H100 SXM HBM3 bytes/s
 
@@ -72,9 +97,10 @@ def main():
     from sfm_nerf_tpu_torch.io.png import read_png
     from sfm_nerf_tpu_torch.kernels import _build
     from sfm_nerf_tpu_torch.kernels import fused_render as fr
+    from sfm_nerf_tpu_torch.kernels import fused_train as ft
     from sfm_nerf_tpu_torch.models.convert import params_from_jax
-    from sfm_nerf_tpu_torch.ops.rays import image_rays
-    from sfm_nerf_tpu_torch.ops.render import stratified_samples
+    from sfm_nerf_tpu_torch.ops.rays import image_rays, sample_ray_batch
+    from sfm_nerf_tpu_torch.ops.render import composite, stratified_samples
     from sfm_nerf_tpu_torch.train import checkpoint as ckpt
     from sfm_nerf_tpu_torch.train.nerf_trainer import (
         make_render_image, make_render_image_aux,
@@ -157,10 +183,11 @@ def main():
         capture_output=True, text=True, timeout=60).stdout.strip()
     print(smi, flush=True)
     t0 = time.time()
-    _build.load("fused_render")
+    _build.build_all(["fused_render", "fused_train"])
     build_s = time.time() - t0
-    regs = [ln.strip() for ln in _build.build_log("fused_render").splitlines()
-            if "registers" in ln]
+    regs = {name: [ln.strip() for ln in _build.build_log(name).splitlines()
+                   if "registers" in ln]
+            for name in ("fused_render", "fused_train")}
     emit("device", nvidia_smi=smi, kind=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda, build_s=round(build_s, 3), ptxas=regs)
@@ -280,11 +307,215 @@ def main():
                          "ms": [round(r["ms"], 2) for r in records], "max_abs": max(errs)}
         emit("gif", **out)
 
+    # ---- 5. train: the CLI's train mode through K2 ------------------------
+    train_ckpt = os.path.join(OUT, "train_ckpt")
+    train_flags = ["--mode", "train", "--data_path", data, "--n_sample", "256",
+                   "--n_rays_batch", "8192", "--seed", "0"]
+
+    def train():
+        shutil.rmtree(train_ckpt, ignore_errors=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ft.reset_launch_counts()
+        stats = cli.main([*train_flags, "--checkpoint_path", train_ckpt,
+                          "--max_iters", str(TRAIN_STEPS), "--log_every", "10",
+                          "--val_every", "0", "--save_ckpt_iter", "100"])
+        launches = dict(ft.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        losses = [v for _, v in stats["losses"]]
+        if launches["fused_mse_loss"] != TRAIN_STEPS or stats["steps"] != TRAIN_STEPS:
+            raise AssertionError(f"train: launches {launches}, steps {stats['steps']}")
+        if len(losses) < 20 or not all(np.isfinite(losses)):
+            raise AssertionError(f"train: logged losses {losses}")
+        first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+        if not last < first:
+            raise AssertionError(f"train: loss did not fall: {first} -> {last}")
+        saved = sorted(os.listdir(os.path.join(train_ckpt, "synth800")))
+        if saved != ["final_model.ckpt.npz", "model_000100.ckpt.npz"]:
+            raise AssertionError(f"train: checkpoints {saved}")
+        state["K2_launches"] = launches["fused_mse_loss"]
+        # resume from model_000100 for a few steps, validating through K1
+        fr.reset_launch_counts()
+        ft.reset_launch_counts()
+        end = 101 + RESUME_STEPS
+        resumed = cli.main([*train_flags, "--checkpoint_path", train_ckpt,
+                            "--max_iters", str(end), "--log_every", "1",
+                            "--val_every", str(end - 2), "--save_ckpt_iter", "0"])
+        val = [v for _, _, v in resumed["val"]]
+        if (resumed["start_iter"] != 101 or resumed["steps"] != RESUME_STEPS
+                or ft.LAUNCHES["fused_mse_loss"] != RESUME_STEPS):
+            raise AssertionError(f"resume: {resumed['start_iter']}, {resumed['steps']} steps, "
+                                 f"launches {ft.LAUNCHES}")
+        if not val or fr.LAUNCHES["fused_render_rays"] != len(val) \
+                or not all(np.isfinite(val)):
+            raise AssertionError(f"resume: validation {val}, K1 launches {fr.LAUNCHES}")
+        if not resumed["losses"][0][1] < losses[0]:
+            raise AssertionError("resume: the first resumed loss is not below the "
+                                 f"initial loss: {resumed['losses'][0]} vs {losses[0]}")
+        emit("train", steps=stats["steps"], ms_per_step=stats["ms_per_step"],
+             rays_per_s_steady=8192 / stats["ms_per_step"] * 1e3,
+             rays_per_s_whole_fit=stats["rays_per_sec"], elapsed_s=stats["elapsed_s"],
+             loss_first_log=losses[0], loss_last_log=losses[-1],
+             loss_mean_first10=first, loss_mean_last10=last, losses=losses,
+             launches=launches, peak_mem_gib=round(peak / 2**30, 3), checkpoints=saved,
+             resume={"start_iter": resumed["start_iter"], "steps": resumed["steps"],
+                     "ms_per_step": resumed["ms_per_step"],
+                     "losses": [v for _, v in resumed["losses"]],
+                     "val_views": len(val), "val_mse": val,
+                     "K1_launches": fr.LAUNCHES["fused_render_rays"]})
+
+    # ---- 6. train through the two-kernel route (K3) ------------------------
+    def train_two_kernel():
+        ck = os.path.join(OUT, "train_ckpt_k3")
+        shutil.rmtree(ck, ignore_errors=True)
+        ft.reset_launch_counts()
+        stats = cli.main([*train_flags, "--checkpoint_path", ck, "--two_kernel_step",
+                          "--max_iters", str(K3_STEPS), "--log_every", "1",
+                          "--val_every", "0", "--save_ckpt_iter", "0"])
+        launches = dict(ft.LAUNCHES)
+        losses = [v for _, v in stats["losses"]]
+        if (launches["fused_render_train"] != K3_STEPS
+                or launches["fused_render_train_backward"] != K3_STEPS
+                or launches["fused_mse_loss"] != 0 or not all(np.isfinite(losses))):
+            raise AssertionError(f"two-kernel train: launches {launches}, losses {losses}")
+        state["K3_launches"] = launches["fused_render_train"]
+        state["K3b_launches"] = launches["fused_render_train_backward"]
+        emit("train_two_kernel", steps=stats["steps"], ms_per_step=stats["ms_per_step"],
+             losses=losses, launches=launches)
+
+    # ---- 7. the training kernels on one real batch -------------------------
+    def train_kernels():
+        tr_images, tr_poses, tr_cam = load_blender_dataset(data, "train")
+        f32 = dict(dtype=torch.float32, device=dev)
+        imgs, pss = torch.as_tensor(tr_images, **f32), torch.as_tensor(tr_poses, **f32)
+        Kt = torch.as_tensor(tr_cam.camera_matrix, **f32)
+        gen = torch.Generator(device=dev).manual_seed(7)
+        n = 8192
+        trcfg = RenderConfig(n_sample=256, near=2.0, far=6.0, perturb=True,
+                             use_fused_kernel=True)
+        bo, bd, bt = sample_ray_batch(imgs, pss, Kt, n, gen)
+        bz = stratified_samples(n, trcfg, gen, dev)
+        del imgs
+        # the model after the train phase's steps: realistic grads
+        tp, _, _ = ckpt.load_checkpoint(
+            os.path.join(train_ckpt, "synth800", "final_model.ckpt.npz"))
+        tmodel = params_from_jax(tp, mcfg, dev)
+        tpacked = fr.pack_nerf_params(tmodel, mcfg, torch.bfloat16)
+        batch = (tpacked, bo, bd, bz)
+
+        def grads_cmp(name, gw, gb, gwr, gbr, gw64, gb64):
+            got, ref = ft.unpack_grads(tpacked, gw, gb), ft.unpack_grads(tpacked, gwr, gbr)
+            f64 = ft.unpack_grads(tpacked, gw64.float(), gb64.float())
+            worst = {"rel": 0.0, "max": 0.0, "spread_rel": 0.0, "spread_max": 0.0}
+            per = {}
+            for k in ref:
+                nr, mr = ref[k].norm().item(), ref[k].abs().max().item()
+                e, e64 = got[k] - ref[k], f64[k] - ref[k]
+                row = {"rel": e.norm().item() / nr, "max": e.abs().max().item() / mr,
+                       "spread_rel": e64.norm().item() / nr,
+                       "spread_max": e64.abs().max().item() / mr}
+                per[k.replace("layers.", "")] = [float(f"{v:.3e}") for v in row.values()]
+                if not (row["rel"] <= max(GRAD_REL_TOL, row["spread_rel"])
+                        and row["max"] <= max(GRAD_MAX_TOL, row["spread_max"])):
+                    raise AssertionError(f"{name}: grad {k} vs plain {row}")
+                worst = {m: max(worst[m], row[m]) for m in worst}
+            return worst, per, max((got[k] - ref[k]).abs().max().item() for k in ref)
+
+        # K2 against its plain version (float32, and float64 as the witness)
+        k2_ms, (rgb, gw, gb) = event_ms(
+            lambda: ft.fused_mse_loss_grads(*batch, bt, trcfg), reps=3)
+        rgb_b, gw_b, gb_b = ft.fused_mse_loss_grads(*batch, bt, trcfg)
+        bit_equal = torch.equal(gw, gw_b) and torch.equal(gb, gb_b) and torch.equal(rgb, rgb_b)
+        if not bit_equal:
+            raise AssertionError("K2: two runs on the same input differ")
+        k2_plain_ms, (rr, gwr, gbr) = event_ms(
+            lambda: ft.fused_mse_loss_reference(*batch, bt, trcfg))
+        _, gw64, gb64 = ft.fused_mse_loss_reference(
+            tpacked, bo.double(), bd.double(), bz.double(), bt.double(), trcfg)
+        loss_k, loss_p = ((rgb - bt) ** 2).mean().item(), ((rr - bt) ** 2).mean().item()
+        rgb_err = (rgb - rr).abs().max().item()
+        if rgb_err > RGB_TOL or abs(loss_k - loss_p) > LOSS_REL_TOL * loss_p:
+            raise AssertionError(f"K2: rgb max abs {rgb_err}, loss {loss_k} vs {loss_p}")
+        k2_worst, k2_per, k2_abs = grads_cmp("K2", gw, gb, gwr, gbr, gw64, gb64)
+        # the alternative: recompute each chunk in the reverse walk
+        k2r_ms, (_, gw_r, gb_r) = event_ms(
+            lambda: ft.fused_mse_loss_grads(*batch, bt, trcfg, keep_activations=False), reps=3)
+        # K3: forward, then backward with an arbitrary cotangent
+        k3f_ms, (rgb3, tb) = event_ms(
+            lambda: ft.fused_render_train_forward(*batch, trcfg), reps=3)
+        g = torch.randn(n, 3, generator=gen, device=dev) * 1e-4
+        k3b_ms, (gw3, gb3) = event_ms(
+            lambda: ft.fused_render_train_backward(*batch, trcfg, tb, g), reps=3)
+        k3f_plain_ms, (rr3, tbr) = event_ms(
+            lambda: ft.fused_render_train_reference(*batch, trcfg))
+        k3b_plain_ms, (gwr3, gbr3) = event_ms(
+            lambda: ft.fused_render_train_reference(*batch, trcfg, g=g))
+        gw64_3, gb64_3 = ft.fused_render_train_reference(
+            tpacked, bo.double(), bd.double(), bz.double(), trcfg, g=g.double())
+        k3_rgb_err, tb_err = (rgb3 - rr3).abs().max().item(), (tb - tbr).abs().max().item()
+        if k3_rgb_err > RGB_TOL or tb_err > RGB_TOL or not torch.equal(rgb3, rgb):
+            raise AssertionError(f"K3 forward: rgb {k3_rgb_err}, tb {tb_err}, "
+                                 f"rgb equal to K2's {torch.equal(rgb3, rgb)}")
+        k3_worst, k3_per, k3_abs = grads_cmp("K3", gw3, gb3, gwr3, gbr3, gw64_3, gb64_3)
+        # K2's grads against K3's with the MSE cotangent
+        gm = (rgb3 - bt) * (2.0 / (3.0 * n))
+        gw3m, gb3m = ft.fused_render_train_backward(*batch, trcfg, tb, gm)
+        k2_vs_k3 = {
+            "kept_rel": ((gw - gw3m).norm() / gw3m.norm()).item(),
+            "kept_bit_equal": torch.equal(gw, gw3m) and torch.equal(gb, gb3m),
+            "recomputed_bit_equal": torch.equal(gw_r, gw3m) and torch.equal(gb_r, gb3m),
+        }
+        if k2_vs_k3["kept_rel"] > 1e-6 or not k2_vs_k3["recomputed_bit_equal"]:
+            raise AssertionError(f"K2 vs K3 with the MSE cotangent: {k2_vs_k3}")
+        # the practical yardstick: the float32 nn.Module under autograd, with
+        # the batch's pixels and depths given
+        del gw64, gb64, gw64_3, gb64_3
+        tmodel.train()
+
+        def eager_step():
+            tmodel.zero_grad(set_to_none=True)
+            pts = bo[:, None, :] + bd[:, None, :] * bz[..., None]
+            dens, col = tmodel(pts, bd[:, None, :].expand(pts.shape))
+            loss = ((composite(dens, col, bz, trcfg)[0] - bt) ** 2).mean()
+            loss.backward()
+            return loss.detach()
+
+        eager_step()
+        torch.cuda.reset_peak_memory_stats()
+        eager_ms, eager_loss = event_ms(eager_step, reps=2)
+        eager_peak = torch.cuda.max_memory_allocated()
+        named = ft.unpack_grads(tpacked, gw, gb)
+        eager_rel = max(((named[k] - p.grad).norm() / p.grad.norm()).item()
+                        for k, p in tmodel.named_parameters())
+        tmodel.zero_grad(set_to_none=True)
+        state["train"] = dict(
+            K2=(k2_ms, k2_plain_ms, max(rgb_err, k2_abs)),
+            K3=(k3f_ms, k3f_plain_ms, max(k3_rgb_err, tb_err)),
+            K3b=(k3b_ms, k3b_plain_ms, k3_abs),
+            shape=(n, 256), mcfg=mcfg, packed=tpacked, eager_ms=eager_ms)
+        emit("train_kernels", rays=n, samples=256,
+             K2={"ms": k2_ms, "ms_recomputing": k2r_ms, "plain_ms": k2_plain_ms,
+                 "bit_equal_two_runs": bit_equal, "rgb_max_abs": rgb_err,
+                 "loss": loss_k, "plain_loss": loss_p, "worst": k2_worst,
+                 "grads[rel,max,spread_rel,spread_max]": k2_per},
+             K3={"fwd_ms": k3f_ms, "bwd_ms": k3b_ms, "fwd_plain_ms": k3f_plain_ms,
+                 "bwd_plain_ms": k3b_plain_ms, "rgb_max_abs": k3_rgb_err,
+                 "tb_max_abs": tb_err, "worst": k3_worst,
+                 "grads[rel,max,spread_rel,spread_max]": k3_per},
+             K2_vs_K3_mse_cotangent=k2_vs_k3,
+             eager_autograd_f32={"ms": eager_ms, "loss": eager_loss.item(),
+                                 "peak_mem_gib": round(eager_peak / 2**30, 3),
+                                 "K2_grads_vs_eager_worst_rel": eager_rel})
+
     phase(serve)
     phase(aux)
     phase(gif)
+    phase(train)
+    if not failed:
+        phase(train_two_kernel)
+        phase(train_kernels)
 
-    # ---- 5. kernels ------------------------------------------------------
+    # ---- 8. kernels ------------------------------------------------------
     def kernel_line():
         n, S = o.shape[0], z.shape[1]
         macs = fr.macs_per_point(mcfg) * n * S + fr.macs_per_ray(mcfg) * n
@@ -321,6 +552,38 @@ def main():
                 "library_ms": None,
             })
         emit("kernel_vs_plain_full_shape", rays=n, samples=S, **full_shape)
+        # the training kernels at the training step's shape.  Operations: K2's
+        # least work is three forwards (forward, d_h W^T, act^T d_h); K3's
+        # forward is one; K3's backward, which must recompute, three.  Bytes:
+        # rays, depths, packed weights (and targets, cotangent, tb) in; rgb,
+        # tb and one float32 grad per packed element out.
+        tr = state["train"]
+        tn, tS = tr["shape"]
+        fwd_flop = 2.0 * (fr.macs_per_point(mcfg) * tn * tS + fr.macs_per_ray(mcfg) * tn)
+        w_bytes = tr["packed"].weights.numel() * 2 + tr["packed"].biases.numel() * 4
+        g_bytes = (tr["packed"].weights.numel() + tr["packed"].biases.numel()) * 4
+        ray_bytes = (tn * 3 * 2 + tn * tS) * 4
+        tb_bytes = tn * -(-tS // fr.CHUNK) * 4
+        for key, name, replaces, n_fwd, nbytes in (
+            ("K2", "fused_mse_loss", "sfm_nerf_tpu/kernels/fused_train.py:887", 3,
+             ray_bytes + tn * 12 + w_bytes + tn * 12 + g_bytes),
+            ("K3", "fused_render_train", "sfm_nerf_tpu/kernels/fused_train.py:653", 1,
+             ray_bytes + w_bytes + tn * 12 + tb_bytes),
+            ("K3b", "fused_render_train_backward", "sfm_nerf_tpu/kernels/fused_train.py:638", 3,
+             ray_bytes + tn * 12 + tb_bytes + w_bytes + g_bytes),
+        ):
+            ms, plain_ms, err = tr[key]
+            t_ops = n_fwd * fwd_flop / PEAK_BF16 * 1e3
+            t_bytes = nbytes / PEAK_BYTES * 1e3
+            rows.append({
+                "name": name, "route": "cuda",
+                "source": "sfm_nerf_tpu_torch/kernels/csrc/fused_train.cu",
+                "replaces": replaces, "launches": state[f"{key}_launches"],
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": max(t_ops, t_bytes),
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                "library_ms": None,
+            })
         print(json.dumps({"kernels": rows}), flush=True)
 
     if not failed:

@@ -1,9 +1,21 @@
-"""NeRF serving entry point of the port.
+"""NeRF entry point of the port: training, test renders, gif frames.
 
+    python -m sfm_nerf_tpu_torch.cli.nerf --mode train --data_path ... \\
+        --checkpoint_path ... [--max_iters N] [--no_fused] [--device cpu]
     python -m sfm_nerf_tpu_torch.cli.nerf --mode test --data_path ... \\
         --checkpoint_path ... [--save_depth] [--device cpu]
     python -m sfm_nerf_tpu_torch.cli.nerf --mode gif --data_path ... \\
         --checkpoint_path ... [--no_perturb] [--n_frames N] [--device cpu]
+
+``--mode train`` is ``Phase2/train.py`` (its default mode): the same
+training flags and defaults (8,192 rays x 256 samples per step, Adam 5e-4
+under a staircase decay, ``--fused`` on: the step is one launch of the fused
+CUDA step kernel, its plain PyTorch version on ``--device cpu``), the same
+checkpoint names and cadence, resume from the newest checkpoint under
+``--checkpoint_path/<scene>``.  The port adds ``--log_every``,
+``--val_every`` and ``--two_kernel_step`` (the forward and backward kernels
+of ``fused_render_train`` instead of the merged step).  No TensorBoard
+writer is attached (the trainer takes one as an argument).
 
 ``--mode test`` is ``Phase2/train.py --mode test``: the same flags (those
 that act on rendering) and defaults, the same choice of 5 views from
@@ -17,7 +29,7 @@ each mode keep the names and defaults of the matching JAX parser; the port
 adds ``--device`` (default cuda).
 
 Not ported yet: ``figure_{i}.png`` (matplotlib), ``--plot_rays``, ``.pth``
-checkpoints, training (``--mode train`` exits non-zero).
+checkpoints, ``--steps_per_call``, ``--ckpt_backend orbax``, ``--dp``.
 """
 
 from __future__ import annotations
@@ -40,11 +52,11 @@ def _bound(v):
 
 
 def config_parser(mode: str = "test") -> argparse.ArgumentParser:
-    """The flags of ``mode``: Phase2/train.py's for test, Phase2/Wrapper.py's
-    for gif."""
+    """The flags of ``mode``: Phase2/train.py's for train and test,
+    Phase2/Wrapper.py's for gif."""
     p = argparse.ArgumentParser(prog="python -m sfm_nerf_tpu_torch.cli.nerf")
     p.add_argument('--data_path', default="./Phase2/nerf_synthetic/lego/", help="dataset path")
-    p.add_argument('--mode', default='train', help="test/gif (train: a later slice)")
+    p.add_argument('--mode', default='train', help="train/test/gif")
     p.add_argument('--n_sample', default=256, help="number of sample per ray")
     p.add_argument('--images_path', default="./image/", help="folder to store images")
     p.add_argument('--downscale', default=1, type=int, help="integer image downscale")
@@ -93,6 +105,30 @@ def config_parser(mode: str = "test") -> argparse.ArgumentParser:
         p.add_argument('--save_depth', action='store_true',
                        help="also save depth / disparity / acc maps per view")
         p.add_argument('--seed', default=0, type=int)
+    if mode == "train":
+        p.add_argument('--lrate', default=5e-4, help="training learning rate")
+        p.add_argument('--n_rays_batch', default=32 * 32 * 8, help="number of rays per batch")
+        p.add_argument('--max_iters', default=200001, help="number of max iterations for training")
+        # accepted so a Phase2/train.py command line carries over; they name
+        # the TensorBoard run there, and this CLI attaches no writer
+        p.add_argument('--logs_path', default="./logs/", help="logs path (no writer: unused)")
+        p.add_argument('--log_id', default="", help="log id (no writer: unused)")
+        p.add_argument('--exp_name', default="lego_experiment",
+                       help="experiment name for logging (no writer: unused)")
+        p.add_argument('--load_checkpoint', default=True, help="whether to load checkpoint or not")
+        p.add_argument('--save_ckpt_iter', default=1000, help="num of iteration to save checkpoint")
+        p.add_argument('--lrate_decay', default=0.1, type=float, help="learning rate decay factor")
+        p.add_argument('--lrate_decay_steps', default=50000, type=int, help="learning rate decay steps")
+        p.add_argument('--density_bias_init', default=0.0, type=float,
+                       help="initial density-head bias")
+        # additions of the port
+        p.add_argument('--log_every', default=100, type=int,
+                       help="read the loss back every this many steps")
+        p.add_argument('--val_every', default=1000, type=int,
+                       help="render the validation views every this many steps (0: never)")
+        p.add_argument('--two_kernel_step', action='store_true',
+                       help="train through fused_render_train's forward and "
+                            "backward kernels instead of the merged step kernel")
     return p
 
 
@@ -104,7 +140,7 @@ def _model_name(data_path: str) -> str:
 
 def build_config(args):
     from sfm_nerf_tpu_torch.config import (
-        NeRFModelConfig, NeRFPipelineConfig, RenderConfig, TrainConfig,
+        NeRFModelConfig, NeRFPipelineConfig, RenderConfig,
     )
 
     return NeRFPipelineConfig(
@@ -112,6 +148,7 @@ def build_config(args):
             n_pos_freq=int(args.n_pos_freq), n_dir_freq=int(args.n_dirc_freq),
             hidden=int(args.hidden_size), pos_encoding=not args.no_pos_encoding,
             arch=args.arch,
+            density_bias_init=float(getattr(args, "density_bias_init", 0.0)),
         ),
         render=RenderConfig(
             n_sample=int(args.n_sample), n_importance=int(args.n_importance),
@@ -119,11 +156,30 @@ def build_config(args):
             lindisp=bool(args.lindisp), chunk_size=int(args.chunk_size),
             variant=args.render_variant, use_fused_kernel=bool(args.fused),
             white_background=bool(args.white_bkgd),
+            fused_merged_step=not getattr(args, "two_kernel_step", False),
         ),
-        train=TrainConfig(seed=int(args.seed)),
+        train=_train_config(args),
         data_path=args.data_path, mode=args.mode,
+        logs_path=getattr(args, "logs_path", "./logs/"),
+        log_id=getattr(args, "log_id", ""),
+        exp_name=getattr(args, "exp_name", "lego_experiment"),
         checkpoint_path=os.path.join(args.checkpoint_path, _model_name(args.data_path)),
+        load_checkpoint=bool(getattr(args, "load_checkpoint", True)),
         images_path=args.images_path,
+    )
+
+
+def _train_config(args):
+    from sfm_nerf_tpu_torch.config import TrainConfig
+
+    if args.mode != "train":
+        return TrainConfig(seed=int(args.seed))
+    return TrainConfig(
+        lrate=float(args.lrate), lrate_decay=float(args.lrate_decay),
+        lrate_decay_steps=int(args.lrate_decay_steps),
+        n_rays_batch=int(args.n_rays_batch), max_iters=int(args.max_iters),
+        save_ckpt_iter=int(args.save_ckpt_iter), log_every=int(args.log_every),
+        val_every=int(args.val_every), seed=int(args.seed),
     )
 
 
@@ -160,6 +216,39 @@ def _u8(x: np.ndarray) -> np.ndarray:
     return (np.clip(x, 0, 1) * 255).astype(np.uint8)
 
 
+def _resolve_bounds(args, cam, split: str) -> None:
+    """--near/--far auto -> the dataset's hint."""
+    for name in ("near", "far"):
+        if getattr(args, name) == "auto":
+            hint = getattr(cam, name)
+            if hint is None:
+                raise SystemExit(
+                    f"--{name} auto: transforms_{split}.json carries "
+                    f"no '{name}' hint")
+            print(f"--{name} auto -> {hint:.3f} (dataset hint)")
+            setattr(args, name, hint)
+
+
+def run_train(args) -> dict:
+    """Train mode.  Returns the trainer's stats with the logged losses and
+    validation errors."""
+    from sfm_nerf_tpu_torch.io.blender import load_blender_dataset
+    from sfm_nerf_tpu_torch.train.nerf_trainer import NeRFTrainer
+
+    device = _device(args.device)
+    print("Loading data...")
+    images, poses, cam = load_blender_dataset(
+        args.data_path, "train", downscale=int(args.downscale))
+    _resolve_bounds(args, cam, "train")
+    cfg = build_config(args)
+    print("Start training")
+    trainer = NeRFTrainer(cfg, images, poses, cam.camera_matrix, device=device)
+    stats = trainer.fit()
+    print(f"Training done: {stats}")
+    return {**stats, "start_iter": trainer.start_iter, "losses": trainer.loss_log,
+            "val": trainer.val_log}
+
+
 def run_test(args) -> List[dict]:
     """Test mode.  Returns one record per rendered view."""
     from sfm_nerf_tpu_torch.io.blender import load_blender_dataset
@@ -175,15 +264,7 @@ def run_test(args) -> List[dict]:
     print("Loading data...")
     images, poses, cam = load_blender_dataset(
         args.data_path, args.eval_split, downscale=int(args.downscale))
-    for name in ("near", "far"):
-        if getattr(args, name) == "auto":
-            hint = getattr(cam, name)
-            if hint is None:
-                raise SystemExit(
-                    f"--{name} auto: transforms_{args.eval_split}.json carries "
-                    f"no '{name}' hint")
-            print(f"--{name} auto -> {hint:.3f} (dataset hint)")
-            setattr(args, name, hint)
+    _resolve_bounds(args, cam, args.eval_split)
     cfg = build_config(args)
     print("Start testing")
     render = (make_render_image_aux if args.save_depth else make_render_image)(cfg)
@@ -325,17 +406,15 @@ def run_gif(args) -> List[dict]:
     return records
 
 
-def main(argv: Optional[List[str]] = None) -> List[dict]:
+def main(argv: Optional[List[str]] = None):
     argv = sys.argv[1:] if argv is None else list(argv)
     pre = argparse.ArgumentParser(add_help=False)
     pre.add_argument('--mode', default='train')
     mode = pre.parse_known_args(argv)[0].mode
-    if mode == "train":
-        raise SystemExit("--mode train: training is ported in a later slice")
-    if mode not in ("test", "gif"):
-        raise SystemExit(f"--mode {mode!r} is not implemented (use test or gif)")
+    if mode not in ("train", "test", "gif"):
+        raise SystemExit(f"--mode {mode!r} is not implemented (use train, test or gif)")
     args = config_parser(mode).parse_args(argv)
-    return run_gif(args) if mode == "gif" else run_test(args)
+    return {"train": run_train, "test": run_test, "gif": run_gif}[mode](args)
 
 
 if __name__ == "__main__":

@@ -22,223 +22,16 @@
 // no TMA and no warp specialisation, so it runs far from the tensor-core
 // bound.
 //
-// Blocking: a block takes one ray at a time (grid-stride over rays) and
-// walks its samples in chunks of M = 128 points, one point per row.  Warp w
-// owns rows [16w, 16w+16) of every activation buffer, so activations never
-// cross warps; only the weight slab is shared.  The direction head (rgb1's
-// direction rows) is evaluated once per ray.  Warp 0 composites each chunk:
-// a warp scan of -sigma*delta, transmittance and the rgb sum carried across
-// chunks in registers.
-//
-// Numerics kept from the TPU kernel (correctness rules, not TPU devices):
-// - encoding phase in exact f32 (separate rounded multiply and add, no
-//   contraction), accurate sinf (never __sinf; no --use_fast_math);
-// - 1 - alpha as expf(-x); the exclusive transmittance as expf(csum + x);
-// - samples past the ray's last get a zero distance: they add exactly 0;
-// - bf16 rounding of the encoding and of the hidden activations where the
-//   TPU kernel rounds them; biases, the density and rgb heads in f32;
-// - white background adds the final transmittance ('train' variant only,
-//   the wrapper raises otherwise).
+// The blocking, the layer chain, the compositing and the numerics kept from
+// the TPU kernel are in nerf_device.cuh, shared with the training kernels.
+// White background adds the final transmittance ('train' variant only, the
+// wrapper raises otherwise).
 
-#include <cuda_bf16.h>
-#include <cuda_pipeline.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
+#include "nerf_device.cuh"
 
-using namespace nvcuda;
+using namespace nerf;
 
 namespace {
-
-constexpr int M = 128;              // sample points per chunk (rows)
-constexpr int WARPS = 8;            // 16 rows per warp
-constexpr int THREADS = WARPS * 32;
-constexpr int KS = 32;              // weight rows per shared slab
-constexpr int NB = 128;             // output columns per pass
-constexpr int SLAB_LD = NB + 8;
-constexpr int MAX_LAYERS = 16;
-constexpr int MAX_FREQ = 16;
-constexpr int RGB1_N = 128;
-
-enum Kind { K_FC1 = 0, K_PLAIN = 1, K_SKIP = 2, K_DENSFEAT = 3, K_RGB1 = 4, K_RGB2 = 5 };
-
-struct LayerDesc {
-  int kind, w_off, b_off, K, N;
-};
-
-struct KParams {
-  LayerDesc layers[MAX_LAYERS];
-  int n_layers, hidden, pos_dim, pos_pad, dir_dim;
-  int density_softplus, variant_train, white_bg;
-  float tail, half_pi;
-  float pos_freq[MAX_FREQ], dir_freq[MAX_FREQ];
-};
-
-struct Smem {
-  __nv_bfloat16 *act0, *act1, *ext, *slab0, *slab1;
-  float *scratch, *pts, *dist, *dens, *rgb, *dirpart, *dext;
-  int act_ld, ext_ld;
-};
-
-__host__ __device__ inline int align128(int bytes) { return (bytes + 127) & ~127; }
-
-// one layout, computed alike on the host (size) and in the kernel (carve)
-__host__ __device__ inline int smem_layout(const KParams& P, char* base, Smem* s) {
-  const int act_ld = (P.hidden > RGB1_N ? P.hidden : RGB1_N) + 8;
-  const int ext_ld = P.pos_pad + 8;
-  const int sizes[] = {
-      M * act_ld * 2, M * act_ld * 2, M * ext_ld * 2,
-      KS * SLAB_LD * 2, KS * SLAB_LD * 2,
-      WARPS * 256 * 4, M * 3 * 4, M * 4, M * 4, M * 3 * 4, RGB1_N * 4,
-      3 * (2 * MAX_FREQ + 1) * 4 + 4,
-  };
-  int off = 0, offs[12];
-  for (int i = 0; i < 12; ++i) {
-    offs[i] = off;
-    off += align128(sizes[i]);
-  }
-  if (s) {
-    char* p[12];
-    for (int i = 0; i < 12; ++i) p[i] = base + offs[i];
-    s->act0 = reinterpret_cast<__nv_bfloat16*>(p[0]);
-    s->act1 = reinterpret_cast<__nv_bfloat16*>(p[1]);
-    s->ext = reinterpret_cast<__nv_bfloat16*>(p[2]);
-    s->slab0 = reinterpret_cast<__nv_bfloat16*>(p[3]);
-    s->slab1 = reinterpret_cast<__nv_bfloat16*>(p[4]);
-    s->scratch = reinterpret_cast<float*>(p[5]);
-    s->pts = reinterpret_cast<float*>(p[6]);
-    s->dist = reinterpret_cast<float*>(p[7]);
-    s->dens = reinterpret_cast<float*>(p[8]);
-    s->rgb = reinterpret_cast<float*>(p[9]);
-    s->dirpart = reinterpret_cast<float*>(p[10]);
-    s->dext = reinterpret_cast<float*>(p[11]);
-    s->act_ld = act_ld;
-    s->ext_ld = ext_ld;
-  }
-  return off;
-}
-
-__device__ inline float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-// column c of [x ++ sin/cos(pi 2^l x) ++ 0-pad]: exact f32 phase (rounded
-// product, rounded phase shift), accurate sinf
-__device__ inline float encode(const float* x, int c, int n_dim,
-                               const float* freq, float half_pi) {
-  if (c < 3) return x[c];
-  if (c >= n_dim) return 0.0f;
-  const int t = c - 3, l = t / 6, r = t % 6;
-  float u = __fmul_rn(x[r % 3], freq[l]);
-  if (r >= 3) u = __fadd_rn(u, half_pi);
-  return sinf(u);
-}
-
-// copy weight rows [k0, k0+ks) x columns [n0, n0+nb) into a shared slab
-__device__ inline void load_slab(__nv_bfloat16* slab, const __nv_bfloat16* W,
-                                 int ldw, int k0, int ks, int n0, int nb) {
-  const int vec_per_row = nb / 8;
-  for (int i = threadIdx.x; i < ks * vec_per_row; i += THREADS) {
-    const int r = i / vec_per_row, v = i - r * vec_per_row;
-    __pipeline_memcpy_async(slab + r * SLAB_LD + v * 8,
-                            W + (size_t)(k0 + r) * ldw + n0 + v * 8, 16);
-  }
-  __pipeline_commit();
-}
-
-// out = act(in[:, :K] @ W + b) for this block's 128 rows.  Rows k < k_main
-// of the product read ``in``, rows k >= k_main read ``ext`` (the skip
-// layer's concat, without building it).  The epilogue depends on the kind.
-__device__ void run_layer(const KParams& P, const LayerDesc& L,
-                          const __nv_bfloat16* __restrict__ W,
-                          const float* __restrict__ B, const Smem& s,
-                          const __nv_bfloat16* in, int in_ld, int k_main,
-                          __nv_bfloat16* out) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int row0 = warp * 16;
-  const __nv_bfloat16* Wl = W + L.w_off;
-  const float* Bl = B + L.b_off;
-  float* scratch = s.scratch + warp * 256;
-  const int n_pass = (L.N + NB - 1) / NB;
-  const int n_ks = (L.K + KS - 1) / KS;
-  const int total = n_pass * n_ks;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NB / 16];
-
-  load_slab(s.slab0, Wl, L.N, 0, min(KS, L.K), 0, min(NB, L.N));
-  for (int it = 0; it < total; ++it) {
-    const int pass = it / n_ks, ki = it - pass * n_ks;
-    const int n0 = pass * NB, nb = min(NB, L.N - n0), nfr = nb / 16;
-    const int k0 = ki * KS, ks = min(KS, L.K - k0);
-    __nv_bfloat16* slab = (it & 1) ? s.slab1 : s.slab0;
-    if (it + 1 < total) {
-      const int pn = (it + 1) / n_ks, pk = (it + 1) - pn * n_ks;
-      load_slab((it & 1) ? s.slab0 : s.slab1, Wl, L.N, pk * KS,
-                min(KS, L.K - pk * KS), pn * NB, min(NB, L.N - pn * NB));
-      __pipeline_wait_prior(1);
-    } else {
-      __pipeline_wait_prior(0);
-    }
-    __syncthreads();
-    if (ki == 0) {
-#pragma unroll
-      for (int f = 0; f < NB / 16; ++f) wmma::fill_fragment(acc[f], 0.0f);
-    }
-    for (int kk = 0; kk < ks; kk += 16) {
-      const int k = k0 + kk;
-      const __nv_bfloat16* a_ptr =
-          k < k_main ? in + row0 * in_ld + k : s.ext + row0 * s.ext_ld + (k - k_main);
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, a_ptr, k < k_main ? in_ld : s.ext_ld);
-#pragma unroll
-      for (int f = 0; f < NB / 16; ++f) {
-        if (f < nfr) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b;
-          wmma::load_matrix_sync(b, slab + kk * SLAB_LD + f * 16, SLAB_LD);
-          wmma::mma_sync(acc[f], a, b, acc[f]);
-        }
-      }
-    }
-    if (ki == n_ks - 1) {
-      // epilogue: warp-private rows, through a 16x16 f32 scratch tile
-#pragma unroll
-      for (int f = 0; f < NB / 16; ++f) {
-        if (f < nfr) {
-          __syncwarp();
-          wmma::store_matrix_sync(scratch, acc[f], 16, wmma::mem_row_major);
-          __syncwarp();
-          for (int e = lane; e < 256; e += 32) {
-            const int row = row0 + (e >> 4), col = n0 + f * 16 + (e & 15);
-            const float v = scratch[e];
-            switch (L.kind) {
-              case K_DENSFEAT:
-                if (col < P.hidden) {
-                  out[row * s.act_ld + col] = __float2bfloat16_rn(fmaxf(v + Bl[col], 0.0f));
-                } else if (col == P.hidden) {
-                  const float x = v + Bl[col];
-                  s.dens[row] = P.density_softplus
-                                    ? fmaxf(x, 0.0f) + log1pf(expf(-fabsf(x)))
-                                    : fmaxf(x, 0.0f);
-                }
-                break;
-              case K_RGB1:
-                out[row * s.act_ld + col] =
-                    __float2bfloat16_rn(fmaxf((v + s.dirpart[col]) + Bl[col], 0.0f));
-                break;
-              case K_RGB2:
-                if (col < 3) s.rgb[row * 3 + col] = 1.0f / (1.0f + expf(-(v + Bl[col])));
-                break;
-              default:
-                out[row * s.act_ld + col] = __float2bfloat16_rn(fmaxf(v + Bl[col], 0.0f));
-            }
-          }
-        }
-      }
-      __syncwarp();
-    }
-    __syncthreads();
-  }
-}
 
 template <bool EMIT_WEIGHTS>
 __global__ void __launch_bounds__(THREADS, 1)
@@ -249,111 +42,22 @@ fused_render_kernel(const float* __restrict__ origins, const float* __restrict__
                     float* __restrict__ w_out) {
   extern __shared__ __align__(128) char smem_raw[];
   Smem s;
-  smem_layout(P, smem_raw, &s);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const LayerDesc& rgb1 = P.layers[P.n_layers - 2];
+  smem_layout(P, smem_raw, &s, false);
+  const int tid = threadIdx.x, warp = tid >> 5;
   const int S = n_sample;
 
   for (int ray = blockIdx.x; ray < n_rays; ray += gridDim.x) {
     const float o[3] = {origins[ray * 3], origins[ray * 3 + 1], origins[ray * 3 + 2]};
     const float d[3] = {dirs[ray * 3], dirs[ray * 3 + 1], dirs[ray * 3 + 2]};
-    // direction head, once per ray: bf16(encoded d) @ rgb1's direction rows
-    if (tid < P.dir_dim)
-      s.dext[tid] = bf16_round(encode(d, tid, P.dir_dim, P.dir_freq, P.half_pi));
-    __syncthreads();
-    if (tid < RGB1_N) {
-      const __nv_bfloat16* wd = W + rgb1.w_off + (size_t)P.hidden * RGB1_N + tid;
-      float acc = 0.0f;
-      for (int k = 0; k < P.dir_dim; ++k)
-        acc = fmaf(s.dext[k], __bfloat162float(wd[k * RGB1_N]), acc);
-      s.dirpart[tid] = acc;
-    }
+    setup_ray(P, W, s, d);
     float T = 1.0f, acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
 
     for (int c0 = 0; c0 < S; c0 += M) {
-      if (tid < M) {
-        const int si = c0 + tid;
-        const int sc = si < S ? si : S - 1;
-        const float zs = z[(size_t)ray * S + sc];
-#pragma unroll
-        for (int j = 0; j < 3; ++j) s.pts[tid * 3 + j] = __fadd_rn(o[j], __fmul_rn(d[j], zs));
-        s.dist[tid] = si >= S ? 0.0f
-                      : si < S - 1 ? z[(size_t)ray * S + si + 1] - zs
-                                   : P.tail;
-      }
-      __syncthreads();
-      for (int e = tid; e < M * P.pos_pad; e += THREADS) {
-        const int r = e / P.pos_pad, c = e - r * P.pos_pad;
-        s.ext[r * s.ext_ld + c] = __float2bfloat16_rn(
-            encode(s.pts + r * 3, c, P.pos_dim, P.pos_freq, P.half_pi));
-      }
-      // the layer chain; run_layer's first __syncthreads publishes ext
-      __nv_bfloat16* cur = s.act0;
-      __nv_bfloat16* other = s.act1;
-      for (int li = 0; li < P.n_layers; ++li) {
-        const LayerDesc& L = P.layers[li];
-        switch (L.kind) {
-          case K_FC1:
-            run_layer(P, L, W, B, s, s.ext, s.ext_ld, L.K, cur);
-            break;
-          case K_SKIP:
-            run_layer(P, L, W, B, s, cur, s.act_ld, P.hidden, other);
-            break;
-          case K_RGB2:
-            run_layer(P, L, W, B, s, cur, s.act_ld, L.K, nullptr);
-            break;
-          default:  // plain, densfeat, rgb1
-            run_layer(P, L, W, B, s, cur, s.act_ld, L.K, other);
-        }
-        if (L.kind != K_FC1 && L.kind != K_RGB2) {
-          __nv_bfloat16* t = cur;
-          cur = other;
-          other = t;
-        }
-      }
-      // run_layer ends in __syncthreads: dens, rgb and dist are complete
-      if (warp == 0) {
-        float x[4], c[4];
-        float run = 0.0f;
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int i = lane * 4 + q;
-          x[q] = s.dens[i] * s.dist[i];
-          run -= x[q];
-          c[q] = run;
-        }
-        float incl = run;
-#pragma unroll
-        for (int off = 1; off < 32; off <<= 1) {
-          const float n = __shfl_up_sync(0xffffffffu, incl, off);
-          if (lane >= off) incl += n;
-        }
-        float excl = __shfl_up_sync(0xffffffffu, incl, 1);
-        if (lane == 0) excl = 0.0f;
-        const float last = __shfl_sync(0xffffffffu, incl, 31);
-        float pr = 0.0f, pg = 0.0f, pb = 0.0f;
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int i = lane * 4 + q;
-          const float csum = excl + c[q];
-          const float trans = P.variant_train ? expf(csum + x[q]) : expf(csum);
-          const float w = (1.0f - expf(-x[q])) * (T * trans);
-          if (EMIT_WEIGHTS && c0 + i < S) w_out[(size_t)ray * S + c0 + i] = w;
-          pr += w * s.rgb[i * 3];
-          pg += w * s.rgb[i * 3 + 1];
-          pb += w * s.rgb[i * 3 + 2];
-        }
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) {
-          pr += __shfl_xor_sync(0xffffffffu, pr, off);
-          pg += __shfl_xor_sync(0xffffffffu, pg, off);
-          pb += __shfl_xor_sync(0xffffffffu, pb, off);
-        }
-        acc_r += pr;
-        acc_g += pg;
-        acc_b += pb;
-        T = T * expf(last);
-      }
+      prepare_chunk(P, s, o, d, z + (size_t)ray * S, S, c0);
+      forward_chunk(P, W, B, s, nullptr, 0);
+      if (warp == 0)
+        composite_chunk(P, s, S, c0, EMIT_WEIGHTS ? w_out + (size_t)ray * S : nullptr,
+                        T, acc_r, acc_g, acc_b);
       __syncthreads();
     }
     if (tid == 0) {
@@ -369,7 +73,7 @@ template <bool EMIT>
 int launch(const float* o, const float* d, const float* z, int n_rays, int n_sample,
            const void* w, const float* b, const KParams& P, float* rgb, float* wts,
            cudaStream_t stream) {
-  const int smem = smem_layout(P, nullptr, nullptr);
+  const int smem = smem_layout(P, nullptr, nullptr, false);
   cudaError_t err = cudaFuncSetAttribute(
       fused_render_kernel<EMIT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -392,36 +96,15 @@ int launch(const float* o, const float* d, const float* z, int n_rays, int n_sam
 
 extern "C" {
 
-// iparams: n_layers, hidden, pos_dim, pos_pad, dir_dim, density_softplus,
-//          variant_train, white_bg, then (kind, w_off, b_off, K, N) per layer.
-// fparams: tail, half_pi, pos_freq[16], dir_freq[16] (pi * 2^l, zero-padded).
+// iparams and fparams: see parse_params in nerf_device.cuh.
 // Returns 0 or a cudaError_t code.
 int sfm_fused_render(const float* origins, const float* dirs, const float* z,
                      int n_rays, int n_sample, const void* weights,
                      const float* biases, const int* iparams, const float* fparams,
                      float* rgb_out, float* w_out, int emit_weights, void* stream) {
   KParams P;
-  P.n_layers = iparams[0];
-  if (P.n_layers < 4 || P.n_layers > MAX_LAYERS) return cudaErrorInvalidValue;
-  P.hidden = iparams[1];
-  P.pos_dim = iparams[2];
-  P.pos_pad = iparams[3];
-  P.dir_dim = iparams[4];
-  P.density_softplus = iparams[5];
-  P.variant_train = iparams[6];
-  P.white_bg = iparams[7];
-  if (P.pos_dim > 3 * (2 * MAX_FREQ + 1) || P.dir_dim > 3 * (2 * MAX_FREQ + 1))
-    return cudaErrorInvalidValue;
-  for (int i = 0; i < P.n_layers; ++i) {
-    const int* q = iparams + 8 + 5 * i;
-    P.layers[i] = LayerDesc{q[0], q[1], q[2], q[3], q[4]};
-  }
-  P.tail = fparams[0];
-  P.half_pi = fparams[1];
-  for (int i = 0; i < MAX_FREQ; ++i) {
-    P.pos_freq[i] = fparams[2 + i];
-    P.dir_freq[i] = fparams[2 + MAX_FREQ + i];
-  }
+  const cudaError_t perr = parse_params(iparams, fparams, &P);
+  if (perr != cudaSuccess) return perr;
   if (n_rays <= 0) return cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return emit_weights

@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -102,6 +102,9 @@ class PackedNeRF:
     n_pos_freq: int
     n_dir_freq: int
     density_act: str
+    # the module the weights were packed from: the training wrappers route
+    # the packed grads back to its parameters
+    model: Optional[NeRF] = None
 
     def w(self, spec: LayerSpec) -> torch.Tensor:
         return self.weights[spec.w_off:spec.w_off + spec.k_rows * spec.n].view(
@@ -116,15 +119,19 @@ def _round_up(x: int, m: int) -> int:
 
 
 def pack_nerf_params(model: NeRF, mcfg: NeRFModelConfig,
-                     dtype=torch.bfloat16) -> PackedNeRF:
+                     dtype=torch.bfloat16, differentiable: bool = False) -> PackedNeRF:
     """Pack ``model`` into the kernel's layout (see PackedNeRF), on the
-    model's device, weights in ``dtype`` and biases in float32."""
+    model's device, weights in ``dtype`` and biases in float32.  The
+    packing is detached from the parameters unless ``differentiable`` (the
+    tests hold kernels/fused_train.py's hand-written unpacking of grads
+    against autograd through it)."""
     body, density_act = _arch_layers(mcfg)
     h = mcfg.hidden
     if h % 16 or mcfg.n_pos_freq > MAX_FREQ or mcfg.n_dir_freq > MAX_FREQ:
         raise ValueError(f"fused render: unsupported model config {mcfg}")
     pos_pad = _round_up(mcfg.pos_dim, 16)
-    L = {name: (layer.weight.detach().float().t(), layer.bias.detach().float())
+    det = (lambda t: t) if differentiable else torch.Tensor.detach
+    L = {name: (det(layer.weight).float().t(), det(layer.bias).float())
          for name, layer in model.layers.items()}
     dev = next(model.parameters()).device
 
@@ -167,7 +174,7 @@ def pack_nerf_params(model: NeRF, mcfg: NeRFModelConfig,
         dir_dim=mcfg.dir_dim,
         n_pos_freq=mcfg.n_pos_freq if mcfg.pos_encoding else 0,
         n_dir_freq=mcfg.n_dir_freq if mcfg.pos_encoding else 0,
-        density_act=density_act,
+        density_act=density_act, model=model,
     )
 
 

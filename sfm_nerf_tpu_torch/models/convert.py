@@ -1,9 +1,12 @@
-"""Weights across the two packages.
+"""Weights and optimizer state across the two packages.
 
 The JAX package stores each layer as ``{'w': (fan_in, fan_out), 'b':
 (fan_out,)}``; ``nn.Linear`` stores (out, in).  This is the one place that
-transposes.  Conversion of reference ``.pth`` files waits for a slice that
-needs it: no ``.pth`` file is in the repository.
+transposes.  optax's Adam state (``mu``, ``nu`` shaped like the params, one
+``count``) maps to ``torch.optim.Adam``'s per-parameter ``exp_avg``,
+``exp_avg_sq`` and ``step``, transposed like the weights.  Conversion of reference ``.pth``
+files waits for a slice that needs it: no ``.pth`` file is in the
+repository.
 """
 
 from __future__ import annotations
@@ -19,14 +22,14 @@ from sfm_nerf_tpu_torch.models.nerf import NeRF, layer_shapes
 JaxParams = Dict[str, Dict[str, np.ndarray]]
 
 
-def params_from_jax(params: JaxParams, mcfg: NeRFModelConfig, device="cpu") -> NeRF:
-    """A float32 NeRF holding the JAX-layout ``params``."""
-    expected = layer_shapes(mcfg)
+def load_params_from_jax(model: NeRF, params: JaxParams) -> NeRF:
+    """Copy the JAX-layout ``params`` into ``model`` in place (an optimizer
+    built on its parameters keeps pointing at them)."""
+    expected = layer_shapes(model.cfg)
     if set(params) != set(expected):
         raise KeyError(
             f"params layers {sorted(params)} do not match the "
-            f"{mcfg.arch} arch's {sorted(expected)}")
-    model = NeRF(mcfg, device=device)
+            f"{model.cfg.arch} arch's {sorted(expected)}")
     with torch.no_grad():
         for name, (fan_in, fan_out) in expected.items():
             w = np.asarray(params[name]["w"], np.float32)
@@ -40,6 +43,11 @@ def params_from_jax(params: JaxParams, mcfg: NeRFModelConfig, device="cpu") -> N
     return model
 
 
+def params_from_jax(params: JaxParams, mcfg: NeRFModelConfig, device="cpu") -> NeRF:
+    """A float32 NeRF holding the JAX-layout ``params``."""
+    return load_params_from_jax(NeRF(mcfg, device=device), params)
+
+
 def params_to_jax(model: NeRF) -> JaxParams:
     """Inverse of params_from_jax: float32 numpy in the JAX layout."""
     return {
@@ -49,3 +57,40 @@ def params_to_jax(model: NeRF) -> JaxParams:
         }
         for name, layer in model.layers.items()
     }
+
+
+def optimizer_state_to_jax(model: NeRF, optimizer: torch.optim.Adam) -> dict:
+    """``{'count', 'mu', 'nu'}`` in the JAX layout from the Adam state of
+    ``model``'s parameters.  A parameter that has taken no step yet counts
+    zeros; ``count`` is the number of updates done."""
+    mu: JaxParams = {}
+    nu: JaxParams = {}
+    count = 0
+    for name, layer in model.layers.items():
+        mu[name], nu[name] = {}, {}
+        for key, p in (("w", layer.weight), ("b", layer.bias)):
+            st = optimizer.state.get(p, {})
+            for tree, field in ((mu, "exp_avg"), (nu, "exp_avg_sq")):
+                t = st[field] if field in st else torch.zeros_like(p)
+                a = t.detach().float().cpu().numpy()
+                tree[name][key] = a.T.copy() if key == "w" else a
+            if "step" in st:
+                count = max(count, int(st["step"]))
+    return {"count": count, "mu": mu, "nu": nu}
+
+
+def optimizer_state_from_jax(model: NeRF, optimizer: torch.optim.Adam, state: dict) -> None:
+    """Load ``{'count', 'mu', 'nu'}`` (JAX layout) into ``optimizer``'s state
+    for ``model``'s parameters, in place."""
+    for name, layer in model.layers.items():
+        for key, p in (("w", layer.weight), ("b", layer.bias)):
+            st = optimizer.state[p]
+            for field, tree in (("exp_avg", "mu"), ("exp_avg_sq", "nu")):
+                a = np.asarray(state[tree][name][key], np.float32)
+                a = a.T if key == "w" else a
+                if a.shape != tuple(p.shape):
+                    raise ValueError(f"{tree}/{name}/{key}: got {a.shape}, expected "
+                                     f"{tuple(p.shape)}")
+                st[field] = torch.tensor(a, device=p.device).contiguous()
+            # torch.optim.Adam keeps ``step`` as a float32 tensor on the CPU
+            st["step"] = torch.tensor(float(state["count"]), dtype=torch.float32)

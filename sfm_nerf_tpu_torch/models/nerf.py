@@ -16,7 +16,8 @@ weight as (out, in); models/convert.py is the one place that transposes.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import math
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -63,15 +64,29 @@ def _linear(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
 
 
 class NeRF(nn.Module):
-    def __init__(self, cfg: NeRFModelConfig, device=None, dtype=torch.float32):
+    """``seed``: initial weights from a generator of their own seeded with
+    it (drawn on the CPU, so the same on every device); without it from
+    torch's global generator.  Either way weight and bias are
+    U(-1/sqrt(fan_in), 1/sqrt(fan_in)), the JAX package's init (the values
+    differ: the two frameworks draw other numbers from the same seed)."""
+
+    def __init__(self, cfg: NeRFModelConfig, device=None, dtype=torch.float32,
+                 seed: Optional[int] = None):
         super().__init__()
         self.cfg = cfg
         self.layers = nn.ModuleDict({
             name: nn.Linear(fi, fo, device=device, dtype=dtype)
             for name, (fi, fo) in layer_shapes(cfg).items()
         })
-        # nn.Linear's default init is U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for
-        # weight and bias, the JAX package's init
+        # without a seed: nn.Linear's default init, the same distribution
+        if seed is not None:
+            gen = torch.Generator().manual_seed(seed)
+            with torch.no_grad():
+                for layer in self.layers.values():
+                    bound = 1.0 / math.sqrt(layer.in_features)
+                    for p in (layer.weight, layer.bias):
+                        u = torch.rand(p.shape, generator=gen, dtype=torch.float32)
+                        p.copy_((2.0 * u - 1.0) * bound)
         if cfg.density_bias_init:
             with torch.no_grad():
                 if cfg.arch == "active":

@@ -3,12 +3,14 @@
 Convention of sfm_nerf_tpu/ops/rays.py: the camera-frame direction
 ``[(x-cx)/fx, (y-cy)/fy, 1]`` (+y down, +z forward, no Blender axis flip)
 is rotated by ``pose[:3, :3]`` and L2-normalised; the origin is
-``pose[:3, 3]``.  Full float32 throughout.
+``pose[:3, 3]``.  Full float32 throughout.  ``sample_ray_batch`` draws a
+training batch on the device: images, poses and K stay there for the whole
+run.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -46,3 +48,37 @@ def image_rays(
         indexing="ij",
     )
     return pixel_to_ray(intrinsics, pose, xs.reshape(-1), ys.reshape(-1))
+
+
+def sample_ray_batch(
+    images: torch.Tensor,       # (N, H, W, 3) float32, on the training device
+    poses: torch.Tensor,        # (N, 4, 4)
+    intrinsics: torch.Tensor,   # (3, 3)
+    n_rays: int,
+    generator: Optional[torch.Generator] = None,
+    draws: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """IID-uniform (image, pixel) draws -> (origins, directions, target rgb),
+    each (n_rays, 3), gathered on the device the images live on.
+
+    The draws come from ``generator`` (on that device), or are given as
+    ``draws = (img_idx, px, py)`` integer tensors, so that a test feeds both
+    packages the same pixels."""
+    n_img, height, width = images.shape[0], images.shape[1], images.shape[2]
+    dev = images.device
+    if draws is None:
+        img_idx = torch.randint(0, n_img, (n_rays,), generator=generator, device=dev)
+        px = torch.randint(0, width, (n_rays,), generator=generator, device=dev)
+        py = torch.randint(0, height, (n_rays,), generator=generator, device=dev)
+    else:
+        img_idx, px, py = (t.to(dev, torch.long) for t in draws)
+    pose = poses[img_idx]                       # (B, 4, 4)
+    rgb = images[img_idx, py, px]               # (B, 3)
+    fx, fy = intrinsics[0, 0], intrinsics[1, 1]
+    cx, cy = intrinsics[0, 2], intrinsics[1, 2]
+    pxf, pyf = px.to(torch.float32), py.to(torch.float32)
+    d_cam = torch.stack([(pxf - cx) / fx, (pyf - cy) / fy, torch.ones_like(pxf)], -1)
+    # three products per component, as pixel_to_ray: full float32
+    d_world = (pose[:, :3, :3] * d_cam[:, None, :]).sum(-1)
+    d_world = d_world / torch.linalg.vector_norm(d_world, dim=-1, keepdim=True)
+    return pose[:, :3, 3], d_world, rgb

@@ -99,9 +99,12 @@ def render_rays(
     directions: torch.Tensor,
     cfg: RenderConfig,
     generator: Optional[torch.Generator] = None,
+    z_vals: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Sample -> evaluate ``model_fn(points, dirs)`` -> composite: (N, 3)."""
-    z_vals = stratified_samples(origins.shape[0], cfg, generator, origins.device)
+    """Sample (unless the depths ``z_vals`` are given) -> evaluate
+    ``model_fn(points, dirs)`` -> composite: (N, 3)."""
+    if z_vals is None:
+        z_vals = stratified_samples(origins.shape[0], cfg, generator, origins.device)
     density, rgb = model_fn(*_points(origins, directions, z_vals))
     return composite(density, rgb, z_vals, cfg)[0]
 

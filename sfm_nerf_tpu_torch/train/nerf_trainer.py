@@ -1,7 +1,29 @@
-"""Full-frame renderers (the render half of
-sfm_nerf_tpu/train/nerf_trainer.py; training comes in a later slice).
+"""NeRF training and full-frame renderers, the counterpart of
+sfm_nerf_tpu/train/nerf_trainer.py.
 
-Route, decided from the config alone:
+Training: one step is ray sampling on the device, stratified depths, the
+loss with its grads, and ``torch.optim.Adam`` under a staircase ``StepLR``
+(optax's ``exponential_decay(staircase=True)``).  The loss, decided from
+the config alone (``fused_train_supported``):
+
+- ``use_fused_kernel`` and ``fused_merged_step`` -> ``fused_mse_loss``: one
+  CUDA launch gives the loss's rgb and every grad;
+- ``use_fused_kernel`` without ``fused_merged_step`` -> ``fused_render_train``
+  (forward kernel, backward kernel) under an MSE written in torch;
+- ``--no_fused`` -> the float32 ``nn.Module`` under autograd.
+
+On CPU tensors the fused wrappers run their plain versions.  The host loop
+reads the loss only every ``log_every`` steps; checkpoints (.npz, the JAX
+package's key layout) and validation renders follow their own cadences, and
+a KeyboardInterrupt saves a checkpoint stamped with the last finished step.
+
+Not ported: ``steps_per_call`` (a ``lax.scan`` that amortises XLA dispatch:
+the torch loop enqueues each step's launches without waiting for the
+device, so there is no per-step round trip to amortise), the orbax backend,
+the ``.pth`` fine-tune resume, dp/tp, hierarchical sampling
+(``n_importance > 0`` raises).
+
+Renderers.  Route, decided from the config alone:
 
 - ``use_fused_kernel`` on -> the fused render (kernels/fused_render.py),
   which launches the CUDA kernel for CUDA tensors and runs its plain
@@ -17,19 +39,28 @@ Nothing catches a kernel error and carries on down the other path.
 
 from __future__ import annotations
 
-from typing import Optional
+import time
+from typing import Any, Callable, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from sfm_nerf_tpu_torch.config import NeRFPipelineConfig
 from sfm_nerf_tpu_torch.kernels.fused_render import (
-    fused_render_rays, fused_render_rays_weights, pack_nerf_params,
+    MAX_FREQ, fused_render_rays, fused_render_rays_weights, pack_nerf_params,
+)
+from sfm_nerf_tpu_torch.kernels.fused_train import fused_mse_loss, fused_render_train
+from sfm_nerf_tpu_torch.models.convert import (
+    load_params_from_jax, optimizer_state_from_jax, optimizer_state_to_jax, params_to_jax,
 )
 from sfm_nerf_tpu_torch.models.nerf import NeRF
-from sfm_nerf_tpu_torch.ops.rays import image_rays
+from sfm_nerf_tpu_torch.ops.rays import image_rays, sample_ray_batch
 from sfm_nerf_tpu_torch.ops.render import (
-    render_rays_chunked, render_rays_chunked_aux, stratified_samples, weight_maps,
+    render_rays, render_rays_chunked, render_rays_chunked_aux, stratified_samples,
+    weight_maps,
 )
+from sfm_nerf_tpu_torch.train import checkpoint as ckpt_lib
+from sfm_nerf_tpu_torch.utils.metrics import mse as host_mse
 
 
 def use_fused_route(cfg: NeRFPipelineConfig) -> bool:
@@ -100,3 +131,265 @@ def make_render_image_aux(cfg: NeRFPipelineConfig):
                 disp.reshape(hw), acc.reshape(hw))
 
     return render_image_aux
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+
+def make_schedule(cfg: NeRFPipelineConfig) -> Callable[[int], float]:
+    """step -> learning rate: ``lrate * decay ** (step // decay_steps)``,
+    optax's staircase exponential decay and torch's StepLR."""
+    t = cfg.train
+    return lambda step: t.lrate * t.lrate_decay ** (step // t.lrate_decay_steps)
+
+
+def make_optimizer(cfg: NeRFPipelineConfig, model: NeRF):
+    """(Adam, StepLR) over ``model``'s parameters; call ``scheduler.step()``
+    after every ``optimizer.step()``.  Adam's betas (0.9, 0.999) and eps
+    1e-8 are optax.adam's."""
+    t = cfg.train
+    opt = torch.optim.Adam(model.parameters(), lr=t.lrate, betas=(0.9, 0.999), eps=1e-8)
+    sched = torch.optim.lr_scheduler.StepLR(
+        opt, step_size=t.lrate_decay_steps, gamma=t.lrate_decay)
+    return opt, sched
+
+
+def fused_train_supported(cfg: NeRFPipelineConfig) -> bool:
+    """Whether the fused training kernels cover this config; outside it
+    make_loss_fn takes the nn.Module autograd path.  Envelope: active or
+    legacy arch (the no-PE ablation included), the 'train' compositor
+    (white background too), flat sampling, hidden a multiple of 16 up to
+    256, at most 16 encoding frequencies.
+
+    Clauses of the JAX gate that the CUDA kernel does not need, dropped:
+    the chunk count cap and the pad-ratio bound (the kernel loops over any
+    number of 128-sample chunks and masks a ragged last one), the 128-lane
+    chunk alignment, fast_sin's frequency range (the kernel calls the
+    accurate sinf), and the accelerator-backend clause (CPU tensors run the
+    kernel's plain version)."""
+    mcfg, rcfg = cfg.model, cfg.render
+    return (
+        rcfg.use_fused_kernel
+        and mcfg.arch in ("active", "legacy")
+        and rcfg.n_importance == 0
+        and rcfg.variant == "train"
+        and mcfg.hidden % 16 == 0 and mcfg.hidden <= 256
+        and (not mcfg.pos_encoding
+             or (mcfg.n_pos_freq <= MAX_FREQ and mcfg.n_dir_freq <= MAX_FREQ))
+    )
+
+
+def _mse(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    return torch.mean((pred - target) ** 2)
+
+
+def make_loss_fn(cfg: NeRFPipelineConfig, n_rays: Optional[int] = None):
+    """The per-batch loss ``loss_fn(model, generator, images, poses, K,
+    draws=None, u=None)``: ray sampling on the device -> render -> MSE, a
+    scalar whose ``backward()`` fills the parameters' grads.  ``draws``
+    (img_idx, px, py) and ``u`` (n_rays, n_sample) replace the generator's
+    pixel and depth draws (tests feed both packages the same numbers)."""
+    mcfg, rcfg = cfg.model, cfg.render
+    n_rays = n_rays if n_rays is not None else cfg.train.n_rays_batch
+    if rcfg.n_importance > 0:
+        raise NotImplementedError("hierarchical training: later slice")
+    fused = fused_train_supported(cfg)
+    if not fused and cfg.train.compute_dtype != "float32":
+        raise NotImplementedError("the nn.Module training path is float32 only")
+
+    def loss_fn(model: NeRF, generator, images, poses, K, draws=None, u=None):
+        o, d, target = sample_ray_batch(images, poses, K, n_rays, generator, draws)
+        z = stratified_samples(n_rays, rcfg, generator, o.device, u)
+        if not fused:
+            return _mse(render_rays(model, o, d, rcfg, z_vals=z), target)
+        # the CUDA kernels take bf16-packed weights; the plain version on the
+        # CPU packs in float32 unless compute_dtype asks for bf16
+        bf16 = o.device.type == "cuda" or cfg.train.compute_dtype == "bfloat16"
+        packed = pack_nerf_params(model, mcfg, torch.bfloat16 if bf16 else torch.float32)
+        if rcfg.fused_merged_step:
+            return fused_mse_loss(packed, o, d, z, target, rcfg)
+        return _mse(fused_render_train(packed, o, d, z, rcfg), target)
+
+    return loss_fn
+
+
+def make_train_step(cfg: NeRFPipelineConfig, optimizer, scheduler) -> Callable:
+    """``step(model, generator, images, poses, K) -> loss`` (a detached
+    scalar tensor on the device; nothing here waits for the device)."""
+    loss_fn = make_loss_fn(cfg)
+
+    def train_step(model: NeRF, generator, images, poses, K) -> torch.Tensor:
+        optimizer.zero_grad(set_to_none=True)
+        loss = loss_fn(model, generator, images, poses, K)
+        loss.backward()
+        optimizer.step()
+        scheduler.step()
+        return loss.detach()
+
+    return train_step
+
+
+class NeRFTrainer:
+    """Host-side orchestration: resume, loop, logging, checkpoints."""
+
+    def __init__(
+        self,
+        cfg: NeRFPipelineConfig,
+        images: np.ndarray,
+        poses: np.ndarray,
+        camera_matrix: np.ndarray,
+        device="cuda",
+        train_step: Optional[Callable] = None,
+        writer: Any = None,
+    ):
+        if cfg.render.n_importance > 0:
+            raise NotImplementedError("hierarchical training: later slice")
+        if cfg.train.ckpt_backend != "npz":
+            raise NotImplementedError("only the npz checkpoint backend is ported")
+        self.cfg = cfg
+        self.device = torch.device(device)
+        f32 = dict(dtype=torch.float32, device=self.device)
+        self.images = torch.as_tensor(np.asarray(images), **f32)
+        self.poses = torch.as_tensor(np.asarray(poses), **f32)
+        self.K = torch.as_tensor(np.asarray(camera_matrix), **f32)
+        self.model = NeRF(cfg.model, device=self.device, seed=cfg.train.seed)
+        self.optimizer, self.scheduler = make_optimizer(cfg, self.model)
+        self._schedule = make_schedule(cfg)
+        self.train_step = train_step or make_train_step(cfg, self.optimizer, self.scheduler)
+        self.start_iter = 0
+        self.writer = writer
+        self.loss_log: List[Tuple[int, float]] = []   # (iteration, loss) at log_every
+        self.val_log: List[Tuple[int, int, float]] = []   # (iteration, view, mse)
+
+    # -- checkpointing -----------------------------------------------------
+    def try_resume(self) -> bool:
+        path = ckpt_lib.latest_checkpoint(self.cfg.checkpoint_path)
+        if path is None:
+            return False
+        params, opt_state, step = ckpt_lib.load_checkpoint(path)
+        load_params_from_jax(self.model, params)
+        if opt_state is not None:
+            optimizer_state_from_jax(self.model, self.optimizer, opt_state)
+        # the schedule follows the number of updates done
+        done = opt_state["count"] if opt_state is not None else step + 1
+        self.scheduler.last_epoch = done
+        for group in self.optimizer.param_groups:
+            group["lr"] = self._schedule(done)
+        self.start_iter = step + 1
+        return True
+
+    def save(self, step: int, loss: float, final: bool = False) -> str:
+        return ckpt_lib.save_checkpoint(
+            self.cfg.checkpoint_path, step, params_to_jax(self.model),
+            optimizer_state_to_jax(self.model, self.optimizer),
+            extra={"loss": loss}, final=final)
+
+    # -- main loop ---------------------------------------------------------
+    def fit(self, max_iters: Optional[int] = None,
+            val_indices: Optional[np.ndarray] = None, progress: bool = True) -> dict:
+        cfg = self.cfg
+        max_iters = max_iters if max_iters is not None else cfg.train.max_iters
+        if cfg.load_checkpoint:
+            self.try_resume()
+        if val_indices is None:
+            rng = np.random.default_rng(cfg.train.seed)
+            n_val = min(cfg.train.n_val_images, len(self.images))
+            val_indices = rng.choice(len(self.images), n_val, replace=False)
+        self._generator = torch.Generator(device=self.device)
+        self._generator.manual_seed(cfg.train.seed + 1)
+        self._loss = torch.zeros((), device=self.device)
+        self._steps_done = 0
+        self._marks: list = []     # (iteration, CUDA event or host time) at log_every
+        # the last iteration whose update the parameters hold: what an
+        # interrupt checkpoint must stamp (resume = step + 1)
+        self._done_through = self.start_iter - 1
+        t_start = time.time()
+        iterator = range(self.start_iter, max_iters)
+        if progress:
+            try:
+                from tqdm import tqdm
+                iterator = tqdm(iterator)
+            except ImportError:
+                pass
+        try:
+            self._fit_loop(iterator, cfg, val_indices, progress)
+        except KeyboardInterrupt:
+            # interrupt -> checkpoint -> exit.  An interrupt that lands
+            # inside optimizer.step() may have applied part of that update;
+            # the stamp is still the last finished step, which resume re-runs
+            if self._done_through >= 0:
+                print("KeyboardInterrupt: saving checkpoint before exit")
+                self.save(self._done_through, float(self._loss))
+            else:
+                print("KeyboardInterrupt before any completed step; nothing to checkpoint")
+            raise
+        final_loss = float(self._loss)      # waits for the device
+        if self._steps_done > 0:
+            self.save(max_iters - 1, final_loss, final=True)
+        elapsed = time.time() - t_start
+        rays = self._steps_done * cfg.train.n_rays_batch
+        return {"final_loss": final_loss, "steps": self._steps_done,
+                "elapsed_s": elapsed, "rays_per_sec": rays / max(elapsed, 1e-9),
+                "ms_per_step": self._ms_per_step()}
+
+    def _ms_per_step(self) -> Optional[float]:
+        """Milliseconds per step between the second and the last log point
+        (the first interval holds the warm-up), checkpoint saves and
+        validation renders in between included: CUDA events on a card, the
+        host clock on the CPU.  None with fewer than three log points."""
+        if len(self._marks) < 3:
+            return None
+        (it0, m0), (it1, m1) = self._marks[1], self._marks[-1]
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+            return float(m0.elapsed_time(m1)) / (it1 - it0)
+        return (m1 - m0) * 1e3 / (it1 - it0)
+
+    def _fit_loop(self, iterator, cfg, val_indices, progress) -> None:
+        t = cfg.train
+        for it in iterator:
+            loss = self.train_step(self.model, self._generator, self.images, self.poses, self.K)
+            self._loss = loss
+            self._steps_done += 1
+            self._done_through = it
+            # the loss reaches the host only here: a read per step would
+            # stall the stream
+            if t.log_every and it % t.log_every == 0:
+                loss_f = float(loss)
+                self.loss_log.append((it, loss_f))
+                if self.device.type == "cuda":
+                    mark = torch.cuda.Event(enable_timing=True)
+                    mark.record()
+                else:
+                    mark = time.perf_counter()
+                self._marks.append((it, mark))
+                if progress and hasattr(iterator, "set_description"):
+                    iterator.set_description(f"Loss: {loss_f:.6f}")
+                if self.writer is not None:
+                    self.writer.add_scalar("Loss/train", loss_f, it)
+                    self.writer.add_scalar("Learning Rate", self._schedule(it), it)
+                    self.writer.add_scalar(
+                        "Loss/train_avg",
+                        float(np.mean([v for _, v in self.loss_log[-10:]])), it)
+            if t.save_ckpt_iter and it % t.save_ckpt_iter == 0 and it > 0:
+                self.save(it, float(loss))
+            if t.val_every and it % t.val_every == 0 and it > 0:
+                self._validate(it, val_indices)
+
+    def _validate(self, it: int, val_indices) -> None:
+        height, width = int(self.images.shape[1]), int(self.images.shape[2])
+        # a renderer packs the weights it first sees: a new one per validation
+        render_image = make_render_image(self.cfg)
+        self.model.eval()
+        for i, idx in enumerate(val_indices):
+            pred = render_image(self.model, self.K, self.poses[int(idx)], height, width)
+            gt = self.images[int(idx)]
+            val_mse = host_mse(pred, gt)
+            self.val_log.append((it, int(idx), val_mse))
+            if self.writer is not None:
+                self.writer.add_scalar(f"Loss/val_{i}", val_mse, it)
+                side = torch.cat([gt, pred], dim=1).permute(2, 0, 1).clamp(0, 1)
+                self.writer.add_image(f"Val_Image_{i}", side.cpu().numpy(), it)
+        self.model.train()

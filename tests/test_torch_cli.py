@@ -1,6 +1,6 @@
-"""The port's NeRF CLI (test and gif modes) on a 16^2 synthetic dataset and
-a JAX-written checkpoint, held against the JAX renderer; its flags against
-the JAX parsers; its PNG codec against imageio."""
+"""The port's NeRF CLI (train, test and gif modes) on a 16^2 synthetic dataset
+and a JAX-written checkpoint, held against the JAX renderer; its flags
+against the JAX parsers; its PNG codec against imageio."""
 
 import glob
 import importlib.util
@@ -110,6 +110,39 @@ def test_cli_gif_mode(setup):
         assert psnr(frame / 255.0, exp8 / 255.0) >= 45.0
 
 
+@pytest.mark.parametrize("route", [[], ["--two_kernel_step"], ["--no_fused"]])
+def test_cli_train_mode_then_test_mode(setup, route, capsys):
+    """--mode train on the CPU for 12 steps (the fused routes run their plain
+    versions), then a second call resumes from the newest checkpoint, then
+    --mode test renders from the final_model.ckpt.npz it saved."""
+    root, data, _, _ = setup
+    ck = root / ("train_ckpt" + "".join(route).replace("-", ""))
+    flags = ["--device", "cpu", "--data_path", data, "--checkpoint_path", str(ck),
+             "--n_sample", "16", "--n_rays_batch", "64", "--lrate", "5e-3",
+             "--log_every", "1", "--val_every", "10", "--save_ckpt_iter", "5",
+             *_model_flags(), *route]
+    stats = main(["--mode", "train", "--max_iters", "12", *flags])
+    losses = [v for _, v in stats["losses"]]
+    assert stats["steps"] == 12 and stats["start_iter"] == 0 and len(losses) == 12
+    assert np.isfinite(losses).all() and np.mean(losses[-3:]) < np.mean(losses[:3])
+    assert len(stats["val"]) == 5                       # n_val_images views at step 10
+    assert sorted(os.listdir(ck / "scene")) == [
+        "final_model.ckpt.npz", "model_000005.ckpt.npz", "model_000010.ckpt.npz"]
+    resumed = main(["--mode", "train", "--max_iters", "13", *flags])
+    assert resumed["start_iter"] == 11 and resumed["steps"] == 2
+    assert "Training done" in capsys.readouterr().out
+    records = main(["--mode", "test", "--device", "cpu", "--data_path", data,
+                    "--checkpoint_path", str(ck), "--images_path", str(root / "train_img"),
+                    "--n_sample", "16", *_model_flags(),
+                    *[f for f in route if f == "--no_fused"]])
+    assert len(records) == 5 and all(np.isfinite(r["mse"]) for r in records)
+    # the JAX package reads the checkpoint the port's CLI wrote
+    from sfm_nerf_tpu.train.checkpoint import load_params_untyped
+
+    params, step = load_params_untyped(str(ck / "scene" / "final_model.ckpt.npz"))
+    assert step == 12 and params["fc1"]["w"].shape == (27, MODEL["hidden"])
+
+
 def _jax_parser(script):
     spec = importlib.util.spec_from_file_location(
         f"_jax_cli_{script}", os.path.join(REPO, "Phase2", f"{script}.py"))
@@ -118,11 +151,18 @@ def _jax_parser(script):
     return mod.configParser()
 
 
-@pytest.mark.parametrize("mode,script", [("test", "train"), ("gif", "Wrapper")])
+# flags the port adds to a mode's JAX parser
+ADDED = {"test": ["device"], "gif": ["device"],
+         "train": ["device", "log_every", "val_every", "two_kernel_step"]}
+
+
+@pytest.mark.parametrize("mode,script", [("test", "train"), ("gif", "Wrapper"),
+                                         ("train", "train")])
 def test_flag_names_and_defaults_match_jax(mode, script):
     ours = {a.dest: a.default for a in config_parser(mode)._actions if a.dest != "help"}
     theirs = {a.dest: a.default for a in _jax_parser(script)._actions if a.dest != "help"}
-    ours.pop("device")
+    for added in ADDED[mode]:
+        ours.pop(added)
     missing = sorted(set(ours) - set(theirs))
     assert not missing, f"flags the JAX {script}.py parser lacks: {missing}"
     for k, v in ours.items():

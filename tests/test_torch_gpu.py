@@ -16,6 +16,7 @@ import torch
 
 from sfm_nerf_tpu_torch.config import RenderConfig
 from sfm_nerf_tpu_torch.kernels import fused_render as fr
+from sfm_nerf_tpu_torch.kernels import fused_train as ft
 from sfm_nerf_tpu_torch.models.convert import params_from_jax
 from sfm_nerf_tpu_torch.train import checkpoint as ckpt
 
@@ -76,3 +77,116 @@ def test_fused_render_kernel_rejects_f32_packing():
     o, d, z = _rays(64, 32, seed=0)
     with pytest.raises(ValueError):
         fr.fused_render_rays(packed, o, d, z, RenderConfig(n_sample=32))
+
+
+def _train_batch(n, s, seed):
+    o, d, z = _rays(n, s, seed)
+    target = torch.from_numpy(
+        np.random.default_rng(seed + 1).uniform(0, 1, (n, 3)).astype(np.float32)).cuda()
+    return o, d, z, target
+
+
+def _assert_grads_close(packed, got, ref, f64):
+    """Per parameter: the kernel's grad within 2e-2 of the plain version's
+    norm and 5e-2 of its largest value, or within the plain version's own
+    float32-vs-float64 spread where that is larger (bf16 rounding flips of
+    activations and cotangents move both the same way)."""
+    got, ref = ft.unpack_grads(packed, *got), ft.unpack_grads(packed, *ref)
+    f64 = ft.unpack_grads(packed, *(t.float() for t in f64))
+    for k in ref:
+        nr, mr = ref[k].norm().item(), ref[k].abs().max().item()
+        if nr == 0.0:
+            assert got[k].abs().max().item() == 0.0, k
+            continue
+        e, e64 = got[k] - ref[k], f64[k] - ref[k]
+        assert e.norm().item() / nr <= max(2e-2, e64.norm().item() / nr), k
+        assert e.abs().max().item() / mr <= max(5e-2, e64.abs().max().item() / mr), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("white,n_rays,n_sample", [
+    (False, 1024, 256), (True, 777, 200), (False, 100, 64)])
+def test_fused_train_kernels_match_plain_versions(white, n_rays, n_sample):
+    """K2 (fused_mse_loss) and K3 (fused_render_train forward and backward)
+    at hidden 256 against their plain versions on the same inputs; ragged
+    sample counts and ray counts that fill no block included."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    params, _ = ckpt.load_params_untyped(SYNTH800)
+    mcfg = ckpt.infer_model_config(params)
+    model = params_from_jax(params, mcfg, "cuda")
+    packed = fr.pack_nerf_params(model, mcfg, torch.bfloat16)
+    o, d, z, target = _train_batch(n_rays, n_sample, seed=n_sample)
+    rcfg = RenderConfig(n_sample=n_sample, white_background=white)
+    before = dict(ft.LAUNCHES)
+    # K2, both ways of holding activations, and twice: bit-equal
+    rgb, gw, gb = ft.fused_mse_loss_grads(packed, o, d, z, target, rcfg)
+    rgb_b, gw_b, gb_b = ft.fused_mse_loss_grads(packed, o, d, z, target, rcfg)
+    _, gw_r, gb_r = ft.fused_mse_loss_grads(packed, o, d, z, target, rcfg,
+                                            keep_activations=False)
+    assert ft.LAUNCHES["fused_mse_loss"] == before["fused_mse_loss"] + 3
+    assert torch.equal(gw, gw_b) and torch.equal(gb, gb_b) and torch.equal(rgb, rgb_b)
+    rr, gwr, gbr = ft.fused_mse_loss_reference(packed, o, d, z, target, rcfg)
+    _, gw64, gb64 = ft.fused_mse_loss_reference(packed, o.double(), d.double(), z.double(),
+                                                target.double(), rcfg)
+    assert (rgb - rr).abs().max().item() <= 1e-2
+    assert bool(torch.isfinite(gw).all()) and bool(torch.isfinite(gb).all())
+    _assert_grads_close(packed, (gw, gb), (gwr, gbr), (gw64, gb64))
+    _assert_grads_close(packed, (gw_r, gb_r), (gwr, gbr), (gw64, gb64))
+    # K3 with a cotangent that is not the MSE's
+    rgb3, tb = ft.fused_render_train_forward(packed, o, d, z, rcfg)
+    g = torch.from_numpy(np.random.default_rng(0).normal(size=(n_rays, 3))
+                         .astype(np.float32)).cuda() * 1e-3
+    gw3, gb3 = ft.fused_render_train_backward(packed, o, d, z, rcfg, tb, g)
+    assert ft.LAUNCHES["fused_render_train"] == before["fused_render_train"] + 1
+    assert ft.LAUNCHES["fused_render_train_backward"] == \
+        before["fused_render_train_backward"] + 1
+    rr3, tbr = ft.fused_render_train_reference(packed, o, d, z, rcfg)
+    assert torch.equal(rgb3, rgb)
+    assert (tb - tbr).abs().max().item() <= 1e-2
+    ref3 = ft.fused_render_train_reference(packed, o, d, z, rcfg, g=g)
+    ref3_64 = ft.fused_render_train_reference(packed, o.double(), d.double(), z.double(),
+                                              rcfg, g=g.double())
+    _assert_grads_close(packed, (gw3, gb3), ref3, ref3_64)
+    # the recomputing step kernel is the backward kernel with the MSE cotangent
+    gm = (rgb3 - target) * (2.0 / (3.0 * n_rays))
+    gw3m, gb3m = ft.fused_render_train_backward(packed, o, d, z, rcfg, tb, gm)
+    assert torch.equal(gw_r, gw3m) and torch.equal(gb_r, gb3m)
+
+
+@pytest.mark.gpu
+def test_fused_train_wrappers_fill_parameter_grads():
+    """loss.backward() through either wrapper fills every parameter's .grad
+    on the card, and the two routes agree."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    params, _ = ckpt.load_params_untyped(SYNTH800)
+    mcfg = ckpt.infer_model_config(params)
+    model = params_from_jax(params, mcfg, "cuda")
+    packed = fr.pack_nerf_params(model, mcfg, torch.bfloat16)
+    o, d, z, target = _train_batch(512, 128, seed=3)
+    rcfg = RenderConfig(n_sample=128)
+    loss = ft.fused_mse_loss(packed, o, d, z, target, rcfg)
+    loss.backward()
+    g2 = {n: p.grad.clone() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    rgb = ft.fused_render_train(packed, o, d, z, rcfg)
+    loss3 = torch.mean((rgb - target) ** 2)
+    loss3.backward()
+    assert loss.item() == pytest.approx(loss3.item(), rel=1e-6)
+    for n, p in model.named_parameters():
+        assert p.grad is not None and bool(torch.isfinite(p.grad).all()), n
+        assert (p.grad - g2[n]).norm().item() <= 1e-5 * g2[n].norm().item() + 1e-12, n
+
+
+@pytest.mark.gpu
+def test_fused_train_kernel_rejects_f32_packing():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    params, _ = ckpt.load_params_untyped(SYNTH800)
+    mcfg = ckpt.infer_model_config(params)
+    packed = fr.pack_nerf_params(params_from_jax(params, mcfg, "cuda"), mcfg, torch.float32)
+    o, d, z, target = _train_batch(64, 32, seed=0)
+    with pytest.raises(ValueError):
+        ft.fused_mse_loss_grads(packed, o, d, z, target, RenderConfig(n_sample=32))

@@ -126,9 +126,21 @@ def test_bf16_serving_cast_parity():
     dj, rj = nerf_apply(jb, jnp.asarray(pos), jnp.asarray(d), jcfg)
     with torch.no_grad():
         dt, rt = model(torch.from_numpy(pos), torch.from_numpy(d))
-    # same operands and rounding points; only summation order differs
-    np.testing.assert_allclose(dt.numpy(), np.asarray(dj), rtol=1e-4, atol=1e-4)
-    np.testing.assert_allclose(rt.numpy(), np.asarray(rj), rtol=0, atol=1e-4)
+    # Same operands and rounding points; only the summation order differs.
+    # So the bulk agrees to 1e-4, but where a sum lands on a bf16 rounding
+    # boundary one side's hidden activation flips to the neighbouring bf16
+    # value (2^-8 relative) and the outputs downstream move by up to a few
+    # 1e-2, on other values on other machines.  Held separately for density
+    # and rgb: at least 99% of the values within the 1e-4 bound, and every
+    # value within what one flip can move.
+    for name, got, want, rtol, cap_abs, cap_rel in (
+            ("density", dt.numpy(), np.asarray(dj), 1e-4, 3e-2, 1e-2),
+            ("rgb", rt.numpy(), np.asarray(rj), 0.0, 3e-2, 0.0)):
+        err = np.abs(got - want)
+        bulk = np.mean(err <= 1e-4 + rtol * np.abs(want))
+        assert bulk >= 0.99, f"{name}: only {bulk:.4f} of the values within 1e-4"
+        over = err - (cap_abs + cap_rel * np.abs(want))
+        assert over.max() <= 0, f"{name}: a value is {err.max():.3e} off, past one bf16 flip"
 
 
 @pytest.mark.parametrize("n_freqs", [0, 1, 4, 10])
