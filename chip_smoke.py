@@ -7,7 +7,7 @@ Builds the port's CUDA kernels from csrc/ (one nvcc per source, started
 together), then drives the serving and training paths through the entry
 points a user calls, at full width on the committed checkpoints and
 datasets (800x800 frames, 256 samples per ray; 8,192 rays x 256 samples per
-training step):
+training step; hierarchical: 256 coarse + 128 importance samples):
 
 1. device: the card's name and power limit;
 2. serve: ``cli.nerf --mode test`` on synth800 (5 test views through K1,
@@ -32,7 +32,20 @@ training step):
    the MSE cotangent, K2 twice (bit-equal), K2 with and without kept
    activations, and the eager float32 nn.Module autograd step as the
    practical yardstick;
-8. kernels: one JSON line with every kernel's launches on its path, its
+8. train_hier: ``cli.nerf --mode train --n_importance 128``: a coarse/fine
+   pair from a seeded init, each step one K4 (fused_mse_loss_weights) launch
+   on the 256 coarse depths and one K2 launch on the sorted union of 384;
+   then a resumed run whose validation views render through the
+   hierarchical route (K5 coarse pass, K1 fine pass);
+9. serve_hier: ``cli.nerf --mode test --n_importance 128`` on that pair (2
+   views), and one view through make_render_image_aux (K5 twice);
+10. hier_kernels: on one real batch, K4 against its plain version (rgb,
+   loss, weights, every grad tensor), against K2 (bit-equal rgb and grads)
+   and against itself, and K2 at 384 samples against its plain version on
+   the shared union; on 16,384 rays of a view the hierarchical render route
+   stage by stage against the plain route; the full kernel frame against
+   the float32 nn.Module hierarchical frame; the times of the frame's parts;
+11. kernels: one JSON line with every kernel's launches on its path, its
    error against the plain version, its time at the main-path shape beside
    the plain version's and the card's bound.
 
@@ -77,7 +90,8 @@ PSNR_GT_FLOOR = 25.0     # dB vs ground truth: catches a broken frame only
 # limit or by that spread, whichever is larger.
 GRAD_REL_TOL, GRAD_MAX_TOL = 2e-2, 5e-2
 LOSS_REL_TOL = 1e-3      # kernel loss vs plain version's loss
-TRAIN_STEPS, RESUME_STEPS, K3_STEPS = 200, 12, 12
+TRAIN_STEPS, RESUME_STEPS, K3_STEPS = 100, 12, 12
+N_IMPORTANCE = 128       # importance samples of the hierarchical phases
 PEAK_BF16 = 989e12       # H100 SXM dense bf16 FLOP/s (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12     # H100 SXM HBM3 bytes/s
 
@@ -100,7 +114,9 @@ def main():
     from sfm_nerf_tpu_torch.kernels import fused_train as ft
     from sfm_nerf_tpu_torch.models.convert import params_from_jax
     from sfm_nerf_tpu_torch.ops.rays import image_rays, sample_ray_batch
-    from sfm_nerf_tpu_torch.ops.render import composite, stratified_samples
+    from sfm_nerf_tpu_torch.ops.render import (
+        composite, merge_sorted, sample_pdf, stratified_samples,
+    )
     from sfm_nerf_tpu_torch.train import checkpoint as ckpt
     from sfm_nerf_tpu_torch.train.nerf_trainer import (
         make_render_image, make_render_image_aux,
@@ -175,6 +191,29 @@ def main():
             return compare(name, rgb, rr, (w, wr, plain_f64_weights(*args)), z[i])
         rgb = fr.fused_render_rays(*args)
         return compare(name, rgb, fr.fused_render_rays_reference(*args))
+
+    def grads_cmp(name, packed_, got, ref, f64):
+        """A kernel's (gw, gb) against the plain version's, per parameter
+        tensor: within GRAD_REL_TOL of the tensor's norm and GRAD_MAX_TOL of
+        its largest value, or within the plain version's float32-vs-float64
+        spread where that is larger; raises past them.  Returns (the worst
+        of each figure, each tensor's figures, the largest absolute error)."""
+        got, ref = ft.unpack_grads(packed_, *got), ft.unpack_grads(packed_, *ref)
+        f64 = ft.unpack_grads(packed_, *(t.float() for t in f64))
+        worst = {"rel": 0.0, "max": 0.0, "spread_rel": 0.0, "spread_max": 0.0}
+        per = {}
+        for k in ref:
+            nr, mr = ref[k].norm().item(), ref[k].abs().max().item()
+            e, e64 = got[k] - ref[k], f64[k] - ref[k]
+            row = {"rel": e.norm().item() / nr, "max": e.abs().max().item() / mr,
+                   "spread_rel": e64.norm().item() / nr,
+                   "spread_max": e64.abs().max().item() / mr}
+            per[k.replace("layers.", "")] = [float(f"{v:.3e}") for v in row.values()]
+            if not (row["rel"] <= max(GRAD_REL_TOL, row["spread_rel"])
+                    and row["max"] <= max(GRAD_MAX_TOL, row["spread_max"])):
+                raise AssertionError(f"{name}: grad {k} vs plain {row}")
+            worst = {m: max(worst[m], row[m]) for m in worst}
+        return worst, per, max((got[k] - ref[k]).abs().max().item() for k in ref)
 
     # ---- 1. device -------------------------------------------------------
     t_start = time.time()
@@ -312,57 +351,71 @@ def main():
     train_flags = ["--mode", "train", "--data_path", data, "--n_sample", "256",
                    "--n_rays_batch", "8192", "--seed", "0"]
 
-    def train():
-        shutil.rmtree(train_ckpt, ignore_errors=True)
+    def train_run(tag, ck, extra, per_step, per_val_view):
+        """``--mode train`` for TRAIN_STEPS steps from a seeded init, then a
+        second run that resumes from the mid-run checkpoint for RESUME_STEPS
+        steps and renders the validation views.  ``per_step`` and
+        ``per_val_view``: the launches one step and one validation view
+        must make, by counter name.  Returns the phase's record."""
+        half = TRAIN_STEPS // 2
+        shutil.rmtree(ck, ignore_errors=True)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         ft.reset_launch_counts()
-        stats = cli.main([*train_flags, "--checkpoint_path", train_ckpt,
-                          "--max_iters", str(TRAIN_STEPS), "--log_every", "10",
-                          "--val_every", "0", "--save_ckpt_iter", "100"])
+        stats = cli.main([*train_flags, *extra, "--checkpoint_path", ck,
+                          "--max_iters", str(TRAIN_STEPS), "--log_every", "5",
+                          "--val_every", "0", "--save_ckpt_iter", str(half)])
         launches = dict(ft.LAUNCHES)
         peak = torch.cuda.max_memory_allocated()
         losses = [v for _, v in stats["losses"]]
-        if launches["fused_mse_loss"] != TRAIN_STEPS or stats["steps"] != TRAIN_STEPS:
-            raise AssertionError(f"train: launches {launches}, steps {stats['steps']}")
+        want = {k: per_step.get(k, 0) * TRAIN_STEPS for k in launches}
+        if launches != want or stats["steps"] != TRAIN_STEPS:
+            raise AssertionError(f"{tag}: launches {launches}, want {want}, "
+                                 f"steps {stats['steps']}")
         if len(losses) < 20 or not all(np.isfinite(losses)):
-            raise AssertionError(f"train: logged losses {losses}")
+            raise AssertionError(f"{tag}: logged losses {losses}")
         first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
         if not last < first:
-            raise AssertionError(f"train: loss did not fall: {first} -> {last}")
-        saved = sorted(os.listdir(os.path.join(train_ckpt, "synth800")))
-        if saved != ["final_model.ckpt.npz", "model_000100.ckpt.npz"]:
-            raise AssertionError(f"train: checkpoints {saved}")
-        state["K2_launches"] = launches["fused_mse_loss"]
-        # resume from model_000100 for a few steps, validating through K1
+            raise AssertionError(f"{tag}: loss did not fall: {first} -> {last}")
+        saved = sorted(os.listdir(os.path.join(ck, "synth800")))
+        if saved != ["final_model.ckpt.npz", f"model_{half:06d}.ckpt.npz"]:
+            raise AssertionError(f"{tag}: checkpoints {saved}")
+        # resume from the mid-run checkpoint for a few steps, then validate
         fr.reset_launch_counts()
         ft.reset_launch_counts()
-        end = 101 + RESUME_STEPS
-        resumed = cli.main([*train_flags, "--checkpoint_path", train_ckpt,
+        end = half + 1 + RESUME_STEPS
+        resumed = cli.main([*train_flags, *extra, "--checkpoint_path", ck,
                             "--max_iters", str(end), "--log_every", "1",
                             "--val_every", str(end - 2), "--save_ckpt_iter", "0"])
         val = [v for _, _, v in resumed["val"]]
-        if (resumed["start_iter"] != 101 or resumed["steps"] != RESUME_STEPS
-                or ft.LAUNCHES["fused_mse_loss"] != RESUME_STEPS):
-            raise AssertionError(f"resume: {resumed['start_iter']}, {resumed['steps']} steps, "
-                                 f"launches {ft.LAUNCHES}")
-        if not val or fr.LAUNCHES["fused_render_rays"] != len(val) \
-                or not all(np.isfinite(val)):
-            raise AssertionError(f"resume: validation {val}, K1 launches {fr.LAUNCHES}")
+        want = {k: per_step.get(k, 0) * RESUME_STEPS for k in launches}
+        if (resumed["start_iter"] != half + 1 or resumed["steps"] != RESUME_STEPS
+                or ft.LAUNCHES != want):
+            raise AssertionError(f"{tag} resume: {resumed['start_iter']}, "
+                                 f"{resumed['steps']} steps, launches {ft.LAUNCHES}")
+        want_val = {k: per_val_view.get(k, 0) * len(val) for k in fr.LAUNCHES}
+        if not val or fr.LAUNCHES != want_val or not all(np.isfinite(val)):
+            raise AssertionError(f"{tag} resume: validation {val}, launches {fr.LAUNCHES}")
         if not resumed["losses"][0][1] < losses[0]:
-            raise AssertionError("resume: the first resumed loss is not below the "
+            raise AssertionError(f"{tag} resume: the first resumed loss is not below the "
                                  f"initial loss: {resumed['losses'][0]} vs {losses[0]}")
-        emit("train", steps=stats["steps"], ms_per_step=stats["ms_per_step"],
-             rays_per_s_steady=8192 / stats["ms_per_step"] * 1e3,
-             rays_per_s_whole_fit=stats["rays_per_sec"], elapsed_s=stats["elapsed_s"],
-             loss_first_log=losses[0], loss_last_log=losses[-1],
-             loss_mean_first10=first, loss_mean_last10=last, losses=losses,
-             launches=launches, peak_mem_gib=round(peak / 2**30, 3), checkpoints=saved,
-             resume={"start_iter": resumed["start_iter"], "steps": resumed["steps"],
-                     "ms_per_step": resumed["ms_per_step"],
-                     "losses": [v for _, v in resumed["losses"]],
-                     "val_views": len(val), "val_mse": val,
-                     "K1_launches": fr.LAUNCHES["fused_render_rays"]})
+        return launches, dict(
+            steps=stats["steps"], ms_per_step=stats["ms_per_step"],
+            rays_per_s_steady=8192 / stats["ms_per_step"] * 1e3,
+            rays_per_s_whole_fit=stats["rays_per_sec"], elapsed_s=stats["elapsed_s"],
+            loss_first_log=losses[0], loss_last_log=losses[-1],
+            loss_mean_first10=first, loss_mean_last10=last, losses=losses,
+            launches=launches, peak_mem_gib=round(peak / 2**30, 3), checkpoints=saved,
+            resume={"start_iter": resumed["start_iter"], "steps": resumed["steps"],
+                    "ms_per_step": resumed["ms_per_step"],
+                    "losses": [v for _, v in resumed["losses"]],
+                    "val_views": len(val), "val_mse": val, "launches": dict(fr.LAUNCHES)})
+
+    def train():
+        launches, record = train_run("train", train_ckpt, [], {"fused_mse_loss": 1},
+                                     {"fused_render_rays": 1})
+        state["K2_launches"] = launches["fused_mse_loss"]
+        emit("train", **record)
 
     # ---- 6. train through the two-kernel route (K3) ------------------------
     def train_two_kernel():
@@ -403,24 +456,6 @@ def main():
         tpacked = fr.pack_nerf_params(tmodel, mcfg, torch.bfloat16)
         batch = (tpacked, bo, bd, bz)
 
-        def grads_cmp(name, gw, gb, gwr, gbr, gw64, gb64):
-            got, ref = ft.unpack_grads(tpacked, gw, gb), ft.unpack_grads(tpacked, gwr, gbr)
-            f64 = ft.unpack_grads(tpacked, gw64.float(), gb64.float())
-            worst = {"rel": 0.0, "max": 0.0, "spread_rel": 0.0, "spread_max": 0.0}
-            per = {}
-            for k in ref:
-                nr, mr = ref[k].norm().item(), ref[k].abs().max().item()
-                e, e64 = got[k] - ref[k], f64[k] - ref[k]
-                row = {"rel": e.norm().item() / nr, "max": e.abs().max().item() / mr,
-                       "spread_rel": e64.norm().item() / nr,
-                       "spread_max": e64.abs().max().item() / mr}
-                per[k.replace("layers.", "")] = [float(f"{v:.3e}") for v in row.values()]
-                if not (row["rel"] <= max(GRAD_REL_TOL, row["spread_rel"])
-                        and row["max"] <= max(GRAD_MAX_TOL, row["spread_max"])):
-                    raise AssertionError(f"{name}: grad {k} vs plain {row}")
-                worst = {m: max(worst[m], row[m]) for m in worst}
-            return worst, per, max((got[k] - ref[k]).abs().max().item() for k in ref)
-
         # K2 against its plain version (float32, and float64 as the witness)
         k2_ms, (rgb, gw, gb) = event_ms(
             lambda: ft.fused_mse_loss_grads(*batch, bt, trcfg), reps=3)
@@ -436,7 +471,8 @@ def main():
         rgb_err = (rgb - rr).abs().max().item()
         if rgb_err > RGB_TOL or abs(loss_k - loss_p) > LOSS_REL_TOL * loss_p:
             raise AssertionError(f"K2: rgb max abs {rgb_err}, loss {loss_k} vs {loss_p}")
-        k2_worst, k2_per, k2_abs = grads_cmp("K2", gw, gb, gwr, gbr, gw64, gb64)
+        k2_worst, k2_per, k2_abs = grads_cmp(
+            "K2", tpacked, (gw, gb), (gwr, gbr), (gw64, gb64))
         # the alternative: recompute each chunk in the reverse walk
         k2r_ms, (_, gw_r, gb_r) = event_ms(
             lambda: ft.fused_mse_loss_grads(*batch, bt, trcfg, keep_activations=False), reps=3)
@@ -456,7 +492,8 @@ def main():
         if k3_rgb_err > RGB_TOL or tb_err > RGB_TOL or not torch.equal(rgb3, rgb):
             raise AssertionError(f"K3 forward: rgb {k3_rgb_err}, tb {tb_err}, "
                                  f"rgb equal to K2's {torch.equal(rgb3, rgb)}")
-        k3_worst, k3_per, k3_abs = grads_cmp("K3", gw3, gb3, gwr3, gbr3, gw64_3, gb64_3)
+        k3_worst, k3_per, k3_abs = grads_cmp(
+            "K3", tpacked, (gw3, gb3), (gwr3, gbr3), (gw64_3, gb64_3))
         # K2's grads against K3's with the MSE cotangent
         gm = (rgb3 - bt) * (2.0 / (3.0 * n))
         gw3m, gb3m = ft.fused_render_train_backward(*batch, trcfg, tb, gm)
@@ -507,6 +544,203 @@ def main():
                                  "peak_mem_gib": round(eager_peak / 2**30, 3),
                                  "K2_grads_vs_eager_worst_rel": eager_rel})
 
+    # ---- 8. train_hier: the CLI's train mode, coarse/fine, through K4 + K2 --
+    hier_ckpt = os.path.join(OUT, "train_hier_ckpt")
+    hier_flags = ["--n_importance", str(N_IMPORTANCE)]
+
+    def train_hier():
+        launches, record = train_run(
+            "train_hier", hier_ckpt, hier_flags,
+            {"fused_mse_loss_weights": 1, "fused_mse_loss": 1},
+            {"fused_render_rays_weights": 1, "fused_render_rays": 1})
+        state["K4_launches"] = launches["fused_mse_loss_weights"]
+        emit("train_hier", samples=[256, N_IMPORTANCE], **record)
+
+    hrcfg = RenderConfig(n_sample=256, n_importance=N_IMPORTANCE, near=2.0, far=6.0,
+                         perturb=False, use_fused_kernel=True)
+    hcfg = NeRFPipelineConfig(model=mcfg, render=hrcfg)
+
+    def load_pair():
+        p, _ = ckpt.load_params_untyped(
+            os.path.join(hier_ckpt, "synth800", "final_model.ckpt.npz"))
+        return params_from_jax(p, mcfg, dev).eval()
+
+    # ---- 9. serve_hier: test mode on the pair, K5 then K1 per frame ---------
+    def serve_hier():
+        # the CLI renders 5 views of the split it is given: a split of 2
+        two = os.path.join(OUT, "two_views", "synth800")
+        shutil.rmtree(os.path.dirname(two), ignore_errors=True)
+        os.makedirs(two)
+        os.symlink(os.path.join(data, "test"), os.path.join(two, "test"))
+        with open(os.path.join(data, "transforms_test.json")) as f:
+            meta = json.load(f)
+        meta["frames"] = meta["frames"][:2]
+        with open(os.path.join(two, "transforms_test.json"), "w") as f:
+            json.dump(meta, f)
+        pair = load_pair()
+        make_render_image(hcfg)(pair, K, pose, 64, 64)          # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fr.reset_launch_counts()
+        records = cli.main([
+            "--mode", "test", "--data_path", two + "/", "--checkpoint_path", hier_ckpt,
+            "--images_path", os.path.join(OUT, "test_hier"), "--n_sample", "256", *hier_flags])
+        launches = dict(fr.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        if launches != {"fused_render_rays_weights": 2, "fused_render_rays": 2}:
+            raise AssertionError(f"serve_hier: launches {launches} for 2 views")
+        if len(records) != 2 or not all(np.isfinite(r["psnr"]) for r in records):
+            raise AssertionError(f"serve_hier: views {records}")
+        fr.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        aux_ms, (rgb, depth, disp, acc) = event_ms(
+            lambda: make_render_image_aux(hcfg)(pair, K, pose, H, W))
+        aux_launches, aux_peak = dict(fr.LAUNCHES), torch.cuda.max_memory_allocated()
+        if aux_launches != {"fused_render_rays_weights": 2, "fused_render_rays": 0}:
+            raise AssertionError(f"serve_hier aux: launches {aux_launches}")
+        if not all(bool(torch.isfinite(t).all()) for t in (rgb, depth, disp, acc)):
+            raise AssertionError("serve_hier aux: maps not finite")
+        if not (acc.min().item() >= -1e-6 and acc.max().item() <= 1 + 1e-5):
+            raise AssertionError(f"acc outside [0, 1]: {acc.min().item()}..{acc.max().item()}")
+        emit("serve_hier", samples=[256, N_IMPORTANCE],
+             views=[{k: (round(v, 4) if isinstance(v, float) else v) for k, v in r.items()}
+                    for r in records],
+             launches=launches, peak_mem_gib=round(peak / 2**30, 3),
+             aux={"ms": round(aux_ms, 2), "launches": aux_launches,
+                  "peak_mem_gib": round(aux_peak / 2**30, 3),
+                  "acc": [acc.min().item(), acc.max().item()],
+                  "depth_mean": depth.mean().item()})
+
+    # ---- 10. the hierarchical kernels and routes ------------------------------
+    def hier_kernels():
+        pair = load_pair()
+        pk_c = fr.pack_nerf_params(pair.coarse, mcfg, torch.bfloat16)
+        pk_f = fr.pack_nerf_params(pair.fine, mcfg, torch.bfloat16)
+        tr_images, tr_poses, tr_cam = load_blender_dataset(data, "train")
+        f32 = dict(dtype=torch.float32, device=dev)
+        imgs, pss = torch.as_tensor(tr_images, **f32), torch.as_tensor(tr_poses, **f32)
+        gen = torch.Generator(device=dev).manual_seed(11)
+        n = 8192
+        trcfg = RenderConfig(n_sample=256, n_importance=N_IMPORTANCE, near=2.0, far=6.0,
+                             perturb=True, use_fused_kernel=True)
+        bo, bd, bt = sample_ray_batch(imgs, pss, torch.as_tensor(tr_cam.camera_matrix, **f32),
+                                      n, gen)
+        bz = stratified_samples(n, trcfg, gen, dev)
+        del imgs
+
+        def step_vs_plain(name, packed_, z_, kernel, plain):
+            """A step kernel against its plain version on (bo, bd, z_, bt):
+            times, rgb and loss errors, the grad rule."""
+            ms, out = event_ms(lambda: kernel(packed_, bo, bd, z_, bt, trcfg), reps=3)
+            plain_ms, ref = event_ms(lambda: plain(packed_, bo, bd, z_, bt, trcfg))
+            f64 = plain(packed_, bo.double(), bd.double(), z_.double(), bt.double(), trcfg)
+            loss_k = ((out[0] - bt) ** 2).mean().item()
+            loss_p = ((ref[0] - bt) ** 2).mean().item()
+            rgb_err = (out[0] - ref[0]).abs().max().item()
+            if rgb_err > RGB_TOL or abs(loss_k - loss_p) > LOSS_REL_TOL * loss_p:
+                raise AssertionError(f"{name}: rgb max abs {rgb_err}, loss {loss_k} vs {loss_p}")
+            worst, _, g_abs = grads_cmp(name, packed_, out[-2:], ref[-2:], f64[-2:])
+            return out, ref, f64, dict(ms=ms, plain_ms=plain_ms, rgb_max_abs=rgb_err,
+                                       loss=loss_k, plain_loss=loss_p, worst=worst,
+                                       grad_max_abs=g_abs)
+
+        # K4 on the coarse depths: against plain, against K2, against itself
+        (rgb4, w4, gw4, gb4), (rr4, w4r, _, _), (_, w4_64, _, _), k4 = step_vs_plain(
+            "K4", pk_c, bz, ft.fused_mse_loss_weights_grads, ft.fused_mse_loss_weights_reference)
+        w_cmp = compare("K4 weights", rgb4, rr4, (w4, w4r, w4_64), bz)
+        again = ft.fused_mse_loss_weights_grads(pk_c, bo, bd, bz, bt, trcfg)
+        rgb2, gw2, gb2 = ft.fused_mse_loss_grads(pk_c, bo, bd, bz, bt, trcfg)
+        k4["bit_equal_two_runs"] = all(
+            torch.equal(a, b) for a, b in zip((rgb4, w4, gw4, gb4), again))
+        k4["bit_equal_to_K2"] = (torch.equal(rgb4, rgb2) and torch.equal(gw4, gw2)
+                                 and torch.equal(gb4, gb2))
+        k4["weights_bit_equal_to_K5"] = torch.equal(
+            w4, fr.fused_render_rays_weights(pk_c, bo, bd, bz, trcfg)[1])
+        if not (k4["bit_equal_two_runs"] and k4["bit_equal_to_K2"]
+                and k4["weights_bit_equal_to_K5"]):
+            raise AssertionError(f"K4 bit-equality: {k4}")
+        if w4.shape != bz.shape or w4.requires_grad:
+            raise AssertionError(f"K4 weights {tuple(w4.shape)}, grad {w4.requires_grad}")
+        k4["weights_vs_plain"] = w_cmp
+        del again, rr4, w4r, w4_64
+        # between the launches: importance sampling and the sorted union
+        mids = 0.5 * (bz[..., 1:] + bz[..., :-1])
+        mid_ms, z_all = event_ms(lambda: merge_sorted(bz, sample_pdf(
+            mids, w4[..., 1:-1], N_IMPORTANCE, gen)), reps=10)
+        if z_all.shape != (n, 256 + N_IMPORTANCE) or not bool((z_all.diff(dim=-1) >= 0).all()):
+            raise AssertionError("z_all is not the sorted union")
+        # the fine K2 at 384 samples on the shared union
+        n_blocks = torch.cuda.get_device_properties(dev).multi_processor_count
+        stash_mb = n_blocks * 3 * ((len(pk_f.layers) - 1) * fr.CHUNK * 256 * 2
+                                   + fr.CHUNK * 16) / 1e6
+        _, _, _, k2f = step_vs_plain("K2 at 384", pk_f, z_all, ft.fused_mse_loss_grads,
+                                     ft.fused_mse_loss_reference)
+        state["K4"] = (k4["ms"], k4["plain_ms"],
+                       max(k4["rgb_max_abs"], k4["grad_max_abs"], w_cmp["w_max_abs"]))
+
+        # the render route stage by stage on SUBSET rays of one view: each
+        # kernel pass against the plain version on the same depths
+        i = torch.linspace(0, o.shape[0] - 1, SUBSET, device=dev).long()
+        so, sd, sz = o[i], d[i], z[i]
+        rgb_c, w_c = fr.fused_render_rays_weights(pk_c, so, sd, sz, hrcfg)
+        rr_c, wr_c = fr.fused_render_rays_reference(pk_c, so, sd, sz, hrcfg, emit_weights=True)
+        coarse = compare("hier coarse pass", rgb_c, rr_c,
+                         (w_c, wr_c, plain_f64_weights(pk_c, so, sd, sz, hrcfg)), sz)
+        sz_all = merge_sorted(sz, sample_pdf(0.5 * (sz[..., 1:] + sz[..., :-1]),
+                                             w_c[..., 1:-1], N_IMPORTANCE))
+        sz_all_plain = merge_sorted(sz, sample_pdf(0.5 * (sz[..., 1:] + sz[..., :-1]),
+                                                   wr_c[..., 1:-1], N_IMPORTANCE))
+        rgb_f, w_f = fr.fused_render_rays_weights(pk_f, so, sd, sz_all, hrcfg)
+        rr_f, wr_f = fr.fused_render_rays_reference(pk_f, so, sd, sz_all, hrcfg,
+                                                    emit_weights=True)
+        fine = compare("hier fine pass", rgb_f, rr_f,
+                       (w_f, wr_f, plain_f64_weights(pk_f, so, sd, sz_all, hrcfg)), sz_all)
+        if not torch.equal(rgb_f, fr.fused_render_rays(pk_f, so, sd, sz_all, hrcfg)):
+            raise AssertionError("fine pass: K1's rgb differs from K5's")
+        # the whole plain route (its own coarse weights pick its depths)
+        rr_whole = fr.fused_render_rays_reference(pk_f, so, sd, sz_all_plain, hrcfg)
+        route = {"z_fine_moved_max": (sz_all - sz_all_plain).abs().max().item(),
+                 "rgb_max_abs": (rgb_f - rr_whole).abs().max().item(),
+                 "psnr": psnr(rgb_f, rr_whole)}
+        del rgb_c, w_c, rr_c, wr_c, rgb_f, w_f, rr_f, wr_f
+
+        # the frame's parts at 640,000 rays (serve_hier times the whole), and
+        # the kernel frame against the float32 nn.Module hierarchical frame
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        c_ms, (_, wc) = event_ms(lambda: fr.fused_render_rays_weights(pk_c, o, d, z, hrcfg))
+        full_mid_ms, zf = event_ms(lambda: merge_sorted(z, sample_pdf(
+            0.5 * (z[..., 1:] + z[..., :-1]), wc[..., 1:-1], N_IMPORTANCE)))
+        del wc
+        k1_ms, frame = event_ms(lambda: fr.fused_render_rays(pk_f, o, d, zf, hrcfg))
+        k5_ms, _ = event_ms(lambda: fr.fused_render_rays_weights(pk_f, o, d, zf, hrcfg))
+        k5_plain_ms, ref = event_ms(lambda: fr.fused_render_rays_reference(pk_f, o, d, zf, hrcfg))
+        k1_full = compare("K1 at 384", frame, ref)
+        del zf, ref
+        peak = torch.cuda.max_memory_allocated()
+        mod_cfg = NeRFPipelineConfig(model=mcfg, render=RenderConfig(
+            n_sample=256, n_importance=N_IMPORTANCE, near=2.0, far=6.0, perturb=False,
+            use_fused_kernel=False))
+        mod_ms, mod = event_ms(lambda: make_render_image(mod_cfg)(pair, K, pose, H, W))
+        p_mod = psnr(frame.reshape(H, W, 3), mod)
+        if p_mod < PSNR_MODULE:
+            raise AssertionError(f"hierarchical kernel vs nn.Module frame PSNR {p_mod:.2f} dB")
+        n_full, S_all = o.shape[0], 256 + N_IMPORTANCE
+        fwd = lambda rays, S: 2.0 * (fr.macs_per_point(mcfg) * rays * S
+                                     + fr.macs_per_ray(mcfg) * rays)
+        emit("hier_kernels", rays=n, samples=[256, N_IMPORTANCE], K4=k4,
+             sample_pdf_merge_ms=mid_ms,
+             K2_at_384={**k2f, "stash_mb": round(stash_mb, 1),
+                        "bound_ms": 3 * fwd(n, S_all) / PEAK_BF16 * 1e3},
+             route_on_subset={"rays": SUBSET, "coarse_pass": coarse, "fine_pass": fine,
+                              "kernel_route_vs_plain_route": route},
+             frame={"rays": n_full, "coarse_K5_ms": c_ms, "sample_pdf_merge_ms": full_mid_ms,
+                    "fine_K1_ms": k1_ms, "fine_K5_ms": k5_ms, "fine_plain_ms": k5_plain_ms,
+                    "fine_bound_ms": fwd(n_full, S_all) / PEAK_BF16 * 1e3,
+                    "fine_K1_vs_plain": k1_full,
+                    "parts_peak_mem_gib": round(peak / 2**30, 3),
+                    "kernel_vs_module": {"psnr": round(p_mod, 2), "module_ms": round(mod_ms, 2)}})
+
     phase(serve)
     phase(aux)
     phase(gif)
@@ -514,6 +748,10 @@ def main():
     if not failed:
         phase(train_two_kernel)
         phase(train_kernels)
+        phase(train_hier)
+    if not failed:
+        phase(serve_hier)
+        phase(hier_kernels)
 
     # ---- 8. kernels ------------------------------------------------------
     def kernel_line():
@@ -553,7 +791,7 @@ def main():
             })
         emit("kernel_vs_plain_full_shape", rays=n, samples=S, **full_shape)
         # the training kernels at the training step's shape.  Operations: K2's
-        # least work is three forwards (forward, d_h W^T, act^T d_h); K3's
+        # and K4's least work is three forwards (forward, d_h W^T, act^T d_h); K3's
         # forward is one; K3's backward, which must recompute, three.  Bytes:
         # rays, depths, packed weights (and targets, cotangent, tb) in; rgb,
         # tb and one float32 grad per packed element out.
@@ -564,9 +802,12 @@ def main():
         g_bytes = (tr["packed"].weights.numel() + tr["packed"].biases.numel()) * 4
         ray_bytes = (tn * 3 * 2 + tn * tS) * 4
         tb_bytes = tn * -(-tS // fr.CHUNK) * 4
+        tr["K4"] = state["K4"]     # the same shape, on the pair's coarse network
         for key, name, replaces, n_fwd, nbytes in (
             ("K2", "fused_mse_loss", "sfm_nerf_tpu/kernels/fused_train.py:887", 3,
              ray_bytes + tn * 12 + w_bytes + tn * 12 + g_bytes),
+            ("K4", "fused_mse_loss_weights", "sfm_nerf_tpu/kernels/fused_train.py:924", 3,
+             ray_bytes + tn * 12 + w_bytes + tn * 12 + tn * tS * 4 + g_bytes),
             ("K3", "fused_render_train", "sfm_nerf_tpu/kernels/fused_train.py:653", 1,
              ray_bytes + w_bytes + tn * 12 + tb_bytes),
             ("K3b", "fused_render_train_backward", "sfm_nerf_tpu/kernels/fused_train.py:638", 3,

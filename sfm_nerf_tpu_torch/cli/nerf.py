@@ -28,6 +28,12 @@ as the reference's cv2.imwrite did unless ``--rgb_frames``.  The flags of
 each mode keep the names and defaults of the matching JAX parser; the port
 adds ``--device`` (default cuda).
 
+``--n_importance N`` (train and test) turns hierarchical sampling on: train
+mode trains a coarse/fine pair (one checkpoint holds both), test mode
+renders it coarse pass -> N importance samples -> fine pass over the union;
+the checkpoint and the flag must agree.  Gif mode has no such flag, as in
+the JAX package: given a pair checkpoint it renders the fine network flat.
+
 Not ported yet: ``figure_{i}.png`` (matplotlib), ``--plot_rays``, ``.pth``
 checkpoints, ``--steps_per_call``, ``--ckpt_backend orbax``, ``--dp``.
 """
@@ -100,7 +106,9 @@ def config_parser(mode: str = "test") -> argparse.ArgumentParser:
         p.add_argument('--arch', default='active', help="active|legacy MLP architecture")
         p.add_argument('--no_pos_encoding', action='store_true')
         p.add_argument('--lindisp', action='store_true')
-        p.add_argument('--n_importance', default=0, type=int)
+        p.add_argument('--n_importance', default=0, type=int,
+                       help="importance samples per ray (0: off; a coarse/fine "
+                            "model pair when on)")
         p.add_argument('--eval_split', default='test', choices=['test', 'train'])
         p.add_argument('--save_depth', action='store_true',
                        help="also save depth / disparity / acc maps per view")

@@ -7,6 +7,10 @@
 // - `fused_mse_loss` (`_make_step_kernel`): MODE_STEP, one launch gives rgb
 //   and the grads of mean((rgb - target)^2); the cotangent
 //   g = (rgb - target) * 2 / (3 N) is made in the kernel;
+// - `fused_mse_loss_weights` (`_make_step_kernel` with emit_weights): the
+//   same MODE_STEP with the template flag EMIT_WEIGHTS, whose forward sweep
+//   also writes the per-sample compositing weights (N, S) it composited
+//   with, the histogram that hierarchical sampling draws from;
 // - `fused_render_train` forward (`_make_fwd_kernel`): MODE_FWD, rgb and
 //   the transmittance entering each chunk, tb (N, n_chunks);
 // - `fused_render_train` backward (`_make_bwd_kernel`): MODE_BWD, the same
@@ -60,6 +64,7 @@ enum Mode { MODE_STEP = 0, MODE_FWD = 1, MODE_BWD = 2 };
 struct TrainArgs {
   const float *origins, *dirs, *z, *target, *g_in;
   float *rgb_out, *tb;
+  float* w_out;               // (n_rays, n_sample) weights, EMIT_WEIGHTS only
   __nv_bfloat16* stash_act;   // (blocks, slots, n_layers - 1, M, stash_w)
   float* stash_pt;            // (blocks, slots, M, 4): density, r, g, b
   float* partials;            // (blocks, grad_stride): weights then biases
@@ -292,7 +297,7 @@ __device__ void mlp_backward(const KParams& P, const __nv_bfloat16* __restrict__
   __syncthreads();
 }
 
-template <int MODE>
+template <int MODE, bool EMIT_WEIGHTS>
 __global__ void __launch_bounds__(THREADS, 1)
 fused_train_kernel(const __nv_bfloat16* __restrict__ W, const float* __restrict__ B,
                    const __grid_constant__ KParams P, const __grid_constant__ TrainArgs a) {
@@ -331,7 +336,9 @@ fused_train_kernel(const __nv_bfloat16* __restrict__ W, const float* __restrict_
           pt[2] = s.rgb[tid * 3 + 1];
           pt[3] = s.rgb[tid * 3 + 2];
         }
-        if (warp == 0) composite_chunk(P, s, S, c * M, nullptr, T, acc_r, acc_g, acc_b);
+        if (warp == 0)
+          composite_chunk(P, s, S, c * M, EMIT_WEIGHTS ? a.w_out + (size_t)ray * S : nullptr, T,
+                          acc_r, acc_g, acc_b);
         __syncthreads();
       }
       if (tid == 0) {
@@ -401,19 +408,19 @@ __global__ void reduce_partials_kernel(const float* __restrict__ partials, int n
   grads[i] = sum;
 }
 
-template <int MODE>
+template <int MODE, bool EMIT_WEIGHTS = false>
 int launch(const void* w, const float* b, const KParams& P, const TrainArgs& a, int n_blocks,
            float* grads, cudaStream_t stream) {
   const int smem = smem_layout(P, nullptr, nullptr, true);
   cudaError_t err = cudaFuncSetAttribute(
-      fused_train_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      fused_train_kernel<MODE, EMIT_WEIGHTS>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   int per_sm = 0;
   if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, fused_train_kernel<MODE>, THREADS, smem)) != cudaSuccess)
+           &per_sm, fused_train_kernel<MODE, EMIT_WEIGHTS>, THREADS, smem)) != cudaSuccess)
     return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  fused_train_kernel<MODE><<<n_blocks, THREADS, smem, stream>>>(
+  fused_train_kernel<MODE, EMIT_WEIGHTS><<<n_blocks, THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(w), b, P, a);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if (MODE != MODE_FWD) {
@@ -428,9 +435,11 @@ int launch(const void* w, const float* b, const KParams& P, const TrainArgs& a, 
 
 extern "C" {
 
-// One entry point for the three kernels.  mode: 0 step (fused_mse_loss),
-// 1 forward and 2 backward (fused_render_train).  iparams and fparams: see
-// parse_params in nerf_device.cuh.  The caller allocates everything:
+// One entry point for the kernels.  mode: 0 step (fused_mse_loss, and
+// fused_mse_loss_weights when w_out is given), 1 forward and 2 backward
+// (fused_render_train).  iparams and fparams: see parse_params in
+// nerf_device.cuh.  The caller allocates everything:
+//   w_out     (n_rays, n_sample) f32 or null, written by mode 0 only;
 //   tb        (n_rays, n_chunks) f32, written by modes 0 and 1, read by 0 and 2;
 //   stash_act (n_blocks, slots, n_layers - 1, 128, stash_w) bf16 and
 //   stash_pt  (n_blocks, slots, 128, 4) f32, slots = keep ? n_chunks : 1;
@@ -443,8 +452,8 @@ extern "C" {
 int sfm_fused_train(int mode, const float* origins, const float* dirs, const float* z,
                     const float* target, const float* g_in, int n_rays, int n_sample,
                     const void* weights, const float* biases, const int* iparams,
-                    const float* fparams, float* rgb_out, float* tb, void* stash_act,
-                    float* stash_pt, float* partials, float* grads, int n_blocks, int keep,
+                    const float* fparams, float* rgb_out, float* tb, float* w_out,
+                    void* stash_act, float* stash_pt, float* partials, float* grads, int n_blocks, int keep,
                     int stash_w, int w_total, int grad_stride, float gscale, void* stream) {
   KParams P;
   const cudaError_t perr = parse_params(iparams, fparams, &P);
@@ -461,6 +470,7 @@ int sfm_fused_train(int mode, const float* origins, const float* dirs, const flo
   a.g_in = g_in;
   a.rgb_out = rgb_out;
   a.tb = tb;
+  a.w_out = w_out;
   a.stash_act = static_cast<__nv_bfloat16*>(stash_act);
   a.stash_pt = stash_pt;
   a.partials = partials;
@@ -475,7 +485,8 @@ int sfm_fused_train(int mode, const float* origins, const float* dirs, const flo
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (mode) {
     case MODE_STEP:
-      return launch<MODE_STEP>(weights, biases, P, a, n_blocks, grads, st);
+      return w_out ? launch<MODE_STEP, true>(weights, biases, P, a, n_blocks, grads, st)
+                   : launch<MODE_STEP>(weights, biases, P, a, n_blocks, grads, st);
     case MODE_FWD:
       return launch<MODE_FWD>(weights, biases, P, a, n_blocks, grads, st);
     case MODE_BWD:

@@ -1,26 +1,30 @@
 """Fused NeRF training step: forward and hand-written backward in CUDA.
 
 Counterpart of sfm_nerf_tpu/kernels/fused_train.py.  One CUDA source
-(csrc/fused_train.cu, three modes of one kernel) behind two wrappers named
-as in the JAX package:
+(csrc/fused_train.cu, three modes of one kernel) behind three wrappers
+named as in the JAX package:
 
 - ``fused_mse_loss``: mean((render(rays) - target)^2) as a scalar.  One
   launch gives rgb and the grads of every packed weight and bias (the MSE
   cotangent is made in the kernel); backward only scales them.
+- ``fused_mse_loss_weights``: the same loss and, from the same launch, the
+  per-sample compositing weights (N, S) of the forward sweep, detached: the
+  coarse pass of hierarchical training, whose weights feed ``sample_pdf``.
 - ``fused_render_train``: rgb (N, 3), differentiable for any loss on it.
   Forward launches the forward kernel (rgb and the transmittance entering
   each 128-sample chunk); backward launches the backward kernel, which
   recomputes each chunk and applies the caller's cotangent.
 
-Both are ``torch.autograd.Function``s over the parameters of the module the
+All are ``torch.autograd.Function``s over the parameters of the module the
 weights were packed from (``PackedNeRF.model``): the packed grads go back to
 ``nn.Module`` parameter grads through ``unpack_grads``, the exact transpose
 of ``pack_nerf_params``, so ``loss.backward()`` fills ``.grad`` and the
 optimizer is plain ``torch.optim.Adam``.  No library product and no
 autograd graph computes anything on that path.
 
-Beside them, ``fused_mse_loss_reference`` and
-``fused_render_train_reference`` are the plain PyTorch versions: the chunked
+Beside them, ``fused_mse_loss_reference``,
+``fused_mse_loss_weights_reference`` and ``fused_render_train_reference``
+are the plain PyTorch versions: the chunked
 forward of ``fused_render_rays_reference`` and a hand-written reverse walk
 with the kernel's rounding points.  A wrapper given CPU tensors runs them;
 given CUDA tensors it launches the kernel or raises.  Each wrapper counts
@@ -54,7 +58,8 @@ from sfm_nerf_tpu_torch.ops.render import sample_dists
 MODE_STEP, MODE_FWD, MODE_BWD = 0, 1, 2
 
 LAUNCHES: Dict[str, int] = {
-    "fused_mse_loss": 0, "fused_render_train": 0, "fused_render_train_backward": 0}
+    "fused_mse_loss": 0, "fused_mse_loss_weights": 0, "fused_render_train": 0,
+    "fused_render_train_backward": 0}
 
 
 def reset_launch_counts() -> None:
@@ -120,9 +125,10 @@ def _reference_pass(packed: PackedNeRF, origins, directions, z_vals, rcfg: Rende
     """Forward and reverse walk of the plain version over all rays.
 
     ``cotangent(rgb, r0)`` -> g for the rays ``[r0, r0 + len(rgb))``, or
-    None for a forward only.  Returns (rgb, tb, gw, gb): tb (N, n_chunks)
-    is the transmittance entering each chunk, gw / gb the flat grads in
-    the packed layout (None without a cotangent)."""
+    None for a forward only.  Returns (rgb, tb, w, gw, gb): tb (N,
+    n_chunks) is the transmittance entering each chunk, w (N, S) the
+    compositing weights, gw / gb the flat grads in the packed layout (None
+    without a cotangent)."""
     ft = torch.float64 if origins.dtype == torch.float64 else torch.float32
     wdt = packed.weights.dtype
     rnd = (lambda t: t.to(wdt).to(ft)) if wdt != torch.float32 else (lambda t: t)
@@ -134,7 +140,7 @@ def _reference_pass(packed: PackedNeRF, origins, directions, z_vals, rcfg: Rende
     dev = origins.device
     gW = {n: torch.zeros_like(w) for n, w in Wf.items()}
     gB = {n: torch.zeros_like(b) for n, b in Bf.items()}
-    rgb_parts, tb_parts = [], []
+    rgb_parts, tb_parts, w_parts = [], [], []
 
     for r0 in range(0, origins.shape[0], REF_RAY_CHUNK):
         o = origins[r0:r0 + REF_RAY_CHUNK].to(ft)
@@ -146,7 +152,7 @@ def _reference_pass(packed: PackedNeRF, origins, directions, z_vals, rcfg: Rende
         dir_part = extd @ Wf["rgb1"][h:]
         T = torch.ones(n, 1, device=dev, dtype=ft)
         acc = torch.zeros(n, 3, device=dev, dtype=ft)
-        saved, tb = [], []
+        saved, tb, ws = [], [], []
         # ---- forward, chunk by chunk, transmittance carried -------------
         for c0 in range(0, S, chunk):
             zc, dc = z[:, c0:c0 + chunk], dists[:, c0:c0 + chunk]
@@ -170,12 +176,14 @@ def _reference_pass(packed: PackedNeRF, origins, directions, z_vals, rcfg: Rende
             w = (1.0 - torch.exp(-xs)) * Ti
             acc = acc + torch.sum(w[..., None] * rgb, 1)
             tb.append(T)
+            ws.append(w)
             T = T * torch.exp(csum[:, -1:])
             if cotangent is not None:
                 saved.append((ext, hs, feat, rgb_h, rgb, dens, dc, xs, Ti, w))
         rgb_out = acc + T if rcfg.white_background else acc
         rgb_parts.append(rgb_out)
         tb_parts.append(torch.cat(tb, 1))
+        w_parts.append(torch.cat(ws, 1))
         if cotangent is None:
             continue
         # ---- reverse walk ----------------------------------------------
@@ -230,14 +238,15 @@ def _reference_pass(packed: PackedNeRF, origins, directions, z_vals, rcfg: Rende
 
     rgb = torch.cat(rgb_parts)
     tb = torch.cat(tb_parts)
+    weights = torch.cat(w_parts)
     if cotangent is None:
-        return rgb, tb, None, None
+        return rgb, tb, weights, None, None
     gw = torch.zeros(packed.weights.numel(), device=dev, dtype=ft)
     gb = torch.zeros(packed.biases.numel(), device=dev, dtype=ft)
     for s in packed.layers:
         gw[s.w_off:s.w_off + s.k_rows * s.n] = gW[s.name].reshape(-1)
         gb[s.b_off:s.b_off + s.n] = gB[s.name]
-    return rgb, tb, gw, gb
+    return rgb, tb, weights, gw, gb
 
 
 def fused_mse_loss_reference(packed: PackedNeRF, origins, directions, z_vals, target,
@@ -249,12 +258,22 @@ def fused_mse_loss_reference(packed: PackedNeRF, origins, directions, z_vals, ta
     ``fused_render_rays_reference`` and a hand-written reverse walk (no
     autograd) with the kernel's rounding points, in float32, or in float64
     when given float64 rays."""
+    rgb, _, gw, gb = fused_mse_loss_weights_reference(
+        packed, origins, directions, z_vals, target, rcfg, chunk)
+    return rgb, gw, gb
+
+
+def fused_mse_loss_weights_reference(packed: PackedNeRF, origins, directions, z_vals, target,
+                                     rcfg: RenderConfig, chunk: int = CHUNK):
+    """Plain PyTorch version of the step kernel with its weights output:
+    (rgb (N, 3), weights (N, S), gw, gb), the weights those the forward
+    sweep composited with, at the caller's sample count."""
     _check(rcfg)
     scale = 2.0 / (3.0 * origins.shape[0])
-    rgb, _, gw, gb = _reference_pass(
+    rgb, _, weights, gw, gb = _reference_pass(
         packed, origins, directions, z_vals, rcfg,
         lambda rgb, r0: (rgb - target[r0:r0 + rgb.shape[0]].to(rgb.dtype)) * scale, chunk)
-    return rgb, gw, gb
+    return rgb, weights, gw, gb
 
 
 def fused_render_train_reference(packed: PackedNeRF, origins, directions, z_vals,
@@ -265,9 +284,9 @@ def fused_render_train_reference(packed: PackedNeRF, origins, directions, z_vals
     ``g`` (N, 3): the backward kernel's (gw, gb) in the packed layout."""
     _check(rcfg)
     if g is None:
-        rgb, tb, _, _ = _reference_pass(packed, origins, directions, z_vals, rcfg, None, chunk)
+        rgb, tb, _, _, _ = _reference_pass(packed, origins, directions, z_vals, rcfg, None, chunk)
         return rgb, tb
-    _, _, gw, gb = _reference_pass(
+    _, _, _, gw, gb = _reference_pass(
         packed, origins, directions, z_vals, rcfg,
         lambda rgb, r0: g[r0:r0 + rgb.shape[0]], chunk)
     return gw, gb
@@ -286,18 +305,19 @@ def _kernel_lib() -> ctypes.CDLL:
     lib.sfm_fused_train.restype = ctypes.c_int
     lib.sfm_fused_train.argtypes = (
         [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
-        + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
+        + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
     lib.sfm_cuda_error_string.restype = ctypes.c_char_p
     lib.sfm_cuda_error_string.argtypes = [ctypes.c_int]
     return lib
 
 
 def _launch(mode: int, packed: PackedNeRF, origins, directions, z_vals, rcfg: RenderConfig,
-            target=None, g=None, tb=None, keep: bool = True):
+            target=None, g=None, tb=None, keep: bool = True, emit_weights: bool = False):
     """Check the inputs, allocate outputs and scratch, launch one mode of
-    the CUDA kernel.  Returns (rgb, tb, grads): grads is the flat float32
+    the CUDA kernel.  Returns (rgb, tb, grads, w): grads is the flat float32
     (weights then biases) gradient in the packed layout, None for the
-    forward mode; rgb is None for the backward mode."""
+    forward mode; rgb is None for the backward mode; w (N, S) are the
+    compositing weights of the step mode with ``emit_weights``, else None."""
     dev = origins.device
     n, S = z_vals.shape
     tensors = [("directions", directions), ("z_vals", z_vals),
@@ -330,6 +350,9 @@ def _launch(mode: int, packed: PackedNeRF, origins, directions, z_vals, rcfg: Re
     n_blocks = min(torch.cuda.get_device_properties(dev).multi_processor_count, n)
     stash_w = max(packed.hidden, RGB_HIDDEN)
     rgb = torch.empty(n, 3, **f32) if mode != MODE_BWD else None
+    if emit_weights and mode != MODE_STEP:
+        raise ValueError("fused train: only the step mode writes weights")
+    w = torch.empty(n, S, **f32) if emit_weights else None
     if mode == MODE_BWD:
         if tb is None or tb.shape != (n, n_chunks):
             raise ValueError("fused train backward: tb must be the forward's (N, n_chunks)")
@@ -355,13 +378,13 @@ def _launch(mode: int, packed: PackedNeRF, origins, directions, z_vals, rcfg: Re
             mode, o.data_ptr(), d.data_ptr(), z.data_ptr(), ptr(t), ptr(gc), n, S,
             packed.weights.data_ptr(), packed.biases.data_ptr(),
             ctypes.cast(ip, ctypes.c_void_p), fp_ptr,
-            ptr(rgb), tb.data_ptr(), ptr(stash_act), ptr(stash_pt), ptr(partials), ptr(grads),
+            ptr(rgb), tb.data_ptr(), ptr(w), ptr(stash_act), ptr(stash_pt), ptr(partials), ptr(grads),
             n_blocks, int(keep), stash_w, w_total, w_total + b_total,
             2.0 / (3.0 * n), stream)
     if err != 0:
         raise RuntimeError("fused train kernel launch failed: "
                            + lib.sfm_cuda_error_string(err).decode())
-    return rgb, tb, grads
+    return rgb, tb, grads, w
 
 
 def _device_kind(t: torch.Tensor) -> str:
@@ -382,11 +405,27 @@ def fused_mse_loss_grads(packed: PackedNeRF, origins, directions, z_vals, target
     _check(rcfg)
     if _device_kind(origins) == "cpu":
         return fused_mse_loss_reference(packed, origins, directions, z_vals, target, rcfg)
-    rgb, _, grads = _launch(MODE_STEP, packed, origins, directions, z_vals, rcfg,
-                            target=target, keep=keep_activations)
+    rgb, _, grads, _ = _launch(MODE_STEP, packed, origins, directions, z_vals, rcfg,
+                               target=target, keep=keep_activations)
     LAUNCHES["fused_mse_loss"] += 1
     n_w = packed.weights.numel()
     return rgb, grads[:n_w], grads[n_w:]
+
+
+def fused_mse_loss_weights_grads(packed: PackedNeRF, origins, directions, z_vals, target,
+                                 rcfg: RenderConfig):
+    """(rgb (N, 3), weights (N, S), gw, gb): fused_mse_loss_grads plus the
+    per-sample compositing weights of the forward sweep, from the same one
+    launch (CUDA tensors) or the plain version (CPU tensors)."""
+    _check(rcfg)
+    if _device_kind(origins) == "cpu":
+        return fused_mse_loss_weights_reference(packed, origins, directions, z_vals, target,
+                                                rcfg)
+    rgb, _, grads, w = _launch(MODE_STEP, packed, origins, directions, z_vals, rcfg,
+                               target=target, emit_weights=True)
+    LAUNCHES["fused_mse_loss_weights"] += 1
+    n_w = packed.weights.numel()
+    return rgb, w, grads[:n_w], grads[n_w:]
 
 
 def _param_grads(packed: PackedNeRF, params, gw, gb) -> List[torch.Tensor]:
@@ -419,6 +458,32 @@ def fused_mse_loss(packed: PackedNeRF, origins, directions, z_vals, target,
                                *packed.model.parameters())
 
 
+class _FusedMSELossWeights(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, packed, origins, directions, z_vals, target, rcfg, *params):
+        rgb, w, gw, gb = fused_mse_loss_weights_grads(
+            packed, origins, directions, z_vals, target, rcfg)
+        ctx.grads = _param_grads(packed, params, gw, gb)
+        ctx.mark_non_differentiable(w)
+        return torch.mean((rgb - target.to(rgb.dtype)) ** 2), w
+
+    @staticmethod
+    def backward(ctx, gbar, _gw):
+        return (None,) * 6 + tuple(gbar * g for g in ctx.grads)
+
+
+def fused_mse_loss_weights(packed: PackedNeRF, origins, directions, z_vals, target,
+                           rcfg: RenderConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(loss, weights (N, S)): fused_mse_loss and the per-sample compositing
+    weights, the coarse pass of hierarchical training.  The weights carry no
+    gradient (sample_pdf reads the histogram without differentiating through
+    it), so backward is fused_mse_loss's scalar rescale."""
+    if packed.model is None:
+        raise ValueError("fused_mse_loss_weights: pack with pack_nerf_params(model, ...)")
+    return _FusedMSELossWeights.apply(packed, origins, directions, z_vals, target, rcfg,
+                                      *packed.model.parameters())
+
+
 def fused_render_train_forward(packed: PackedNeRF, origins, directions, z_vals,
                                rcfg: RenderConfig):
     """(rgb (N, 3), tb (N, n_chunks)): the forward kernel's raw outputs, tb
@@ -427,7 +492,7 @@ def fused_render_train_forward(packed: PackedNeRF, origins, directions, z_vals,
     _check(rcfg)
     if _device_kind(origins) == "cpu":
         return fused_render_train_reference(packed, origins, directions, z_vals, rcfg)
-    rgb, tb, _ = _launch(MODE_FWD, packed, origins, directions, z_vals, rcfg)
+    rgb, tb, _, _ = _launch(MODE_FWD, packed, origins, directions, z_vals, rcfg)
     LAUNCHES["fused_render_train"] += 1
     return rgb, tb
 
@@ -441,7 +506,7 @@ def fused_render_train_backward(packed: PackedNeRF, origins, directions, z_vals,
     _check(rcfg)
     if _device_kind(origins) == "cpu":
         return fused_render_train_reference(packed, origins, directions, z_vals, rcfg, g=g)
-    _, _, grads = _launch(MODE_BWD, packed, origins, directions, z_vals, rcfg, g=g, tb=tb)
+    _, _, grads, _ = _launch(MODE_BWD, packed, origins, directions, z_vals, rcfg, g=g, tb=tb)
     LAUNCHES["fused_render_train_backward"] += 1
     n_w = packed.weights.numel()
     return grads[:n_w], grads[n_w:]

@@ -4,27 +4,49 @@ The JAX package stores each layer as ``{'w': (fan_in, fan_out), 'b':
 (fan_out,)}``; ``nn.Linear`` stores (out, in).  This is the one place that
 transposes.  optax's Adam state (``mu``, ``nu`` shaped like the params, one
 ``count``) maps to ``torch.optim.Adam``'s per-parameter ``exp_avg``,
-``exp_avg_sq`` and ``step``, transposed like the weights.  Conversion of reference ``.pth``
-files waits for a slice that needs it: no ``.pth`` file is in the
-repository.
+``exp_avg_sq`` and ``step``, transposed like the weights.  A hierarchical
+run's ``{'coarse': ..., 'fine': ...}`` tree (params, ``mu`` and ``nu`` alike)
+maps to a ``NeRFPair``; every function here takes either.  Conversion of
+reference ``.pth`` files waits for a slice that needs it: no ``.pth`` file
+is in the repository.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Union
 
 import numpy as np
 import torch
 
 from sfm_nerf_tpu_torch.config import NeRFModelConfig
-from sfm_nerf_tpu_torch.models.nerf import NeRF, layer_shapes
+from sfm_nerf_tpu_torch.models.nerf import NeRF, NeRFPair, layer_shapes
 
-JaxParams = Dict[str, Dict[str, np.ndarray]]
+JaxParams = Dict[str, Dict[str, np.ndarray]]     # or {'coarse': ..., 'fine': ...} of these
+Model = Union[NeRF, NeRFPair]
+SIDES = ("coarse", "fine")
 
 
-def load_params_from_jax(model: NeRF, params: JaxParams) -> NeRF:
+def is_pair_tree(params: dict) -> bool:
+    return set(params) == set(SIDES)
+
+
+def _check_kind(model: Model, tree: dict, what: str) -> None:
+    """A flat tree for a NeRF, a {'coarse', 'fine'} tree for a NeRFPair."""
+    kind = {True: "a coarse/fine pair (n_importance > 0)",
+            False: "one network (n_importance == 0)"}
+    if is_pair_tree(tree) != isinstance(model, NeRFPair):
+        raise ValueError(f"{what} hold {kind[is_pair_tree(tree)]}, the model is "
+                         f"{kind[isinstance(model, NeRFPair)]}")
+
+
+def load_params_from_jax(model: Model, params: JaxParams) -> Model:
     """Copy the JAX-layout ``params`` into ``model`` in place (an optimizer
     built on its parameters keeps pointing at them)."""
+    _check_kind(model, params, "the params")
+    if isinstance(model, NeRFPair):
+        for side in SIDES:
+            load_params_from_jax(getattr(model, side), params[side])
+        return model
     expected = layer_shapes(model.cfg)
     if set(params) != set(expected):
         raise KeyError(
@@ -43,13 +65,17 @@ def load_params_from_jax(model: NeRF, params: JaxParams) -> NeRF:
     return model
 
 
-def params_from_jax(params: JaxParams, mcfg: NeRFModelConfig, device="cpu") -> NeRF:
-    """A float32 NeRF holding the JAX-layout ``params``."""
-    return load_params_from_jax(NeRF(mcfg, device=device), params)
+def params_from_jax(params: JaxParams, mcfg: NeRFModelConfig, device="cpu") -> Model:
+    """A float32 NeRF holding the JAX-layout ``params``, or a NeRFPair for
+    a {'coarse', 'fine'} tree."""
+    cls = NeRFPair if is_pair_tree(params) else NeRF
+    return load_params_from_jax(cls(mcfg, device=device), params)
 
 
-def params_to_jax(model: NeRF) -> JaxParams:
+def params_to_jax(model: Model) -> JaxParams:
     """Inverse of params_from_jax: float32 numpy in the JAX layout."""
+    if isinstance(model, NeRFPair):
+        return {side: params_to_jax(getattr(model, side)) for side in SIDES}
     return {
         name: {
             "w": layer.weight.detach().float().cpu().numpy().T.copy(),
@@ -59,10 +85,16 @@ def params_to_jax(model: NeRF) -> JaxParams:
     }
 
 
-def optimizer_state_to_jax(model: NeRF, optimizer: torch.optim.Adam) -> dict:
+def optimizer_state_to_jax(model: Model, optimizer: torch.optim.Adam) -> dict:
     """``{'count', 'mu', 'nu'}`` in the JAX layout from the Adam state of
     ``model``'s parameters.  A parameter that has taken no step yet counts
     zeros; ``count`` is the number of updates done."""
+    if isinstance(model, NeRFPair):
+        sides = {side: optimizer_state_to_jax(getattr(model, side), optimizer)
+                 for side in SIDES}
+        return {"count": max(s["count"] for s in sides.values()),
+                "mu": {side: s["mu"] for side, s in sides.items()},
+                "nu": {side: s["nu"] for side, s in sides.items()}}
     mu: JaxParams = {}
     nu: JaxParams = {}
     count = 0
@@ -79,9 +111,16 @@ def optimizer_state_to_jax(model: NeRF, optimizer: torch.optim.Adam) -> dict:
     return {"count": count, "mu": mu, "nu": nu}
 
 
-def optimizer_state_from_jax(model: NeRF, optimizer: torch.optim.Adam, state: dict) -> None:
+def optimizer_state_from_jax(model: Model, optimizer: torch.optim.Adam, state: dict) -> None:
     """Load ``{'count', 'mu', 'nu'}`` (JAX layout) into ``optimizer``'s state
     for ``model``'s parameters, in place."""
+    _check_kind(model, state["mu"], "the optimizer moments")
+    if isinstance(model, NeRFPair):
+        for side in SIDES:
+            optimizer_state_from_jax(
+                getattr(model, side), optimizer,
+                {"count": state["count"], "mu": state["mu"][side], "nu": state["nu"][side]})
+        return
     for name, layer in model.layers.items():
         for key, p in (("w", layer.weight), ("b", layer.bias)):
             st = optimizer.state[p]

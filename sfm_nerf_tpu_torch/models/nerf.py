@@ -12,6 +12,9 @@ sfm_nerf_tpu/models/nerf.py.
 
 Layers are keyed by the JAX parameter names.  ``nn.Linear`` stores its
 weight as (out, in); models/convert.py is the one place that transposes.
+
+``NeRFPair`` holds the two networks of hierarchical sampling, ``coarse`` and
+``fine``, the JAX package's ``{'coarse': ..., 'fine': ...}`` params tree.
 """
 
 from __future__ import annotations
@@ -65,13 +68,14 @@ def _linear(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
 
 class NeRF(nn.Module):
     """``seed``: initial weights from a generator of their own seeded with
-    it (drawn on the CPU, so the same on every device); without it from
-    torch's global generator.  Either way weight and bias are
-    U(-1/sqrt(fan_in), 1/sqrt(fan_in)), the JAX package's init (the values
-    differ: the two frameworks draw other numbers from the same seed)."""
+    it (drawn on the CPU, so the same on every device), or from the CPU
+    ``generator`` given; without either from torch's global generator.
+    Either way weight and bias are U(-1/sqrt(fan_in), 1/sqrt(fan_in)), the
+    JAX package's init (the values differ: the two frameworks draw other
+    numbers from the same seed)."""
 
     def __init__(self, cfg: NeRFModelConfig, device=None, dtype=torch.float32,
-                 seed: Optional[int] = None):
+                 seed: Optional[int] = None, generator: Optional[torch.Generator] = None):
         super().__init__()
         self.cfg = cfg
         self.layers = nn.ModuleDict({
@@ -79,8 +83,8 @@ class NeRF(nn.Module):
             for name, (fi, fo) in layer_shapes(cfg).items()
         })
         # without a seed: nn.Linear's default init, the same distribution
-        if seed is not None:
-            gen = torch.Generator().manual_seed(seed)
+        if seed is not None or generator is not None:
+            gen = generator if generator is not None else torch.Generator().manual_seed(seed)
             with torch.no_grad():
                 for layer in self.layers.values():
                     bound = 1.0 / math.sqrt(layer.in_features)
@@ -123,6 +127,20 @@ class NeRF(nn.Module):
             density, feature = out[..., :1], out[..., 1:]
         rgb_h = F.relu(_linear(L["rgb1"], torch.cat([feature, de], -1)))
         return density, torch.sigmoid(_linear(L["rgb2"], rgb_h))
+
+
+class NeRFPair(nn.Module):
+    """The coarse and the fine network of hierarchical sampling, two NeRFs
+    of one config.  With a ``seed`` both are drawn from one generator, the
+    coarse one first, so they differ."""
+
+    def __init__(self, cfg: NeRFModelConfig, device=None, dtype=torch.float32,
+                 seed: Optional[int] = None):
+        super().__init__()
+        self.cfg = cfg
+        gen = torch.Generator().manual_seed(seed) if seed is not None else None
+        self.coarse = NeRF(cfg, device=device, dtype=dtype, generator=gen)
+        self.fine = NeRF(cfg, device=device, dtype=dtype, generator=gen)
 
 
 def cast_params_bf16(model: NeRF) -> NeRF:

@@ -1,4 +1,5 @@
-"""Stratified sampling and volume rendering (flat path).
+"""Stratified sampling, volume rendering and hierarchical (coarse/fine)
+sampling.
 
 The two compositor variants of sfm_nerf_tpu/ops/render.py:
 
@@ -12,6 +13,14 @@ Random draws come from a ``torch.Generator``; a caller may pass the uniform
 draw ``u`` itself (tests feed both packages the same numbers).  Without a
 generator and without ``u`` the samples are deterministic, whatever
 ``cfg.perturb`` says, as the JAX functions are without a key.
+
+Hierarchical sampling: a coarse pass gives per-sample weights, ``sample_pdf``
+draws ``n_importance`` more depths from their histogram (inverse CDF,
+weights detached), ``merge_sorted`` unites them with the coarse depths, and
+a fine pass renders the union.  The JAX package writes the interval lookup
+as one broadcast compare and the union as a bitonic roll network because
+TPU gathers and sorts are slow; here they are ``torch.searchsorted`` +
+``gather`` and ``torch.sort``, which select the same values.
 """
 
 from __future__ import annotations
@@ -165,6 +174,163 @@ def render_rays_chunked_aux(
     parts = [
         render_rays_aux(model_fn, origins[i:i + chunk_rays],
                         directions[i:i + chunk_rays], cfg, generator)
+        for i in range(0, origins.shape[0], chunk_rays)
+    ]
+    return tuple(torch.cat(p) for p in zip(*parts))
+
+
+# ---------------------------------------------------------------------------
+# hierarchical sampling
+# ---------------------------------------------------------------------------
+
+
+def sample_pdf(
+    bins: torch.Tensor,       # (N, S-1) bin edges (z midpoints)
+    weights: torch.Tensor,    # (N, S-2) coarse weights over the interior bins
+    n_importance: int,
+    generator: Optional[torch.Generator] = None,
+    u: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Inverse-CDF importance sampling over the coarse weight histogram:
+    (N, n_importance) depths, ascending per ray.
+
+    With a generator, or the jitter ``u`` (N, n_importance) in [0, 1) given,
+    the draw is stratified per slot, ``(i + u_i) / n_importance``, so the
+    outputs are non-decreasing by construction; with neither it is
+    ``linspace(0, 1 - 1e-5, n_importance)``."""
+    weights = weights + 1e-5
+    pdf = weights / torch.sum(weights, -1, keepdim=True)
+    cdf = torch.cumsum(pdf, -1)
+    cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf], -1)          # (N, S-1)
+    n, dev = cdf.shape[0], cdf.device
+    slots = torch.arange(n_importance, dtype=cdf.dtype, device=dev)
+    if u is None and generator is not None:
+        u = torch.rand((n, n_importance), generator=generator, device=dev, dtype=cdf.dtype)
+    if u is not None:
+        u = (slots + u.to(dev, cdf.dtype)) / n_importance
+    else:
+        # stop * (i / (NI - 1)): the arithmetic of jnp.linspace from 0
+        top = torch.tensor(1.0 - 1e-5, dtype=cdf.dtype, device=dev)
+        u = (top * (slots / max(n_importance - 1, 1)))[None, :].expand(n, n_importance)
+    u = u.contiguous()
+    # bins aligned to the cdf's length: cut, or the last edge repeated
+    Sc = cdf.shape[-1]
+    if bins.shape[-1] >= Sc:
+        bins = bins[..., :Sc]
+    else:
+        bins = torch.cat([bins, bins[..., -1:].expand(-1, Sc - bins.shape[-1])], -1)
+    # below = last s with cdf[s] <= u (cdf[0] = 0, so it exists); above =
+    # first s with cdf[s] > u, the last bin when u lies past the cdf's end
+    # (a float32 cumsum may end a hair under 1)
+    # (a full frame's index tensors are (N, NI) int64: freed as soon as used)
+    idx = torch.searchsorted(cdf, u, right=True)
+    below = torch.clamp(idx - 1, min=0)
+    above = torch.clamp(idx, max=Sc - 1)
+    del idx
+    cdf_below, cdf_above = torch.gather(cdf, -1, below), torch.gather(cdf, -1, above)
+    bins_below, bins_above = torch.gather(bins, -1, below), torch.gather(bins, -1, above)
+    del below, above
+    denom = cdf_above - cdf_below
+    denom = torch.where(denom < 1e-5, torch.ones_like(denom), denom)
+    t = (u - cdf_below) / denom
+    return bins_below + t * (bins_above - bins_below)
+
+
+def merge_sorted(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Two per-row ascending arrays (N, A), (N, B) -> (N, A + B) ascending,
+    elementwise equal to sorting their concatenation.  Equal values are all
+    kept."""
+    return torch.sort(torch.cat([a, b.to(a.dtype)], -1), -1).values
+
+
+def _hierarchical_body(coarse_fn, fine_fn, origins, directions, cfg, n_importance,
+                       generator=None, u=None, u_pdf=None):
+    """The coarse and the fine pass: (rgb_f, rgb_c, weights_f, z_all, acc_f).
+    The depth jitter is drawn before the importance jitter."""
+    z_coarse = stratified_samples(origins.shape[0], cfg, generator, origins.device, u)
+    density_c, rgb_c = coarse_fn(*_points(origins, directions, z_coarse))
+    out_c, weights, _ = composite(density_c, rgb_c, z_coarse, cfg)
+    mids = 0.5 * (z_coarse[..., 1:] + z_coarse[..., :-1])                # (N, S-1)
+    # the weights are detached into the importance sampler: the coarse
+    # model learns from its own MSE only, as in the fused training step,
+    # whose weights output has no backward
+    z_fine = sample_pdf(mids, weights[..., 1:-1].detach(), n_importance, generator, u_pdf)
+    z_all = merge_sorted(z_coarse, z_fine)                               # (N, S+I)
+    density_f, rgb_f = fine_fn(*_points(origins, directions, z_all))
+    out_f, weights_f, acc_f = composite(density_f, rgb_f, z_all, cfg)
+    return out_f, out_c, weights_f, z_all, acc_f
+
+
+def render_rays_hierarchical(
+    coarse_fn: ModelFn,
+    fine_fn: ModelFn,
+    origins: torch.Tensor,
+    directions: torch.Tensor,
+    cfg: RenderConfig,
+    n_importance: int,
+    generator: Optional[torch.Generator] = None,
+    u: Optional[torch.Tensor] = None,
+    u_pdf: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Two-pass coarse/fine render: (rgb_fine (N, 3), rgb_coarse (N, 3)).
+    The fine pass evaluates the union of the coarse and the importance
+    depths, sorted per ray.  ``u`` (N, n_sample) and ``u_pdf``
+    (N, n_importance) replace the generator's two draws."""
+    out_f, out_c, _, _, _ = _hierarchical_body(
+        coarse_fn, fine_fn, origins, directions, cfg, n_importance, generator, u, u_pdf)
+    return out_f, out_c
+
+
+def render_rays_hierarchical_aux(
+    coarse_fn: ModelFn,
+    fine_fn: ModelFn,
+    origins: torch.Tensor,
+    directions: torch.Tensor,
+    cfg: RenderConfig,
+    n_importance: int,
+    generator: Optional[torch.Generator] = None,
+):
+    """Hierarchical render with the fine pass's maps:
+    (rgb_fine (N,3), depth (N,), disp (N,), acc (N,))."""
+    out_f, _, weights_f, z_all, acc_f = _hierarchical_body(
+        coarse_fn, fine_fn, origins, directions, cfg, n_importance, generator)
+    depth, disp = weight_maps(weights_f, z_all, acc_f)
+    return out_f, depth, disp, acc_f
+
+
+def render_rays_hierarchical_chunked(
+    coarse_fn: ModelFn,
+    fine_fn: ModelFn,
+    origins: torch.Tensor,
+    directions: torch.Tensor,
+    cfg: RenderConfig,
+    n_importance: int,
+    generator: Optional[torch.Generator] = None,
+    chunk_rays: int = 2048,
+) -> torch.Tensor:
+    """Full-frame hierarchical render in ray chunks: the fine rgb (N, 3)."""
+    return torch.cat([
+        render_rays_hierarchical(coarse_fn, fine_fn, origins[i:i + chunk_rays],
+                                 directions[i:i + chunk_rays], cfg, n_importance, generator)[0]
+        for i in range(0, origins.shape[0], chunk_rays)
+    ])
+
+
+def render_rays_hierarchical_chunked_aux(
+    coarse_fn: ModelFn,
+    fine_fn: ModelFn,
+    origins: torch.Tensor,
+    directions: torch.Tensor,
+    cfg: RenderConfig,
+    n_importance: int,
+    generator: Optional[torch.Generator] = None,
+    chunk_rays: int = 2048,
+):
+    """Chunked render_rays_hierarchical_aux:
+    (rgb (N,3), depth (N,), disp (N,), acc (N,))."""
+    parts = [
+        render_rays_hierarchical_aux(coarse_fn, fine_fn, origins[i:i + chunk_rays],
+                                     directions[i:i + chunk_rays], cfg, n_importance, generator)
         for i in range(0, origins.shape[0], chunk_rays)
     ]
     return tuple(torch.cat(p) for p in zip(*parts))

@@ -12,6 +12,10 @@ written to a temporary name and renamed.  Keys are '//'-joined tree paths:
   ``flatten_pytree`` names it; both counts are the number of updates done;
 - ``step`` (int64) and ``extra//<name>`` (e.g. ``extra//loss``).
 
+A hierarchical run's pair nests one level more, as the JAX params tree
+does: ``params//d:coarse//d:<layer>//d:w``, ``params//d:fine//...``,
+``opt//s:0//a:mu//d:coarse//...``.
+
 Resume picks the numerically newest step.  Arrays here are numpy in the JAX
 layout; models/convert.py carries them to and from the ``nn.Module`` and
 ``torch.optim.Adam``.
@@ -55,7 +59,10 @@ def load_params_untyped(path: str) -> Tuple[dict, int]:
 
 
 def infer_model_config(params: dict) -> NeRFModelConfig:
-    """NeRFModelConfig from a params dict's shapes (active or legacy)."""
+    """NeRFModelConfig from a params dict's shapes (active or legacy); of a
+    {'coarse', 'fine'} pair, from the fine side (both share one config)."""
+    if set(params) == {"coarse", "fine"}:
+        params = params["fine"]
     arch = "active" if "feature" in params else "legacy"
     hidden = int(params["fc1"]["b"].shape[0])
     pos_in = int(params["fc1"]["w"].shape[0])

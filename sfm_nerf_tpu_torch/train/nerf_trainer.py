@@ -12,6 +12,14 @@ the config alone (``fused_train_supported``):
   (forward kernel, backward kernel) under an MSE written in torch;
 - ``--no_fused`` -> the float32 ``nn.Module`` under autograd.
 
+With ``n_importance > 0`` the model is a coarse/fine ``NeRFPair`` under one
+Adam and the loss is the coarse MSE plus the fine MSE.  On the merged route
+a step is two launches: ``fused_mse_loss_weights`` on the coarse depths
+(loss, grads and the weight histogram), ``sample_pdf`` and ``merge_sorted``
+in torch, ``fused_mse_loss`` on the sorted union.  Off it (two-kernel step,
+legacy compositor, ``--no_fused``) the pair trains through
+``render_rays_hierarchical`` under autograd, float32 only.
+
 On CPU tensors the fused wrappers run their plain versions.  The host loop
 reads the loss only every ``log_every`` steps; checkpoints (.npz, the JAX
 package's key layout) and validation renders follow their own cadences, and
@@ -20,8 +28,7 @@ a KeyboardInterrupt saves a checkpoint stamped with the last finished step.
 Not ported: ``steps_per_call`` (a ``lax.scan`` that amortises XLA dispatch:
 the torch loop enqueues each step's launches without waiting for the
 device, so there is no per-step round trip to amortise), the orbax backend,
-the ``.pth`` fine-tune resume, dp/tp, hierarchical sampling
-(``n_importance > 0`` raises).
+the ``.pth`` fine-tune resume, dp/tp.
 
 Renderers.  Route, decided from the config alone:
 
@@ -33,6 +40,12 @@ Renderers.  Route, decided from the config alone:
 - ``--no_fused``, and the legacy compositor with a white background (whose
   weights do not telescope, so the kernel refuses it) -> the float32
   ``nn.Module`` path in ray chunks.
+
+A hierarchical frame on the fused route is two launches: the coarse pass
+through ``fused_render_rays_weights``, ``sample_pdf`` and ``merge_sorted``
+in torch, then the fine pass over the union through
+``fused_render_rays_weights`` when the maps are wanted and through
+``fused_render_rays`` (the same rgb, no weights written) when not.
 
 Nothing catches a kernel error and carries on down the other path.
 """
@@ -49,24 +62,27 @@ from sfm_nerf_tpu_torch.config import NeRFPipelineConfig
 from sfm_nerf_tpu_torch.kernels.fused_render import (
     MAX_FREQ, fused_render_rays, fused_render_rays_weights, pack_nerf_params,
 )
-from sfm_nerf_tpu_torch.kernels.fused_train import fused_mse_loss, fused_render_train
+from sfm_nerf_tpu_torch.kernels.fused_train import (
+    fused_mse_loss, fused_mse_loss_weights, fused_render_train,
+)
 from sfm_nerf_tpu_torch.models.convert import (
     load_params_from_jax, optimizer_state_from_jax, optimizer_state_to_jax, params_to_jax,
 )
-from sfm_nerf_tpu_torch.models.nerf import NeRF
+from sfm_nerf_tpu_torch.models.nerf import NeRF, NeRFPair
 from sfm_nerf_tpu_torch.ops.rays import image_rays, sample_ray_batch
 from sfm_nerf_tpu_torch.ops.render import (
-    render_rays, render_rays_chunked, render_rays_chunked_aux, stratified_samples,
-    weight_maps,
+    merge_sorted, render_rays, render_rays_chunked, render_rays_chunked_aux,
+    render_rays_hierarchical, render_rays_hierarchical_chunked,
+    render_rays_hierarchical_chunked_aux, sample_pdf, stratified_samples, weight_maps,
 )
 from sfm_nerf_tpu_torch.train import checkpoint as ckpt_lib
 from sfm_nerf_tpu_torch.utils.metrics import mse as host_mse
 
 
 def use_fused_route(cfg: NeRFPipelineConfig) -> bool:
+    """Whether full frames render through the fused kernels, flat or
+    hierarchical alike."""
     rcfg = cfg.render
-    if rcfg.n_importance > 0:
-        raise NotImplementedError("hierarchical rendering: later slice")
     return rcfg.use_fused_kernel and not (
         rcfg.white_background and rcfg.variant != "train")
 
@@ -84,21 +100,57 @@ def _packer(cfg: NeRFPipelineConfig):
     return packed
 
 
+def _fused_hierarchical_render(packed_c, packed_f, o, d, rcfg, generator, want_weights):
+    """Coarse fused pass (its weights) -> sample_pdf + merge_sorted -> fine
+    fused pass over the union, with _hierarchical_body's sampling (interior
+    bin weights, stratified importance draws, sorted union).  Returns
+    (rgb_fine (N, 3), weights_fine (N, S+I) or None, z_all (N, S+I))."""
+    z_c = stratified_samples(o.shape[0], rcfg, generator, o.device)
+    _, w_c = fused_render_rays_weights(packed_c, o, d, z_c, rcfg)
+    mids = 0.5 * (z_c[..., 1:] + z_c[..., :-1])
+    z_fine = sample_pdf(mids, w_c[..., 1:-1], rcfg.n_importance, generator)
+    del w_c, mids
+    z_all = merge_sorted(z_c, z_fine)
+    if want_weights:
+        rgb_f, w_f = fused_render_rays_weights(packed_f, o, d, z_all, rcfg)
+    else:
+        rgb_f, w_f = fused_render_rays(packed_f, o, d, z_all, rcfg), None
+    return rgb_f, w_f, z_all
+
+
+def _check_model(cfg: NeRFPipelineConfig, model) -> bool:
+    """True for a hierarchical config; the model must be of its kind."""
+    hier = cfg.render.n_importance > 0
+    if hier != isinstance(model, NeRFPair):
+        raise ValueError(
+            f"n_importance = {cfg.render.n_importance} renders "
+            f"{'a coarse/fine NeRFPair' if hier else 'one NeRF'}, got {type(model).__name__}")
+    return hier
+
+
 def make_render_image(cfg: NeRFPipelineConfig):
     """Renderer ``(model, K, pose, H, W, generator=None) -> (H, W, 3)`` on
     ``pose``'s device.  Without a generator the samples are the
-    deterministic bin midpoints."""
+    deterministic bin midpoints.  With ``render.n_importance > 0`` the
+    model is a NeRFPair and the fine image is returned."""
     rcfg = cfg.render
     fused = use_fused_route(cfg)
-    packed = _packer(cfg)
+    packed, packed_c = _packer(cfg), _packer(cfg)
 
     @torch.no_grad()
-    def render_image(model: NeRF, K, pose: torch.Tensor, height: int, width: int,
+    def render_image(model, K, pose: torch.Tensor, height: int, width: int,
                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        hier = _check_model(cfg, model)
         o, d = image_rays(K, pose, height, width)
-        if fused:
+        if fused and hier:
+            rgb, _, _ = _fused_hierarchical_render(
+                packed_c(model.coarse), packed(model.fine), o, d, rcfg, generator, False)
+        elif fused:
             z = stratified_samples(height * width, rcfg, generator, o.device)
             rgb = fused_render_rays(packed(model), o, d, z, rcfg)
+        elif hier:
+            rgb = render_rays_hierarchical_chunked(
+                model.coarse, model.fine, o, d, rcfg, rcfg.n_importance, generator)
         else:
             rgb = render_rays_chunked(model, o, d, rcfg, generator)
         return rgb.reshape(height, width, 3)
@@ -109,20 +161,29 @@ def make_render_image(cfg: NeRFPipelineConfig):
 def make_render_image_aux(cfg: NeRFPipelineConfig):
     """Renderer ``(model, K, pose, H, W, generator=None)`` -> (rgb (H,W,3),
     depth (H,W), disp (H,W), acc (H,W)); the fused route feeds the
-    kernel's weights output to weight_maps."""
+    kernel's weights output to weight_maps (hierarchical: the fine pass's
+    weights over the sorted union)."""
     rcfg = cfg.render
     fused = use_fused_route(cfg)
-    packed = _packer(cfg)
+    packed, packed_c = _packer(cfg), _packer(cfg)
 
     @torch.no_grad()
-    def render_image_aux(model: NeRF, K, pose: torch.Tensor, height: int, width: int,
+    def render_image_aux(model, K, pose: torch.Tensor, height: int, width: int,
                          generator: Optional[torch.Generator] = None):
+        hier = _check_model(cfg, model)
         o, d = image_rays(K, pose, height, width)
         if fused:
-            z = stratified_samples(height * width, rcfg, generator, o.device)
-            rgb, w = fused_render_rays_weights(packed(model), o, d, z, rcfg)
+            if hier:
+                rgb, w, z = _fused_hierarchical_render(
+                    packed_c(model.coarse), packed(model.fine), o, d, rcfg, generator, True)
+            else:
+                z = stratified_samples(height * width, rcfg, generator, o.device)
+                rgb, w = fused_render_rays_weights(packed(model), o, d, z, rcfg)
             acc = torch.sum(w, dim=-1)
             depth, disp = weight_maps(w, z, acc)
+        elif hier:
+            rgb, depth, disp, acc = render_rays_hierarchical_chunked_aux(
+                model.coarse, model.fine, o, d, rcfg, rcfg.n_importance, generator)
         else:
             rgb, depth, disp, acc = render_rays_chunked_aux(
                 model, o, d, rcfg, generator)
@@ -145,8 +206,9 @@ def make_schedule(cfg: NeRFPipelineConfig) -> Callable[[int], float]:
     return lambda step: t.lrate * t.lrate_decay ** (step // t.lrate_decay_steps)
 
 
-def make_optimizer(cfg: NeRFPipelineConfig, model: NeRF):
-    """(Adam, StepLR) over ``model``'s parameters; call ``scheduler.step()``
+def make_optimizer(cfg: NeRFPipelineConfig, model):
+    """(Adam, StepLR) over ``model``'s parameters (both networks of a
+    NeRFPair); call ``scheduler.step()``
     after every ``optimizer.step()``.  Adam's betas (0.9, 0.999) and eps
     1e-8 are optax.adam's."""
     t = cfg.train
@@ -160,8 +222,9 @@ def fused_train_supported(cfg: NeRFPipelineConfig) -> bool:
     """Whether the fused training kernels cover this config; outside it
     make_loss_fn takes the nn.Module autograd path.  Envelope: active or
     legacy arch (the no-PE ablation included), the 'train' compositor
-    (white background too), flat sampling, hidden a multiple of 16 up to
-    256, at most 16 encoding frequencies.
+    (white background too), hidden a multiple of 16 up to 256, at most 16
+    encoding frequencies; hierarchical sampling on the merged step only
+    (the coarse step kernel is the one that emits the weight histogram).
 
     Clauses of the JAX gate that the CUDA kernel does not need, dropped:
     the chunk count cap and the pad-ratio bound (the kernel loops over any
@@ -173,7 +236,7 @@ def fused_train_supported(cfg: NeRFPipelineConfig) -> bool:
     return (
         rcfg.use_fused_kernel
         and mcfg.arch in ("active", "legacy")
-        and rcfg.n_importance == 0
+        and (rcfg.n_importance == 0 or rcfg.fused_merged_step)
         and rcfg.variant == "train"
         and mcfg.hidden % 16 == 0 and mcfg.hidden <= 256
         and (not mcfg.pos_encoding
@@ -187,27 +250,50 @@ def _mse(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
 
 def make_loss_fn(cfg: NeRFPipelineConfig, n_rays: Optional[int] = None):
     """The per-batch loss ``loss_fn(model, generator, images, poses, K,
-    draws=None, u=None)``: ray sampling on the device -> render -> MSE, a
-    scalar whose ``backward()`` fills the parameters' grads.  ``draws``
-    (img_idx, px, py) and ``u`` (n_rays, n_sample) replace the generator's
-    pixel and depth draws (tests feed both packages the same numbers)."""
+    draws=None, u=None, u_pdf=None)``: ray sampling on the device -> render
+    -> MSE, a scalar whose ``backward()`` fills the parameters' grads.
+    ``draws`` (img_idx, px, py), ``u`` (n_rays, n_sample) and ``u_pdf``
+    (n_rays, n_importance) replace the generator's pixel, depth and
+    importance draws, made in that order (tests feed both packages the same
+    numbers).
+
+    With ``render.n_importance > 0`` the model is a NeRFPair and the loss is
+    the sum of the coarse and the fine pass's MSEs over the hierarchical
+    sampler; the coarse weights reach ``sample_pdf`` detached on every
+    route."""
     mcfg, rcfg = cfg.model, cfg.render
     n_rays = n_rays if n_rays is not None else cfg.train.n_rays_batch
-    if rcfg.n_importance > 0:
-        raise NotImplementedError("hierarchical training: later slice")
+    n_imp = rcfg.n_importance
     fused = fused_train_supported(cfg)
     if not fused and cfg.train.compute_dtype != "float32":
         raise NotImplementedError("the nn.Module training path is float32 only")
 
-    def loss_fn(model: NeRF, generator, images, poses, K, draws=None, u=None):
+    def loss_fn(model, generator, images, poses, K, draws=None, u=None, u_pdf=None):
+        _check_model(cfg, model)
         o, d, target = sample_ray_batch(images, poses, K, n_rays, generator, draws)
+        if not fused and n_imp > 0:
+            rgb_f, rgb_c = render_rays_hierarchical(
+                model.coarse, model.fine, o, d, rcfg, n_imp, generator, u, u_pdf)
+            return _mse(rgb_f, target) + _mse(rgb_c, target)
         z = stratified_samples(n_rays, rcfg, generator, o.device, u)
         if not fused:
             return _mse(render_rays(model, o, d, rcfg, z_vals=z), target)
         # the CUDA kernels take bf16-packed weights; the plain version on the
         # CPU packs in float32 unless compute_dtype asks for bf16
         bf16 = o.device.type == "cuda" or cfg.train.compute_dtype == "bfloat16"
-        packed = pack_nerf_params(model, mcfg, torch.bfloat16 if bf16 else torch.float32)
+        pdt = torch.bfloat16 if bf16 else torch.float32
+        if n_imp > 0:
+            # the coarse step kernel emits the weight histogram; importance
+            # sampling and the sort run in torch between the two launches
+            loss_c, weights = fused_mse_loss_weights(
+                pack_nerf_params(model.coarse, mcfg, pdt), o, d, z, target, rcfg)
+            mids = 0.5 * (z[..., 1:] + z[..., :-1])
+            z_fine = sample_pdf(mids, weights[..., 1:-1], n_imp, generator, u_pdf)
+            z_all = merge_sorted(z, z_fine)
+            loss_f = fused_mse_loss(
+                pack_nerf_params(model.fine, mcfg, pdt), o, d, z_all, target, rcfg)
+            return loss_f + loss_c
+        packed = pack_nerf_params(model, mcfg, pdt)
         if rcfg.fused_merged_step:
             return fused_mse_loss(packed, o, d, z, target, rcfg)
         return _mse(fused_render_train(packed, o, d, z, rcfg), target)
@@ -220,7 +306,7 @@ def make_train_step(cfg: NeRFPipelineConfig, optimizer, scheduler) -> Callable:
     scalar tensor on the device; nothing here waits for the device)."""
     loss_fn = make_loss_fn(cfg)
 
-    def train_step(model: NeRF, generator, images, poses, K) -> torch.Tensor:
+    def train_step(model, generator, images, poses, K) -> torch.Tensor:
         optimizer.zero_grad(set_to_none=True)
         loss = loss_fn(model, generator, images, poses, K)
         loss.backward()
@@ -244,8 +330,6 @@ class NeRFTrainer:
         train_step: Optional[Callable] = None,
         writer: Any = None,
     ):
-        if cfg.render.n_importance > 0:
-            raise NotImplementedError("hierarchical training: later slice")
         if cfg.train.ckpt_backend != "npz":
             raise NotImplementedError("only the npz checkpoint backend is ported")
         self.cfg = cfg
@@ -254,7 +338,9 @@ class NeRFTrainer:
         self.images = torch.as_tensor(np.asarray(images), **f32)
         self.poses = torch.as_tensor(np.asarray(poses), **f32)
         self.K = torch.as_tensor(np.asarray(camera_matrix), **f32)
-        self.model = NeRF(cfg.model, device=self.device, seed=cfg.train.seed)
+        # hierarchical sampling trains a coarse/fine pair under one Adam
+        net = NeRFPair if cfg.render.n_importance > 0 else NeRF
+        self.model = net(cfg.model, device=self.device, seed=cfg.train.seed)
         self.optimizer, self.scheduler = make_optimizer(cfg, self.model)
         self._schedule = make_schedule(cfg)
         self.train_step = train_step or make_train_step(cfg, self.optimizer, self.scheduler)
@@ -269,7 +355,11 @@ class NeRFTrainer:
         if path is None:
             return False
         params, opt_state, step = ckpt_lib.load_checkpoint(path)
-        load_params_from_jax(self.model, params)
+        try:
+            load_params_from_jax(self.model, params)
+        except ValueError as e:
+            # a flat checkpoint under a hierarchical run, or the reverse
+            raise ValueError(f"cannot resume from {path}: {e}") from e
         if opt_state is not None:
             optimizer_state_from_jax(self.model, self.optimizer, opt_state)
         # the schedule follows the number of updates done

@@ -156,6 +156,85 @@ def test_fused_train_kernels_match_plain_versions(white, n_rays, n_sample):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("white,n_rays,n_sample", [
+    (False, 1024, 256), (True, 777, 200), (False, 300, 384)])
+def test_fused_mse_loss_weights_kernel_matches_plain_version(white, n_rays, n_sample):
+    """K4 (fused_mse_loss_weights): rgb and grads bit-equal to K2's on the
+    same inputs, bit-equal across two runs, and the weights equal to the
+    render kernel's (K5) and within the weight rule of the plain version's;
+    a ragged last chunk writes the caller's S columns only."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    params, _ = ckpt.load_params_untyped(SYNTH800)
+    mcfg = ckpt.infer_model_config(params)
+    model = params_from_jax(params, mcfg, "cuda")
+    packed = fr.pack_nerf_params(model, mcfg, torch.bfloat16)
+    o, d, z, target = _train_batch(n_rays, n_sample, seed=n_sample + 1)
+    rcfg = RenderConfig(n_sample=n_sample, white_background=white)
+    before = dict(ft.LAUNCHES)
+    rgb, w, gw, gb = ft.fused_mse_loss_weights_grads(packed, o, d, z, target, rcfg)
+    rgb_b, w_b, gw_b, gb_b = ft.fused_mse_loss_weights_grads(packed, o, d, z, target, rcfg)
+    assert ft.LAUNCHES["fused_mse_loss_weights"] == before["fused_mse_loss_weights"] + 2
+    assert ft.LAUNCHES["fused_mse_loss"] == before["fused_mse_loss"]
+    assert all(torch.equal(a, b) for a, b in ((rgb, rgb_b), (w, w_b), (gw, gw_b), (gb, gb_b)))
+    rgb2, gw2, gb2 = ft.fused_mse_loss_grads(packed, o, d, z, target, rcfg)
+    assert torch.equal(rgb, rgb2) and torch.equal(gw, gw2) and torch.equal(gb, gb2)
+    assert w.shape == (n_rays, n_sample) and w.dtype == torch.float32
+    assert torch.equal(w, fr.fused_render_rays_weights(packed, o, d, z, rcfg)[1])
+    rr, wr, gwr, gbr = ft.fused_mse_loss_weights_reference(packed, o, d, z, target, rcfg)
+    _, w64, gw64, gb64 = ft.fused_mse_loss_weights_reference(
+        packed, o.double(), d.double(), z.double(), target.double(), rcfg)
+    w_tol = max(1e-2, (wr.double() - w64).abs().max().item())
+    assert (rgb - rr).abs().max().item() <= 1e-2
+    assert (w - wr).abs().max().item() <= w_tol
+    assert ((w - wr).abs() > 1e-3).float().mean().item() <= 1e-4
+    assert (w.sum(-1) - wr.sum(-1)).abs().max().item() <= 1e-2
+    _assert_grads_close(packed, (gw, gb), (gwr, gbr), (gw64, gb64))
+
+
+@pytest.mark.gpu
+def test_hierarchical_step_and_frame_launch_counts():
+    """One hierarchical loss on the card is one K4 and one K2 launch and
+    fills both networks' grads; one hierarchical frame is one K5 and one K1
+    launch, with the maps two K5 launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from sfm_nerf_tpu_torch.config import NeRFModelConfig, NeRFPipelineConfig, TrainConfig
+    from sfm_nerf_tpu_torch.models.nerf import NeRFPair
+    from sfm_nerf_tpu_torch.train.nerf_trainer import (
+        make_loss_fn, make_render_image, make_render_image_aux,
+    )
+
+    cfg = NeRFPipelineConfig(
+        model=NeRFModelConfig(hidden=64, n_pos_freq=6, n_dir_freq=2),
+        render=RenderConfig(n_sample=96, n_importance=64, use_fused_kernel=True),
+        train=TrainConfig(n_rays_batch=512))
+    pair = NeRFPair(cfg.model, device="cuda", seed=0)
+    rng = np.random.default_rng(0)
+    images = torch.from_numpy(rng.uniform(0, 1, (3, 24, 24, 3)).astype(np.float32)).cuda()
+    poses = torch.eye(4).repeat(3, 1, 1).cuda()
+    poses[:, 2, 3] = 4.0
+    K = torch.tensor([[30.0, 0, 12], [0, 30.0, 12], [0, 0, 1]]).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    ft.reset_launch_counts()
+    loss = make_loss_fn(cfg)(pair, gen, images, poses, K)
+    loss.backward()
+    assert ft.LAUNCHES["fused_mse_loss_weights"] == 1 and ft.LAUNCHES["fused_mse_loss"] == 1
+    assert bool(torch.isfinite(loss))
+    for name, p in pair.named_parameters():
+        assert p.grad is not None and bool(torch.isfinite(p.grad).all()), name
+        assert p.grad.abs().max().item() > 0 or "density_fc" in name, name
+    fr.reset_launch_counts()
+    img = make_render_image(cfg)(pair, K, poses[0], 24, 24)
+    assert fr.LAUNCHES == {"fused_render_rays": 1, "fused_render_rays_weights": 1}
+    rgb, depth, disp, acc = make_render_image_aux(cfg)(pair, K, poses[0], 24, 24)
+    assert fr.LAUNCHES == {"fused_render_rays": 1, "fused_render_rays_weights": 3}
+    assert torch.equal(rgb, img) and bool(torch.isfinite(depth).all())
+    assert acc.min().item() >= -1e-6 and acc.max().item() <= 1 + 1e-5
+
+
+@pytest.mark.gpu
 def test_fused_train_wrappers_fill_parameter_grads():
     """loss.backward() through either wrapper fills every parameter's .grad
     on the card, and the two routes agree."""

@@ -544,11 +544,17 @@ def test_the_loss_reaches_the_host_only_at_log_every(tiny, tmp_path):
 
 
 def test_unported_options_raise(tiny):
+    """The orbax backend and the bf16 nn.Module path are not ported and say
+    so; hierarchical sampling is (tests/test_torch_hier_train.py): the
+    trainer builds a coarse/fine pair for it."""
+    from sfm_nerf_tpu_torch.models.nerf import NeRFPair
+
     args = (tiny["images"], tiny["poses"], tiny["K"])
+    hier = NeRFTrainer(_port_cfg(tiny["jcfg"], render=dict(n_importance=8)), *args, device="cpu")
+    assert isinstance(hier.model, NeRFPair)
+    assert callable(make_loss_fn(_port_cfg(tiny["jcfg"], render=dict(n_importance=8))))
     with pytest.raises(NotImplementedError):
-        NeRFTrainer(_port_cfg(tiny["jcfg"], render=dict(n_importance=8)), *args, device="cpu")
-    with pytest.raises(NotImplementedError):
-        make_loss_fn(_port_cfg(tiny["jcfg"], render=dict(n_importance=8)))
+        make_loss_fn(_port_cfg(tiny["jcfg"], train=dict(compute_dtype="bfloat16")))
     with pytest.raises(NotImplementedError):
         NeRFTrainer(_port_cfg(tiny["jcfg"], train=dict(ckpt_backend="orbax")), *args,
                     device="cpu")
@@ -560,6 +566,8 @@ def test_unported_options_raise(tiny):
     (dict(model=dict(arch="legacy", pos_encoding=False, has_skip=False)), True),
     (dict(render=dict(white_background=True)), True),
     (dict(render=dict(n_sample=200)), True),          # no chunk-alignment clause
+    (dict(render=dict(n_importance=128)), True),      # hierarchical: the merged step
+    (dict(render=dict(n_importance=128, fused_merged_step=False)), False),
     (dict(render=dict(variant="legacy")), False),
     (dict(render=dict(use_fused_kernel=False)), False),
     (dict(model=dict(hidden=40)), False),
