@@ -12,8 +12,9 @@ training step; hierarchical: 256 coarse + 128 importance samples):
 1. device: the card's name and power limit;
 2. serve: ``cli.nerf --mode test`` on synth800 (5 test views through K1,
    fused_render_rays), per-view ms, PSNR/SSIM against the ground truth,
-   peak memory; K1 held against its plain version on 16,384 rays of a view
-   and the kernel's full frame against the float32 nn.Module path;
+   peak memory; K1 held against its plain version on 16,384 rays of a view,
+   the kernel's full frame against the float32 nn.Module path and against
+   a second launch on the same frame (bit-equal);
 3. aux: one view through make_render_image_aux (K5,
    fused_render_rays_weights), weights held against the plain version,
    beside the plain version's own float32-vs-float64 spread;
@@ -40,14 +41,17 @@ training step; hierarchical: 256 coarse + 128 importance samples):
 9. serve_hier: ``cli.nerf --mode test --n_importance 128`` on that pair (2
    views), and one view through make_render_image_aux (K5 twice);
 10. hier_kernels: on one real batch, K4 against its plain version (rgb,
-   loss, weights, every grad tensor), against K2 (bit-equal rgb and grads)
-   and against itself, and K2 at 384 samples against its plain version on
-   the shared union; on 16,384 rays of a view the hierarchical render route
-   stage by stage against the plain route; the full kernel frame against
-   the float32 nn.Module hierarchical frame; the times of the frame's parts;
-11. kernels: one JSON line with every kernel's launches on its path, its
-   error against the plain version, its time at the main-path shape beside
-   the plain version's and the card's bound.
+   loss, weights, every grad tensor), against K2 (bit-equal rgb and grads),
+   against itself and against K5 (rgb and weights under the weight rule),
+   and K2 at 384 samples against its plain version on the shared union; on
+   16,384 rays of a view the hierarchical render route stage by stage
+   against the plain route; the full kernel frame against the float32
+   nn.Module hierarchical frame; the times of the frame's parts;
+11. kernels: the render kernel's shared memory, its L2 weight traffic per
+   frame by arithmetic and a cuBLAS yardstick for its products; then one
+   JSON line with every kernel's launches on its path, its error against
+   the plain version, its time at the main-path shape beside the plain
+   version's and the card's bound.
 
 Each path runs with the launch counters set to 0 just before it and read
 just after; a path that did not launch its kernel fails the run.  Every
@@ -150,16 +154,18 @@ def main():
         torch.cuda.synchronize()
         return e0.elapsed_time(e1) / reps, out
 
-    def compare(name, got, ref, weights=None, z=None):
+    def compare(name, got, ref, weights=None, z=None, plain_w=None):
         """Kernel output vs plain version: rgb per-ray max error and PSNR,
         and for K5 the weights and the acc and depth maps they give; raises
-        past the tolerances.  Returns a dict of the errors."""
+        past the tolerances.  ``plain_w``: the plain version's float32
+        weights, where ``ref`` is another kernel's (the spread is always the
+        plain version's).  Returns a dict of the errors."""
         r = {"rgb_max_abs": (got - ref).abs().max().item(), "psnr": psnr(got, ref)}
         ok = r["rgb_max_abs"] <= RGB_TOL and r["psnr"] >= PSNR_PLAIN
         if weights is not None:
             w, wr, w64 = weights
             ew = (w - wr).abs()
-            e64 = (wr.double() - w64).abs()
+            e64 = ((wr if plain_w is None else plain_w).double() - w64).abs()
             far = z.max()
             r.update(w_max_abs=ew.max().item(), w_above_1e_3=int((ew > W_TOL_BULK).sum()),
                      w_count=ew.numel(),
@@ -225,7 +231,7 @@ def main():
     _build.build_all(["fused_render", "fused_train"])
     build_s = time.time() - t0
     regs = {name: [ln.strip() for ln in _build.build_log(name).splitlines()
-                   if "registers" in ln]
+                   if "registers" in ln or "spill" in ln]
             for name in ("fused_render", "fused_train")}
     emit("device", nvidia_smi=smi, kind=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), torch=torch.__version__,
@@ -269,6 +275,9 @@ def main():
         k1 = check_plain("K1", packed, o, d, z, rcfg)
         # the kernel's full frame against the float32 nn.Module path
         k_ms, frame = event_ms(lambda: fr.fused_render_rays(packed, o, d, z, rcfg))
+        # rays go to warpgroups in a fixed order and nothing sums atomically
+        if not torch.equal(frame, fr.fused_render_rays(packed, o, d, z, rcfg)):
+            raise AssertionError("K1: two launches on the same frame differ")
         mod_cfg = NeRFPipelineConfig(model=mcfg, render=RenderConfig(
             n_sample=256, near=2.0, far=6.0, perturb=False, use_fused_kernel=False))
         mod_ms, mod = event_ms(lambda: make_render_image(mod_cfg)(model, K, pose, H, W))
@@ -279,7 +288,7 @@ def main():
         emit("serve", views=[{k: (round(v, 4) if isinstance(v, float) else v)
                               for k, v in r.items()} for r in records],
              launches=launches, peak_mem_gib=round(peak / 2**30, 3),
-             kernel_vs_plain={"rays": SUBSET, **k1},
+             kernel_vs_plain={"rays": SUBSET, **k1}, frame_twice_bit_equal=True,
              kernel_vs_module={"psnr": round(p_mod, 2), "module_ms": round(mod_ms, 2),
                                "kernel_ms": round(k_ms, 2)},
              frame_vs_gt={"view": view, "psnr": round(psnr(frame.reshape(H, W, 3), gt), 3),
@@ -654,11 +663,13 @@ def main():
             torch.equal(a, b) for a, b in zip((rgb4, w4, gw4, gb4), again))
         k4["bit_equal_to_K2"] = (torch.equal(rgb4, rgb2) and torch.equal(gw4, gw2)
                                  and torch.equal(gb4, gb2))
-        k4["weights_bit_equal_to_K5"] = torch.equal(
-            w4, fr.fused_render_rays_weights(pk_c, bo, bd, bz, trcfg)[1])
-        if not (k4["bit_equal_two_runs"] and k4["bit_equal_to_K2"]
-                and k4["weights_bit_equal_to_K5"]):
+        if not (k4["bit_equal_two_runs"] and k4["bit_equal_to_K2"]):
             raise AssertionError(f"K4 bit-equality: {k4}")
+        # the render kernel no longer shares the step kernel's forward: K4's
+        # rgb and weights against K5's under the plain-version rule
+        rgb5, w5 = fr.fused_render_rays_weights(pk_c, bo, bd, bz, trcfg)
+        k4["vs_K5"] = compare("K4 vs K5", rgb4, rgb5, (w4, w5, w4_64), bz, plain_w=w4r)
+        del rgb5, w5
         if w4.shape != bz.shape or w4.requires_grad:
             raise AssertionError(f"K4 weights {tuple(w4.shape)}, grad {w4.requires_grad}")
         k4["weights_vs_plain"] = w_cmp
@@ -790,6 +801,37 @@ def main():
                 "library_ms": None,
             })
         emit("kernel_vs_plain_full_shape", rays=n, samples=S, **full_shape)
+        # the render kernel: shared memory, L2 weight traffic, a yardstick
+        plan = fr.render_plan(packed)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        grid = min(sms, -(-n // 2))
+        rounds = sum(-(-(n - 2 * b) // (2 * grid)) for b in range(grid)) * -(-S // 64)
+        l2_bytes = plan.dir_off * 2 * rounds     # each round fetches every tile once
+        pts = 40000 * S
+        xs = {k: torch.randn(pts, k, device=dev, dtype=torch.bfloat16)
+              for k in sorted({s_.k for s_ in packed.layers})}
+        outs = {k: torch.empty(pts, k, device=dev, dtype=torch.bfloat16)
+                for k in sorted({s_.n for s_ in packed.layers})}
+        wts = {s_.name: packed.w(s_)[:s_.k] for s_ in packed.layers}
+
+        def products():
+            for s_ in packed.layers:
+                torch.matmul(xs[s_.k], wts[s_.name], out=outs[s_.n])
+
+        products()
+        mm_ms, _ = event_ms(products, reps=3)
+        mm_macs = sum(s_.k * s_.n for s_ in packed.layers) * pts
+        del xs, outs
+        emit("render_kernel_detail", rays=n, samples=S,
+             **fr.render_smem_layout(packed, rcfg), tiles=len(plan.tiles),
+             tile_image_bytes=plan.dir_off * 2, l2_weight_bytes_per_frame=l2_bytes,
+             l2_rounds=rounds,
+             cublas_products_yardstick={
+                 "what": f"the MLP's {len(packed.layers)} products alone (every packed "
+                         "layer at its packed width), bf16 torch.matmul, on 40,000 "
+                         f"rays x {S} samples",
+                 "ms": mm_ms, "ms_scaled_x16_to_frame": mm_ms * n / 40000,
+                 "tflops": 2.0 * mm_macs / mm_ms / 1e9})
         # the training kernels at the training step's shape.  Operations: K2's
         # and K4's least work is three forwards (forward, d_h W^T, act^T d_h); K3's
         # forward is one; K3's backward, which must recompute, three.  Bytes:

@@ -12,6 +12,11 @@ of the kernel's function.  A wrapper given CPU tensors runs it; given CUDA
 tensors it launches the kernel or raises.  Each wrapper counts its kernel
 launches in ``LAUNCHES``.
 
+The kernel reads its weights as a tile image: each 64-row tile of each
+product laid out once, here, as the swizzled shared-memory image wgmma
+reads (``render_plan``, ``render_tile_image``; cached on the PackedNeRF),
+so the device moves a tile with one bulk copy.
+
 The kernel masks the ragged end of the sample axis itself (samples past a
 ray's last get a zero distance, an exact no-op), so the sample axis is not
 padded and any n_sample runs.
@@ -32,11 +37,14 @@ from sfm_nerf_tpu_torch.models.nerf import NeRF, layer_shapes
 from sfm_nerf_tpu_torch.ops.encoding import positional_encoding, trig_constants
 from sfm_nerf_tpu_torch.ops.render import sample_dists
 
-CHUNK = 128          # sample points per chunk; the kernel's M
+CHUNK = 128          # sample points per chunk of the plain version and the training kernels
 REF_RAY_CHUNK = 1024  # rays per step of the plain version (bounds its memory)
 MAX_FREQ = 16        # the kernel's frequency table length
 RGB_HIDDEN = 128     # rgb1 width, fixed by both archs
 _KINDS = {"fc1": 0, "plain": 1, "skip": 2, "densfeat": 3, "rgb1": 4, "rgb2": 5}
+TILE_K = 64          # weight rows per tile: one 128-byte swizzle atom of bf16
+SWIZZLE = 8          # 16-byte chunks per 128-byte row, permuted by the row
+_PASS_KINDS = {"relu": 0, "dens": 1, "rgb1": 2, "rgb2": 3}   # sm90_mlp.cuh PassKind
 
 LAUNCHES: Dict[str, int] = {"fused_render_rays": 0, "fused_render_rays_weights": 0}
 
@@ -105,6 +113,9 @@ class PackedNeRF:
     # the module the weights were packed from: the training wrappers route
     # the packed grads back to its parameters
     model: Optional[NeRF] = None
+    # the render kernel's tile image, built on first use (render_tile_image)
+    tile_cache: Dict[str, torch.Tensor] = dataclasses.field(
+        default_factory=dict, compare=False, repr=False)
 
     def w(self, spec: LayerSpec) -> torch.Tensor:
         return self.weights[spec.w_off:spec.w_off + spec.k_rows * spec.n].view(
@@ -178,6 +189,129 @@ def pack_nerf_params(model: NeRF, mcfg: NeRFModelConfig,
     )
 
 
+@dataclasses.dataclass(frozen=True)
+class WeightTile:
+    """One ring slot's worth of a product's weight: rows [row0, row0 + rows)
+    x columns [col0, col0 + cols) of the packed layer ``layer``, stored as
+    ``cols`` rows of TILE_K k-values (128 bytes, zero past ``rows``) with
+    the 128-byte swizzle, at element ``off`` of the tile image.  ``src`` is
+    the buffer the rows multiply ('act' or 'enc'), ``kb`` its 64-column
+    block."""
+    layer: str
+    row0: int
+    rows: int
+    col0: int
+    cols: int
+    src: str
+    kb: int
+    off: int
+
+
+@dataclasses.dataclass(frozen=True)
+class RenderPass:
+    """One product of the kernel's layer chain and what its epilogue does
+    ('relu' into the activations, 'dens', 'rgb1', 'rgb2')."""
+    kind: str
+    layer: str
+    n: int
+    b_off: int
+    tiles: Tuple[WeightTile, ...]
+
+
+@dataclasses.dataclass(frozen=True)
+class RenderPlan:
+    passes: Tuple[RenderPass, ...]
+    dir_off: int     # rgb1's direction rows (dir_dim, 128), row-major, after the tiles
+    numel: int       # elements of the image
+    act_kb: int      # 64-column blocks of an activation buffer
+    enc_kb: int      # 64-column blocks of an encoding buffer
+    stage_bytes: int
+
+    @property
+    def tiles(self) -> Tuple[WeightTile, ...]:
+        return tuple(t for p in self.passes for t in p.tiles)
+
+
+def swizzle128(n: np.ndarray, k: np.ndarray) -> np.ndarray:
+    """Element index, inside a tile, of k-value ``k`` of tile row ``n``: the
+    16-byte chunk k // 8 of row n sits at chunk (k // 8) ^ (n % 8)."""
+    return n * TILE_K + (((k // 8) ^ (n % SWIZZLE)) * 8) + k % 8
+
+
+def render_plan(packed: PackedNeRF) -> RenderPlan:
+    """The render kernel's products in order, each as its weight tiles.
+    The density/feature head is two products (the 16-wide density columns
+    first, then the features, which overwrite their own input); the skip
+    layer's rows split into the activation part and the encoding part."""
+    h, pad = packed.hidden, packed.pos_pad
+    passes, off = [], 0
+
+    def product(kind, spec, col0, cols, b_off, segments):
+        nonlocal off
+        tiles = []
+        for row0, length, src in segments:
+            for r in range(0, length, TILE_K):
+                rows = min(TILE_K, length - r)
+                tiles.append(WeightTile(spec.name, row0 + r, rows, col0, cols, src,
+                                        r // TILE_K, off))
+                off += cols * TILE_K
+        n_act = sum(t.src == "act" for t in tiles)
+        if any(t.src == "act" for t in tiles[n_act:]):
+            raise ValueError("render plan: activation tiles must come first")
+        passes.append(RenderPass(kind, spec.name, cols, b_off, tuple(tiles)))
+
+    for spec in packed.layers:
+        if spec.kind == "fc1":
+            product("relu", spec, 0, h, spec.b_off, [(0, pad, "enc")])
+        elif spec.kind == "skip":
+            product("relu", spec, 0, h, spec.b_off, [(0, h, "act"), (h, pad, "enc")])
+        elif spec.kind == "densfeat":
+            product("dens", spec, h, 16, spec.b_off + h, [(0, h, "act")])
+            product("relu", spec, 0, h, spec.b_off, [(0, h, "act")])
+        elif spec.kind == "rgb1":
+            product("rgb1", spec, 0, RGB_HIDDEN, spec.b_off, [(0, h, "act")])
+        elif spec.kind == "rgb2":
+            product("rgb2", spec, 0, 16, spec.b_off, [(0, RGB_HIDDEN, "act")])
+        else:
+            product("relu", spec, 0, h, spec.b_off, [(0, h, "act")])
+    max_bytes = max(t.cols * 128 for p in passes for t in p.tiles)
+    return RenderPlan(tuple(passes), dir_off=off, numel=off + packed.dir_dim * RGB_HIDDEN,
+                      act_kb=-(-max(h, RGB_HIDDEN) // TILE_K), enc_kb=-(-pad // TILE_K),
+                      stage_bytes=_round_up(max_bytes, 1024))
+
+
+_IMAGE_INDEX: Dict[tuple, np.ndarray] = {}
+
+
+def _image_index(packed: PackedNeRF, plan: RenderPlan) -> np.ndarray:
+    """For each element of the tile image, the index of the packed weight
+    it copies, or -1 for a zero; cached per layout."""
+    key = (packed.layers, packed.hidden, packed.pos_pad, packed.dir_dim)
+    if key not in _IMAGE_INDEX:
+        specs = {s.name: s for s in packed.layers}
+        idx = np.full(plan.numel, -1, np.int64)
+        for t in plan.tiles:
+            spec = specs[t.layer]
+            n, k = np.meshgrid(np.arange(t.cols), np.arange(t.rows), indexing="ij")
+            idx[t.off + swizzle128(n, k)] = spec.w_off + (t.row0 + k) * spec.n + t.col0 + n
+        rgb1 = specs["rgb1"]
+        start = rgb1.w_off + packed.hidden * rgb1.n
+        idx[plan.dir_off:] = np.arange(start, start + packed.dir_dim * rgb1.n)
+        _IMAGE_INDEX[key] = idx
+    return _IMAGE_INDEX[key]
+
+
+def render_tile_image(packed: PackedNeRF) -> torch.Tensor:
+    """The render kernel's weights (see WeightTile), in the packing dtype on
+    the packing's device; built once per PackedNeRF."""
+    if "image" not in packed.tile_cache:
+        plan = render_plan(packed)
+        idx = torch.from_numpy(_image_index(packed, plan)).to(packed.weights.device)
+        src = torch.cat([packed.weights, packed.weights.new_zeros(1)])
+        packed.tile_cache["image"] = src[torch.where(idx < 0, src.numel() - 1, idx)].contiguous()
+    return packed.tile_cache["image"]
+
+
 def macs_per_point(mcfg: NeRFModelConfig) -> int:
     """Multiply-adds the MLP needs per sample point (unpadded widths; the
     direction rows of rgb1 run once per ray, see macs_per_ray)."""
@@ -218,6 +352,7 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
 def fused_render_rays_reference(
     packed: PackedNeRF, origins: torch.Tensor, directions: torch.Tensor,
     z_vals: torch.Tensor, rcfg: RenderConfig, emit_weights: bool = False,
+    bf16_products: bool = False,
 ):
     """Plain PyTorch version of the kernel's function.
 
@@ -228,8 +363,10 @@ def fused_render_rays_reference(
     from one 128-sample chunk to the next.  Given float64 rays it does the
     same in float64 (the rounding to the packing dtype included), which
     measures how far the function itself moves with the summation's
-    precision.  Returns rgb (N, 3), or (rgb, weights (N, S)) with
-    ``emit_weights``."""
+    precision.  With ``bf16_products`` every product runs as a bf16 matmul
+    (summed on the card's tensor cores and rounded to bf16): a second such
+    witness, not the kernel's function.  Returns rgb (N, 3), or (rgb,
+    weights (N, S)) with ``emit_weights``."""
     _check_white(rcfg)
     ft = torch.float64 if origins.dtype == torch.float64 else torch.float32
     wdt = packed.weights.dtype
@@ -239,8 +376,11 @@ def fused_render_rays_reference(
     Bf = {s.name: packed.b(s).to(ft) for s in packed.layers}
     h, S = packed.hidden, z_vals.shape[1]
 
+    def mm(a, b):
+        return (a.bfloat16() @ b.bfloat16()).to(ft) if bf16_products else a @ b
+
     def lin(name, x):
-        return x @ Wf[name] + Bf[name]
+        return mm(x, Wf[name]) + Bf[name]
 
     rgb_parts, w_parts = [], []
     for r0 in range(0, origins.shape[0], REF_RAY_CHUNK):
@@ -250,7 +390,7 @@ def fused_render_rays_reference(
         n = o.shape[0]
         dists = sample_dists(z, rcfg.variant)
         extd = rnd(_ext(d, packed.n_dir_freq, packed.dir_dim))
-        dir_part = extd @ Wf["rgb1"][h:]                                # (n, 128)
+        dir_part = mm(extd, Wf["rgb1"][h:])                                # (n, 128)
         T = torch.ones(n, 1, device=o.device, dtype=ft)
         acc = torch.zeros(n, 3, device=o.device, dtype=ft)
         ws = []
@@ -267,7 +407,7 @@ def fused_render_rays_reference(
             feat = rnd(torch.relu(df[:, :h]))
             dens = df[:, h]
             dens = _softplus(dens) if packed.density_act == "softplus" else torch.relu(dens)
-            fp = (feat @ Wf["rgb1"][:h]).reshape(n, ch, RGB_HIDDEN)
+            fp = mm(feat, Wf["rgb1"][:h]).reshape(n, ch, RGB_HIDDEN)
             rgb_h = rnd(torch.relu(fp + dir_part[:, None, :] + Bf["rgb1"]))
             rgb = torch.sigmoid(lin("rgb2", rgb_h.reshape(n * ch, -1))[:, :3])
             xs = dens.reshape(n, ch) * dc
@@ -299,6 +439,23 @@ def _kernel_args(packed: PackedNeRF, rcfg: RenderConfig):
     return (ctypes.c_int * len(ip))(*ip), fp.ctypes.data_as(ctypes.c_void_p), fp
 
 
+def _render_kernel_args(packed: PackedNeRF, rcfg: RenderConfig):
+    """_kernel_args with the render plan appended (sm90::parse_plan)."""
+    plan = render_plan(packed)
+    ip, fp_ptr, fp = _kernel_args(packed, rcfg)
+    tail = [len(plan.passes), len(plan.tiles), plan.dir_off, plan.act_kb, plan.enc_kb,
+            plan.stage_bytes]
+    first = 0
+    for p in plan.passes:
+        n_act = sum(t.src == "act" for t in p.tiles)
+        tail += [_PASS_KINDS[p.kind], p.n, p.b_off, first, len(p.tiles), n_act]
+        first += len(p.tiles)
+    for t in plan.tiles:
+        tail += [t.off, t.cols * 128, -(-t.rows // 16), t.kb]
+    ip = list(ip) + tail
+    return (ctypes.c_int * len(ip))(*ip), fp_ptr, fp
+
+
 def _kernel_lib() -> ctypes.CDLL:
     """The built kernel library with its C functions declared."""
     from sfm_nerf_tpu_torch.kernels import _build
@@ -308,9 +465,24 @@ def _kernel_lib() -> ctypes.CDLL:
     lib.sfm_fused_render.argtypes = (
         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6
         + [ctypes.c_int, ctypes.c_void_p])
+    lib.sfm_fused_render_layout.restype = ctypes.c_int
+    lib.sfm_fused_render_layout.argtypes = [ctypes.c_void_p] * 3
     lib.sfm_cuda_error_string.restype = ctypes.c_char_p
     lib.sfm_cuda_error_string.argtypes = [ctypes.c_int]
     return lib
+
+
+def render_smem_layout(packed: PackedNeRF, rcfg: RenderConfig) -> Dict[str, int]:
+    """The kernel's shared-memory use for this packing, as the CUDA side
+    lays it out (needs the built library): bytes per block, ring stages,
+    bytes per stage."""
+    lib = _kernel_lib()
+    ip, fp_ptr, _fp_keep = _render_kernel_args(packed, rcfg)
+    out = (ctypes.c_int * 3)()
+    err = lib.sfm_fused_render_layout(ctypes.cast(ip, ctypes.c_void_p), fp_ptr, out)
+    if err != 0:
+        raise RuntimeError("fused render plan refused: " + lib.sfm_cuda_error_string(err).decode())
+    return {"smem_bytes": out[0], "ring_stages": out[1], "stage_bytes": out[2]}
 
 
 def _launch(packed, origins, directions, z_vals, rcfg, emit_weights):
@@ -335,12 +507,13 @@ def _launch(packed, origins, directions, z_vals, rcfg, emit_weights):
     rgb = torch.empty(n, 3, device=dev, dtype=torch.float32)
     w = torch.empty(n, S, device=dev, dtype=torch.float32) if emit_weights else None
     lib = _kernel_lib()
-    ip, fp_ptr, _fp_keep = _kernel_args(packed, rcfg)
+    ip, fp_ptr, _fp_keep = _render_kernel_args(packed, rcfg)
+    image = render_tile_image(packed)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.sfm_fused_render(
             o.data_ptr(), d.data_ptr(), z.data_ptr(), n, S,
-            packed.weights.data_ptr(), packed.biases.data_ptr(),
+            image.data_ptr(), packed.biases.data_ptr(),
             ctypes.cast(ip, ctypes.c_void_p), fp_ptr,
             rgb.data_ptr(), w.data_ptr() if w is not None else None,
             int(emit_weights), stream)
