@@ -37,8 +37,9 @@ Renderers.  Route, decided from the config alone:
   version for CPU tensors; weights are packed in bf16 as the JAX package
   serves them, once per renderer and model (a renderer serves fixed
   weights: make a new one after changing them);
-- ``--no_fused``, and the legacy compositor with a white background (whose
-  weights do not telescope, so the kernel refuses it) -> the float32
+- ``--no_fused``, the legacy compositor with a white background (whose
+  weights do not telescope, so the kernel refuses it), and a network outside
+  the kernels' envelope (``fused_network_supported``) -> the float32
   ``nn.Module`` path in ray chunks.
 
 A hierarchical frame on the fused route is two launches: the coarse pass
@@ -79,12 +80,25 @@ from sfm_nerf_tpu_torch.train import checkpoint as ckpt_lib
 from sfm_nerf_tpu_torch.utils.metrics import mse as host_mse
 
 
+def fused_network_supported(mcfg) -> bool:
+    """The network clauses of the fused kernels' envelope, shared by the
+    render route (``use_fused_route``) and the training route
+    (``fused_train_supported``): hidden a multiple of 16 up to 256, and
+    with PE on at most MAX_FREQ frequencies per encoding."""
+    return (mcfg.hidden % 16 == 0 and mcfg.hidden <= 256
+            and (not mcfg.pos_encoding
+                 or (mcfg.n_pos_freq <= MAX_FREQ and mcfg.n_dir_freq <= MAX_FREQ)))
+
+
 def use_fused_route(cfg: NeRFPipelineConfig) -> bool:
     """Whether full frames render through the fused kernels, flat or
-    hierarchical alike."""
+    hierarchical alike.  A config outside the kernels' network envelope
+    (``fused_network_supported``) renders through the nn.Module path, as the
+    JAX package's ``_fused_render_env_ok`` sends it to XLA; inside it a
+    kernel error still raises."""
     rcfg = cfg.render
-    return rcfg.use_fused_kernel and not (
-        rcfg.white_background and rcfg.variant != "train")
+    return (rcfg.use_fused_kernel and fused_network_supported(cfg.model)
+            and not (rcfg.white_background and rcfg.variant != "train"))
 
 
 def _packer(cfg: NeRFPipelineConfig):
@@ -238,9 +252,7 @@ def fused_train_supported(cfg: NeRFPipelineConfig) -> bool:
         and mcfg.arch in ("active", "legacy")
         and (rcfg.n_importance == 0 or rcfg.fused_merged_step)
         and rcfg.variant == "train"
-        and mcfg.hidden % 16 == 0 and mcfg.hidden <= 256
-        and (not mcfg.pos_encoding
-             or (mcfg.n_pos_freq <= MAX_FREQ and mcfg.n_dir_freq <= MAX_FREQ))
+        and fused_network_supported(mcfg)
     )
 
 

@@ -108,3 +108,20 @@ def test_port_fused_route_golden_subset_psnr(family):
     golden = read_png(os.path.join(GOLDEN_DIR, f"{family}_200_train.png"))
     p = psnr(np.clip(img, 0, 1), golden[::STRIDE, ::STRIDE] / 255.0)
     assert p >= 40.0, f"{family} fused route: PSNR vs committed golden = {p:.1f} dB"
+
+
+def test_ssim_matches_jax_on_a_golden():
+    """The port's SSIM (float64 numpy) against the JAX package's (float32)
+    on the committed synth800 golden and a seeded perturbation of it, each
+    way round and against itself: to 1e-6."""
+    from sfm_nerf_tpu.utils.metrics import ssim as jax_ssim
+    from sfm_nerf_tpu_torch.utils.metrics import ssim
+
+    gold = read_png(os.path.join(GOLDEN_DIR, "synth800_200_train.png")).astype(np.float64) / 255.0
+    noisy = np.clip(gold + np.random.default_rng(0).normal(0.0, 0.05, gold.shape), 0.0, 1.0)
+    values = []
+    for a, b in ((gold, gold), (noisy, gold), (gold, noisy), (noisy[..., 0], gold[..., 0])):
+        got, want = ssim(a, b), float(jax_ssim(jnp.asarray(a), jnp.asarray(b)))
+        assert abs(got - want) <= 1e-6, (got, want)
+        values.append(got)
+    assert values[0] == pytest.approx(1.0, abs=1e-12) and values[1] < 0.99

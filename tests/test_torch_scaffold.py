@@ -72,15 +72,25 @@ def test_entry_points_default_to_cuda():
         assert config_parser(mode).parse_args([]).device == "cuda"
 
 
+# train mode with no card visible (CUDA_VISIBLE_DEVICES="" in _run): the
+# child exits through SystemExit before it reads any data
+_TRAIN_PROBE = r"""
+from sfm_nerf_tpu_torch.cli.nerf import main
+try:
+    main(["--mode", "train"])
+except SystemExit as e:
+    assert "no CUDA device" in str(e.code) and "--device cpu" in str(e.code), e.code
+    print("exited:", e.code)
+else:
+    raise AssertionError("--mode train without a card must exit")
+"""
+
+
 def test_train_mode_exits_nonzero():
     """Train mode runs on the card unless --device cpu is given: with no
     card visible it exits non-zero and says so, and trains nothing on the
-    CPU unasked."""
-    from sfm_nerf_tpu_torch.cli.nerf import main
-
-    try:
-        main(["--mode", "train"])
-    except SystemExit as e:
-        assert "no CUDA device" in str(e.code) and "--device cpu" in str(e.code)
-    else:
-        raise AssertionError("--mode train without a card must exit")
+    CPU unasked.  Run in a child process that sees no card, so the test
+    means the same on a machine that has one."""
+    out = _run(_TRAIN_PROBE)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "exited:" in out.stdout, out.stdout
