@@ -35,6 +35,15 @@
 //   same tiles), so an encoding done by the consumers themselves left the
 //   tensor cores idle for a fifth of the time.
 //
+// STASH (the forward sweep of the split training step, kernels/fused_train.py)
+// changes no arithmetic: it walks the ray in whole 128-sample chunks (a pad
+// half has zero distances and adds exactly nothing, so rgb and the weights
+// stay bit-equal to the render's) and also writes what the reverse walk and
+// the weight-gradient GEMM read: per 64-row chunk the stash record of
+// mlp_chunk (bulk copies of the encoding and of every layer input, see
+// sm90_mlp.cuh), per point (density, r, g, b) f32, and per ray the
+// transmittance entering each 128-sample chunk (tb).
+//
 // The numerics of the TPU kernel are kept: exact f32 encoding phase and
 // accurate sinf (encode() of nerf_device.cuh), bf16 rounding of the
 // encoding and hidden activations, f32 biases and heads, 1 - alpha as
@@ -159,13 +168,22 @@ __device__ __forceinline__ void composite_chunk(const KParams& P, const sm90::Wg
   T = T * expf(total);
 }
 
-template <bool EMIT_WEIGHTS, bool WIDE>
+// where STASH writes: act (rays, 2 ceil(S / 128), rec) bf16 records, pt
+// (rays, 2 ceil(S / 128), 64) float4, tb (rays, ceil(S / 128))
+struct StashOut {
+  __nv_bfloat16* act;
+  float4* pt;
+  float* tb;
+};
+
+template <bool EMIT_WEIGHTS, bool WIDE, bool STASH>
 __global__ void __launch_bounds__(sm90::THREADS, 1)
 fused_render_kernel(const float* __restrict__ origins, const float* __restrict__ dirs,
                     const float* __restrict__ z, int n_rays, int n_sample,
                     const __nv_bfloat16* __restrict__ img, const float* __restrict__ B,
                     const __grid_constant__ KParams P, const __grid_constant__ sm90::Plan plan,
-                    float* __restrict__ rgb_out, float* __restrict__ w_out) {
+                    float* __restrict__ rgb_out, float* __restrict__ w_out,
+                    const __grid_constant__ StashOut st) {
   extern __shared__ __align__(128) char smem_raw[];
   char* base = smem_raw + ((1024 - (sm90::smem_addr(smem_raw) & 1023)) & 1023);
   sm90::Ring ring;
@@ -191,7 +209,10 @@ fused_render_kernel(const float* __restrict__ origins, const float* __restrict__
   __syncthreads();
 
   const int S = n_sample;
-  const int n_chunks = (S + sm90::ROWS - 1) / sm90::ROWS;
+  // samples walked: STASH rounds up to whole 128-sample chunks
+  const int S_run = STASH ? (S + 127) / 128 * 128 : S;
+  const int n_chunks = (S_run + sm90::ROWS - 1) / sm90::ROWS;
+  const size_t rec = (size_t)(plan.enc_kb + (P.n_layers - 1) * plan.act_kb) * (sm90::KB_BYTES / 2);
   const int step = sm90::CONSUMERS * gridDim.x;
   const int first = sm90::CONSUMERS * blockIdx.x;
   // ray slots of warpgroup 0 (warpgroup 1 has as many or one fewer)
@@ -210,7 +231,7 @@ fused_render_kernel(const float* __restrict__ origins, const float* __restrict__
       const int e = threadIdx.x - sm90::CONSUMERS * 128 - 32;
       uint32_t k[sm90::CONSUMERS] = {};
       for (int slot = 0; slot < slots; ++slot) {
-        for (int c0 = 0; c0 < S; c0 += sm90::ROWS) {
+        for (int c0 = 0; c0 < S_run; c0 += sm90::ROWS) {
           for (int wg = 0; wg < sm90::CONSUMERS; ++wg) {
             const int ray = slot * step + first + wg;
             if (ray >= n_rays) continue;
@@ -258,9 +279,19 @@ fused_render_kernel(const float* __restrict__ origins, const float* __restrict__
       float* w_ray = EMIT_WEIGHTS ? w_out + (size_t)ray * S : nullptr;
       setup_ray(P, wd, w, d);
       float T = 1.0f, acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
-      for (int c0 = 0; c0 < S; c0 += sm90::ROWS) {
+      for (int c0 = 0; c0 < S_run; c0 += sm90::ROWS) {
         chunk_dists(P, w, z_ray, S, c0);
-        sm90::mlp_chunk<WIDE>(plan, B, P.density_softplus, w, ring, q, k++);
+        if constexpr (STASH) {
+          const size_t ch = (size_t)ray * n_chunks + c0 / sm90::ROWS;
+          if (c0 % 128 == 0 && w.tid == 0) st.tb[(size_t)ray * (n_chunks / 2) + c0 / 128] = T;
+          sm90::mlp_chunk<WIDE, true>(plan, B, P.density_softplus, w, ring, q, k++,
+                                      st.act + ch * rec);
+          if (w.tid < sm90::ROWS)
+            st.pt[ch * sm90::ROWS + w.tid] = make_float4(
+                w.dens[w.tid], w.rgb[w.tid * 3], w.rgb[w.tid * 3 + 1], w.rgb[w.tid * 3 + 2]);
+        } else {
+          sm90::mlp_chunk<WIDE>(plan, B, P.density_softplus, w, ring, q, k++);
+        }
         composite_chunk<EMIT_WEIGHTS>(P, w, S, c0, w_ray, T, acc_r, acc_g, acc_b);
       }
       if (w.tid == 0) {
@@ -270,15 +301,16 @@ fused_render_kernel(const float* __restrict__ origins, const float* __restrict__
         rgb_out[ray * 3 + 2] = acc_b + bg;
       }
     }
+    if constexpr (STASH) sm90::bulk_wait_all(w.tid == 0);
   }
 }
 
-template <bool EMIT, bool WIDE>
+template <bool EMIT, bool WIDE, bool STASH>
 int launch(const float* o, const float* d, const float* z, int n_rays, int n_sample,
            const void* img, const float* b, const KParams& P, const sm90::Plan& plan, float* rgb,
-           float* wts, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_render_kernel<EMIT, WIDE>, cudaFuncAttributeMaxDynamicSharedMemorySize, plan.total);
+           float* wts, const StashOut& st, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(fused_render_kernel<EMIT, WIDE, STASH>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, plan.total);
   if (err != cudaSuccess) return err;
   int dev = 0, sms = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
@@ -286,9 +318,34 @@ int launch(const float* o, const float* d, const float* z, int n_rays, int n_sam
     return err;
   const int pairs = (n_rays + sm90::CONSUMERS - 1) / sm90::CONSUMERS;
   const int grid = pairs < sms ? pairs : sms;
-  fused_render_kernel<EMIT, WIDE><<<grid, sm90::THREADS, plan.total, stream>>>(
-      o, d, z, n_rays, n_sample, static_cast<const __nv_bfloat16*>(img), b, P, plan, rgb, wts);
+  fused_render_kernel<EMIT, WIDE, STASH><<<grid, sm90::THREADS, plan.total, stream>>>(
+      o, d, z, n_rays, n_sample, static_cast<const __nv_bfloat16*>(img), b, P, plan, rgb, wts, st);
   return cudaGetLastError();
+}
+
+int run(const float* origins, const float* dirs, const float* z, int n_rays, int n_sample,
+        const void* weights, const float* biases, const int* iparams, const float* fparams,
+        float* rgb_out, float* w_out, int emit_weights, const StashOut* st, void* stream) {
+  KParams P;
+  cudaError_t err = nerf::parse_params(iparams, fparams, &P);
+  if (err != cudaSuccess) return err;
+  sm90::Plan plan;
+  if ((err = sm90::parse_plan(iparams + 8 + 5 * P.n_layers, &plan)) != cudaSuccess) return err;
+  if (P.dir_dim > nerf::RGB1_N || P.pos_pad > 64 * plan.enc_kb) return cudaErrorInvalidValue;
+  bool wide = true;
+  for (int i = 0; i < plan.n_passes; ++i)
+    if (plan.passes[i].kind == sm90::P_RELU && plan.passes[i].n != 256) wide = false;
+  if (n_rays <= 0) return cudaSuccess;
+  const StashOut none{};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (st) {
+    auto go = emit_weights ? (wide ? launch<true, true, true> : launch<true, false, true>)
+                           : (wide ? launch<false, true, true> : launch<false, false, true>);
+    return go(origins, dirs, z, n_rays, n_sample, weights, biases, P, plan, rgb_out, w_out, *st, s);
+  }
+  auto go = emit_weights ? (wide ? launch<true, true, false> : launch<true, false, false>)
+                         : (wide ? launch<false, true, false> : launch<false, false, false>);
+  return go(origins, dirs, z, n_rays, n_sample, weights, biases, P, plan, rgb_out, w_out, none, s);
 }
 
 }  // namespace
@@ -303,20 +360,20 @@ int sfm_fused_render(const float* origins, const float* dirs, const float* z,
                      int n_rays, int n_sample, const void* weights,
                      const float* biases, const int* iparams, const float* fparams,
                      float* rgb_out, float* w_out, int emit_weights, void* stream) {
-  KParams P;
-  cudaError_t err = nerf::parse_params(iparams, fparams, &P);
-  if (err != cudaSuccess) return err;
-  sm90::Plan plan;
-  if ((err = sm90::parse_plan(iparams + 8 + 5 * P.n_layers, &plan)) != cudaSuccess) return err;
-  if (P.dir_dim > nerf::RGB1_N || P.pos_pad > 64 * plan.enc_kb) return cudaErrorInvalidValue;
-  bool wide = true;
-  for (int i = 0; i < plan.n_passes; ++i)
-    if (plan.passes[i].kind == sm90::P_RELU && plan.passes[i].n != 256) wide = false;
-  if (n_rays <= 0) return cudaSuccess;
-  auto run = emit_weights ? (wide ? launch<true, true> : launch<true, false>)
-                          : (wide ? launch<false, true> : launch<false, false>);
-  return run(origins, dirs, z, n_rays, n_sample, weights, biases, P, plan, rgb_out, w_out,
-             static_cast<cudaStream_t>(stream));
+  return run(origins, dirs, z, n_rays, n_sample, weights, biases, iparams, fparams, rgb_out,
+             w_out, emit_weights, nullptr, stream);
+}
+
+// The forward sweep of the split training step: sfm_fused_render plus the
+// stash (StashOut; kernels/fused_train.py:stash_layout describes it).
+int sfm_fused_render_stash(const float* origins, const float* dirs, const float* z,
+                           int n_rays, int n_sample, const void* weights,
+                           const float* biases, const int* iparams, const float* fparams,
+                           float* rgb_out, float* w_out, int emit_weights, void* stash_act,
+                           void* stash_pt, float* tb, void* stream) {
+  const StashOut st{static_cast<__nv_bfloat16*>(stash_act), static_cast<float4*>(stash_pt), tb};
+  return run(origins, dirs, z, n_rays, n_sample, weights, biases, iparams, fparams, rgb_out,
+             w_out, emit_weights, &st, stream);
 }
 
 // The plan's shared-memory layout: out[0] bytes of dynamic shared memory a

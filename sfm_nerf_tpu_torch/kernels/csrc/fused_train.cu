@@ -1,20 +1,24 @@
 // Fused NeRF training kernels for Hopper (sm_90a): the forward of
-// fused_render.cu (nerf_device.cuh) plus a hand-written backward through
-// the compositing and the MLP, giving the gradient of every packed weight
-// and bias.
+// nerf_device.cuh plus a hand-written backward through the compositing and
+// the MLP.
 //
-// Replaces the Pallas TPU kernels of sfm_nerf_tpu/kernels/fused_train.py:
-// - `fused_mse_loss` (`_make_step_kernel`): MODE_STEP, one launch gives rgb
-//   and the grads of mean((rgb - target)^2); the cotangent
-//   g = (rgb - target) * 2 / (3 N) is made in the kernel;
-// - `fused_mse_loss_weights` (`_make_step_kernel` with emit_weights): the
-//   same MODE_STEP with the template flag EMIT_WEIGHTS, whose forward sweep
-//   also writes the per-sample compositing weights (N, S) it composited
-//   with, the histogram that hierarchical sampling draws from;
+// Replaces, with fused_render.cu's STASH sweep and grad_gemm.cu, the Pallas
+// TPU kernels of sfm_nerf_tpu/kernels/fused_train.py:
+// - `fused_mse_loss` and `fused_mse_loss_weights` (`_make_step_kernel`):
+//   MODE_REV is the middle launch of the split step.  Per ray it reads the
+//   forward sweep's stash (fused_render.cu STASH: every layer input, the
+//   per-point density and colours, tb), makes the cotangent
+//   g = (rgb - target) * 2 / (3 N) itself, walks the chunks in reverse and
+//   writes each layer's bf16 output cotangent D to a cotangent stash, which
+//   grad_gemm.cu turns into the weight grads (sum over points of A^T D).
+//   Bias grads and rgb1's direction rows stay here, in per-block partials.
+//   MODE_STEP is the single-launch step that recomputes each chunk's forward
+//   just before its backward (keep_activations=False): rgb and every grad
+//   from one launch and the fixed-order reduction;
 // - `fused_render_train` forward (`_make_fwd_kernel`): MODE_FWD, rgb and
 //   the transmittance entering each chunk, tb (N, n_chunks);
 // - `fused_render_train` backward (`_make_bwd_kernel`): MODE_BWD, the same
-//   reverse walk with the caller's g (N, 3) and the stored tb.
+//   recomputing reverse walk with the caller's g (N, 3) and the stored tb.
 //
 // Bound on this card: operations.  The forward of 8,192 rays x 256 samples
 // is 2.75 TFLOP (655,488 MACs per point); a step needs the forward, d_h W^T
@@ -26,24 +30,21 @@
 // What the design does about it.  The TPU kernel keeps a ray tile's whole
 // layer chain on chip; here the backward of a chunk of 128 points needs ten
 // activations of 64 KB and a block has 227 KB of shared memory.  So:
-// - the forward of a chunk copies each layer's output activation (bf16) to
-//   a per-block stash in device memory, and the backward reads each back
-//   when it reaches that layer.  With ``keep`` (MODE_STEP only) the forward
-//   sweep stashes every chunk of the ray and the reverse walk consumes
-//   them; without it, and in MODE_BWD, the reverse walk recomputes a
-//   chunk's forward just before its backward;
+// - MODE_REV reads each layer's input activation back from the stash when
+//   it reaches that layer; MODE_STEP and MODE_BWD recompute the chunk's
+//   forward into a per-block stash just before its backward;
 // - the backward of a layer holds two buffers in shared memory: the
 //   layer's input activation A and the cotangent D of its output (bf16).
-//   act^T D goes into this block's partial gradient in device memory
-//   (accumulator tiles loaded from and stored to it, all warps splitting
-//   the weight's row tiles), the bias grad is the column sum of D, and
-//   D W^T, masked by A > 0, is written over A as the next cotangent; the
-//   weights stream through the same cp.async slabs as the forward,
-//   transposed (col-major B fragments);
-// - weight grads are deterministic: every block owns one partial buffer
-//   (zeroed by the caller) and the ray -> block map is fixed, and a second
-//   kernel sums the partials over the blocks in index order.  No atomics.
-// This is the simple first version (WMMA, one block of 8 warps per SM).
+//   The bias grad is the column sum of D, and D W^T, masked by A > 0, is
+//   written over A as the next cotangent; the weights stream through the
+//   same cp.async slabs as the forward, transposed (col-major B fragments).
+//   MODE_STEP / MODE_BWD also add act^T D into this block's partial weight
+//   gradient in device memory (accumulator tiles loaded and stored, all
+//   warps splitting the weight's row tiles); MODE_REV writes D out instead;
+// - grads are deterministic: every block owns one partial buffer (zeroed by
+//   the caller) and the ray -> block map is fixed, and a second kernel sums
+//   the partials over the blocks in index order.  No atomics.
+// The products are WMMA, one block of 8 warps per SM.
 //
 // Numerics kept from the TPU kernels, beside those of nerf_device.cuh:
 // one_m = expf(-x) + 1e-10, never 1 - alpha + 1e-10; dL/dalpha =
@@ -59,18 +60,50 @@ using namespace nerf;
 
 namespace {
 
-enum Mode { MODE_STEP = 0, MODE_FWD = 1, MODE_BWD = 2 };
+enum Mode { MODE_STEP = 0, MODE_FWD = 1, MODE_BWD = 2, MODE_REV = 3 };
+
+constexpr int IMG_BLOCK = 64 * 64;   // bf16 elements of one 64-row x 64-column image block
 
 struct TrainArgs {
   const float *origins, *dirs, *z, *target, *g_in;
   float *rgb_out, *tb;
-  float* w_out;               // (n_rays, n_sample) weights, EMIT_WEIGHTS only
-  __nv_bfloat16* stash_act;   // (blocks, slots, n_layers - 1, M, stash_w)
-  float* stash_pt;            // (blocks, slots, M, 4): density, r, g, b
-  float* partials;            // (blocks, grad_stride): weights then biases
-  int n_rays, n_sample, n_chunks, keep, stash_w, w_total, grad_stride;
+  __nv_bfloat16* stash_act;   // MODE_STEP / BWD: (blocks, n_layers - 1, M, stash_w);
+                              // MODE_REV: the forward sweep's records (rays, 2 n_chunks, rec_act)
+  float* stash_pt;            // MODE_REV: (rays, 2 n_chunks, 64, 4): density, r, g, b
+  __nv_bfloat16* stash_cot;   // MODE_REV: (rays, 2 n_chunks, rec_cot) cotangent records
+  float* partials;            // (blocks, grad_stride): MODE_STEP / BWD weights then biases;
+                              // MODE_REV rgb1's direction rows (dir_dim x 128) then biases
+  int n_rays, n_sample, n_chunks, stash_w, w_total, grad_stride;
+  int rec_act, enc_kb, act_kb, rec_cot;   // MODE_REV record layout, in elements / blocks
+  int cot_off[MAX_LAYERS];                // MODE_REV: first block of layer l's D in a record
   float gscale;
 };
+
+// Rows [0, 128) x columns [0, ncols) (a multiple of 8) between a shared
+// buffer of row stride ld and the swizzled images of two 64-row chunks
+// (img[0] rows 0-63, img[1] rows 64-127): element (r, c) of an image sits in
+// block c / 64 at row r, 16-byte chunk (c / 8 % 8) ^ (r % 8) (sm90::sw128).
+__device__ void rows_from_image(__nv_bfloat16* buf, int ld, const __nv_bfloat16* img0,
+                                const __nv_bfloat16* img1, int ncols) {
+  const int vec = ncols / 8;
+  for (int i = threadIdx.x; i < M * vec; i += THREADS) {
+    const int r = i / vec, v = i - r * vec, rr = r & 63;
+    const __nv_bfloat16* src = (r < 64 ? img0 : img1) + (v >> 3) * IMG_BLOCK + rr * 64 +
+                               (((v & 7) ^ (rr & 7)) << 3);
+    *reinterpret_cast<uint4*>(buf + r * ld + v * 8) = *reinterpret_cast<const uint4*>(src);
+  }
+}
+
+__device__ void rows_to_image(const __nv_bfloat16* buf, int ld, __nv_bfloat16* img0,
+                              __nv_bfloat16* img1, int ncols) {
+  const int vec = ncols / 8;
+  for (int i = threadIdx.x; i < M * vec; i += THREADS) {
+    const int r = i / vec, v = i - r * vec, rr = r & 63;
+    __nv_bfloat16* dst = (r < 64 ? img0 : img1) + (v >> 3) * IMG_BLOCK + rr * 64 +
+                         (((v & 7) ^ (rr & 7)) << 3);
+    *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(buf + r * ld + v * 8);
+  }
+}
 
 // gB[:N] += column sums of D (and ``also``, the per-ray direction cotangent)
 __device__ void accumulate_db(float* gB, int N, const __nv_bfloat16* D, int d_ld, float* also) {
@@ -250,17 +283,33 @@ __device__ void composite_backward(const KParams& P, const Smem& s, float T_in, 
 
 // The MLP backward of one chunk: walks the layers in reverse, reading each
 // layer's input activation from the stash.  Needs s.drgb, s.ddens, s.ext.
-__device__ void mlp_backward(const KParams& P, const __nv_bfloat16* __restrict__ W,
-                             const Smem& s, const __nv_bfloat16* stash, int stash_w,
-                             float* gW, float* gB) {
+// REV: the stash is two 64-row records of the forward sweep (rec[0], rec[1])
+// and each layer's output cotangent D goes to the cotangent records
+// (cot[0], cot[1]) in place of act^T D; otherwise the stash is the
+// recomputing modes' dense (n_layers - 1, M, stash_w) block and act^T D is
+// added to gW.
+template <bool REV>
+__device__ void mlp_backward(const KParams& P, const TrainArgs& a,
+                             const __nv_bfloat16* __restrict__ W, const Smem& s,
+                             const __nv_bfloat16* stash, const __nv_bfloat16* const* rec,
+                             __nv_bfloat16* const* cot, float* gW, float* gB) {
   const int tid = threadIdx.x;
   const int ld = s.act_ld;
   const int nl = P.n_layers;
   __nv_bfloat16* A = s.act0;   // the layer's input activation
   __nv_bfloat16* D = s.act1;   // the cotangent of its output
   const __nv_bfloat16 zero = __float2bfloat16_rn(0.0f);
+  // layer input j (the output of layer j) into A, ncols wide
+  auto load_input = [&](int j, int ncols) {
+    if constexpr (REV) {
+      const size_t off = (size_t)(a.enc_kb + j * a.act_kb) * IMG_BLOCK;
+      rows_from_image(A, ld, rec[0] + off, rec[1] + off, ncols);
+    } else {
+      rows_from_global(A, ld, stash + (size_t)j * M * a.stash_w, a.stash_w, ncols);
+    }
+  };
 
-  rows_from_global(A, ld, stash + (size_t)(nl - 2) * M * stash_w, stash_w, RGB1_N);
+  load_input(nl - 2, RGB1_N);
   for (int e = tid; e < M * 16; e += THREADS) {
     const int r = e >> 4, c = e & 15;
     D[r * ld + c] = c < 3 ? __float2bfloat16_rn(s.drgb[r * 3 + c]) : zero;
@@ -271,9 +320,14 @@ __device__ void mlp_backward(const KParams& P, const __nv_bfloat16* __restrict__
     const int k_ext = (L.kind == K_FC1 || L.kind == K_SKIP) ? P.pos_pad : 0;
     __syncthreads();   // A and D complete
     accumulate_db(gB + L.b_off, L.N, D, ld, L.kind == K_RGB1 ? s.ddir : nullptr);
-    if (k_main) accumulate_dw(gW + L.w_off, L.N, A, ld, k_main, D, ld);
-    if (k_ext)
-      accumulate_dw(gW + L.w_off + (size_t)k_main * L.N, L.N, s.ext, s.ext_ld, k_ext, D, ld);
+    if constexpr (REV) {
+      const size_t off = (size_t)a.cot_off[li] * IMG_BLOCK;
+      rows_to_image(D, ld, cot[0] + off, cot[1] + off, L.N);
+    } else {
+      if (k_main) accumulate_dw(gW + L.w_off, L.N, A, ld, k_main, D, ld);
+      if (k_ext)
+        accumulate_dw(gW + L.w_off + (size_t)k_main * L.N, L.N, s.ext, s.ext_ld, k_ext, D, ld);
+    }
     if (li == 0) break;
     __syncthreads();   // every warp has read A before it is overwritten
     backward_input(L, W + L.w_off, s, D, A, k_main);
@@ -288,16 +342,12 @@ __device__ void mlp_backward(const KParams& P, const __nv_bfloat16* __restrict__
     __nv_bfloat16* t = A;
     A = D;
     D = t;
-    if (li >= 2) {
-      const LayerDesc& prev = P.layers[li - 2];   // its output feeds layer li - 1
-      rows_from_global(A, ld, stash + (size_t)(li - 2) * M * stash_w, stash_w,
-                       prev.kind == K_RGB1 ? RGB1_N : P.hidden);
-    }
+    if (li >= 2) load_input(li - 2, P.layers[li - 2].kind == K_RGB1 ? RGB1_N : P.hidden);
   }
   __syncthreads();
 }
 
-template <int MODE, bool EMIT_WEIGHTS>
+template <int MODE>
 __global__ void __launch_bounds__(THREADS, 1)
 fused_train_kernel(const __nv_bfloat16* __restrict__ W, const float* __restrict__ B,
                    const __grid_constant__ KParams P, const __grid_constant__ TrainArgs a) {
@@ -306,14 +356,17 @@ fused_train_kernel(const __nv_bfloat16* __restrict__ W, const float* __restrict_
   smem_layout(P, smem_raw, &s, true);
   const int tid = threadIdx.x, warp = tid >> 5;
   const int S = a.n_sample, nc = a.n_chunks;
-  const int slots = a.keep ? nc : 1;
+  constexpr bool REV = MODE == MODE_REV;
   const size_t act_slot = (size_t)(P.n_layers - 1) * M * a.stash_w;
   __nv_bfloat16* stash_act =
-      MODE == MODE_FWD ? nullptr : a.stash_act + (size_t)blockIdx.x * slots * act_slot;
-  float* stash_pt = MODE == MODE_FWD ? nullptr : a.stash_pt + (size_t)blockIdx.x * slots * M * 4;
-  float* gW = MODE == MODE_FWD ? nullptr : a.partials + (size_t)blockIdx.x * a.grad_stride;
-  float* gB = gW + a.w_total;
+      (MODE == MODE_STEP || MODE == MODE_BWD) ? a.stash_act + (size_t)blockIdx.x * act_slot
+                                              : nullptr;
+  float* part = MODE == MODE_FWD ? nullptr : a.partials + (size_t)blockIdx.x * a.grad_stride;
   const LayerDesc& rgb1 = P.layers[P.n_layers - 2];
+  // REV: direction rows then biases; otherwise the packed weights then biases
+  float* gW = REV ? nullptr : part;
+  float* gB = part + (REV ? P.dir_dim * RGB1_N : a.w_total);
+  float* gdir = REV ? part : part + rgb1.w_off + (size_t)P.hidden * RGB1_N;
 
   for (int ray = blockIdx.x; ray < a.n_rays; ray += gridDim.x) {
     const float o[3] = {a.origins[ray * 3], a.origins[ray * 3 + 1], a.origins[ray * 3 + 2]};
@@ -322,23 +375,13 @@ fused_train_kernel(const __nv_bfloat16* __restrict__ W, const float* __restrict_
     float* tb_ray = a.tb + (size_t)ray * nc;
     setup_ray(P, W, s, d);
 
-    if (MODE != MODE_BWD) {
+    if (MODE == MODE_STEP || MODE == MODE_FWD) {
       float T = 1.0f, acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
       for (int c = 0; c < nc; ++c) {
-        const bool keep = MODE == MODE_STEP && a.keep;
         if (tid == 0) tb_ray[c] = T;
         prepare_chunk(P, s, o, d, z_ray, S, c * M);
-        forward_chunk(P, W, B, s, keep ? stash_act + c * act_slot : nullptr, a.stash_w);
-        if (keep && tid < M) {
-          float* pt = stash_pt + ((size_t)c * M + tid) * 4;
-          pt[0] = s.dens[tid];
-          pt[1] = s.rgb[tid * 3];
-          pt[2] = s.rgb[tid * 3 + 1];
-          pt[3] = s.rgb[tid * 3 + 2];
-        }
-        if (warp == 0)
-          composite_chunk(P, s, S, c * M, EMIT_WEIGHTS ? a.w_out + (size_t)ray * S : nullptr, T,
-                          acc_r, acc_g, acc_b);
+        forward_chunk(P, W, B, s, nullptr, a.stash_w);
+        if (warp == 0) composite_chunk(P, s, S, c * M, nullptr, T, acc_r, acc_g, acc_b);
         __syncthreads();
       }
       if (tid == 0) {
@@ -356,11 +399,13 @@ fused_train_kernel(const __nv_bfloat16* __restrict__ W, const float* __restrict_
         if (MODE == MODE_STEP) s.g[3] = P.white_bg ? gsum : 0.0f;
       }
     }
-    if (MODE == MODE_BWD && tid == 0) {
+    if ((MODE == MODE_BWD || REV) && tid == 0) {
       float gsum = 0.0f;
 #pragma unroll
       for (int j = 0; j < 3; ++j) {
-        s.g[j] = a.g_in[ray * 3 + j];
+        // REV: rgb is the forward sweep's, the cotangent is the MSE's
+        s.g[j] = REV ? (a.rgb_out[ray * 3 + j] - a.target[ray * 3 + j]) * a.gscale
+                     : a.g_in[ray * 3 + j];
         gsum += s.g[j];
       }
       s.g[3] = P.white_bg ? gsum : 0.0f;
@@ -370,27 +415,35 @@ fused_train_kernel(const __nv_bfloat16* __restrict__ W, const float* __restrict_
       __syncthreads();   // s.g, s.ddir and (MODE_STEP) tb_ray are visible
       float S_carry = 0.0f;
       for (int c = nc - 1; c >= 0; --c) {
-        const int slot = a.keep ? c : 0;
-        prepare_chunk(P, s, o, d, z_ray, S, c * M);
-        if (a.keep) {
+        const __nv_bfloat16* rec[2] = {nullptr, nullptr};
+        __nv_bfloat16* cot[2] = {nullptr, nullptr};
+        if constexpr (REV) {
+          // the chunk's two 64-row records of the forward sweep
+          const size_t q = (size_t)ray * 2 * nc + 2 * c;
+          for (int h = 0; h < 2; ++h) {
+            rec[h] = a.stash_act + (q + h) * a.rec_act;
+            cot[h] = a.stash_cot + (q + h) * a.rec_cot;
+          }
           if (tid < M) {
-            const float* pt = stash_pt + ((size_t)slot * M + tid) * 4;
-            s.dens[tid] = pt[0];
-            s.rgb[tid * 3] = pt[1];
-            s.rgb[tid * 3 + 1] = pt[2];
-            s.rgb[tid * 3 + 2] = pt[3];
+            const int si = c * M + tid;
+            s.dist[tid] = si >= S ? 0.0f : si < S - 1 ? z_ray[si + 1] - z_ray[si] : P.tail;
+            const float4 pt = reinterpret_cast<const float4*>(a.stash_pt)[q * 64 + tid];
+            s.dens[tid] = pt.x;
+            s.rgb[tid * 3] = pt.y;
+            s.rgb[tid * 3 + 1] = pt.z;
+            s.rgb[tid * 3 + 2] = pt.w;
           }
           __syncthreads();
         } else {
-          forward_chunk(P, W, B, s, stash_act + slot * act_slot, a.stash_w);
+          prepare_chunk(P, s, o, d, z_ray, S, c * M);
+          forward_chunk(P, W, B, s, stash_act, a.stash_w);
         }
         if (warp == 0) composite_backward(P, s, tb_ray[c], S_carry);
         __syncthreads();
-        mlp_backward(P, W, s, stash_act + slot * act_slot, a.stash_w, gW, gB);
+        mlp_backward<REV>(P, a, W, s, stash_act, rec, cot, gW, gB);
       }
       // rgb1's direction rows, once per ray: dext^T (d_dirpart summed over
       // the ray's chunks), plain f32 FMAs
-      float* gdir = gW + rgb1.w_off + (size_t)P.hidden * RGB1_N;
       for (int e = tid; e < P.dir_dim * RGB1_N; e += THREADS)
         gdir[e] = fmaf(s.dext[e / RGB1_N], s.ddir[e % RGB1_N], gdir[e]);
       __syncthreads();
@@ -408,22 +461,35 @@ __global__ void reduce_partials_kernel(const float* __restrict__ partials, int n
   grads[i] = sum;
 }
 
-template <int MODE, bool EMIT_WEIGHTS = false>
+// The same sum added to a destination in two runs: element i < n_a to
+// dst_a[i], the rest to dst_b[i - n_a] (the split step adds each ray
+// group's partials to the grads in group order)
+__global__ void reduce_add_kernel(const float* __restrict__ partials, int n_blocks, int stride,
+                                  int n_a, float* dst_a, float* dst_b) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= stride) return;
+  float sum = 0.0f;
+  for (int b = 0; b < n_blocks; ++b) sum += partials[(size_t)b * stride + i];
+  float* dst = i < n_a ? dst_a + i : dst_b + (i - n_a);
+  *dst += sum;
+}
+
+template <int MODE>
 int launch(const void* w, const float* b, const KParams& P, const TrainArgs& a, int n_blocks,
            float* grads, cudaStream_t stream) {
   const int smem = smem_layout(P, nullptr, nullptr, true);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_train_kernel<MODE, EMIT_WEIGHTS>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t err = cudaFuncSetAttribute(fused_train_kernel<MODE>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   int per_sm = 0;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, fused_train_kernel<MODE, EMIT_WEIGHTS>, THREADS, smem)) != cudaSuccess)
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_train_kernel<MODE>,
+                                                           THREADS, smem)) != cudaSuccess)
     return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  fused_train_kernel<MODE, EMIT_WEIGHTS><<<n_blocks, THREADS, smem, stream>>>(
+  fused_train_kernel<MODE><<<n_blocks, THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(w), b, P, a);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  if (MODE != MODE_FWD) {
+  if (MODE == MODE_STEP || MODE == MODE_BWD) {
     reduce_partials_kernel<<<(a.grad_stride + 255) / 256, 256, 0, stream>>>(
         a.partials, n_blocks, a.grad_stride, grads);
     err = cudaGetLastError();
@@ -435,26 +501,34 @@ int launch(const void* w, const float* b, const KParams& P, const TrainArgs& a, 
 
 extern "C" {
 
-// One entry point for the kernels.  mode: 0 step (fused_mse_loss, and
-// fused_mse_loss_weights when w_out is given), 1 forward and 2 backward
-// (fused_render_train).  iparams and fparams: see parse_params in
-// nerf_device.cuh.  The caller allocates everything:
-//   w_out     (n_rays, n_sample) f32 or null, written by mode 0 only;
-//   tb        (n_rays, n_chunks) f32, written by modes 0 and 1, read by 0 and 2;
-//   stash_act (n_blocks, slots, n_layers - 1, 128, stash_w) bf16 and
-//   stash_pt  (n_blocks, slots, 128, 4) f32, slots = keep ? n_chunks : 1;
-//   partials  (n_blocks, grad_stride) f32, ZEROED, grad_stride = w_total +
-//             the bias buffer's length;
-//   grads     (grad_stride,) f32: weight grads in the packed layout, then
-//             bias grads.
-// Modes 0 and 2 launch the step kernel and the reduction.  n_blocks must
-// not exceed n_rays; one block runs per SM.  Returns 0 or a cudaError_t.
+// One entry point for the kernels.  mode: 0 the recomputing step
+// (fused_mse_loss with keep_activations=False), 1 forward and 2 backward
+// (fused_render_train), 3 the split step's reverse walk.  iparams and
+// fparams: see parse_params in nerf_device.cuh.  The caller allocates
+// everything:
+//   tb        (n_rays, n_chunks) f32, written by modes 0 and 1, read by 0, 2, 3;
+//   stash_act modes 0, 2: (n_blocks, n_layers - 1, 128, stash_w) bf16 scratch;
+//             mode 3: the forward sweep's records (layout: layout[0..3] =
+//             rec_act, enc_kb, act_kb, rec_cot, then n_layers cotangent
+//             block offsets; kernels/fused_train.py:stash_layout);
+//   stash_pt  mode 3: (n_rays, 2 n_chunks, 64, 4) f32; stash_cot mode 3:
+//             (n_rays, 2 n_chunks, rec_cot) bf16, written;
+//   rgb_out   (n_rays, 3) f32, written by modes 0 and 1, read by mode 3;
+//   partials  (n_blocks, grad_stride) f32, ZEROED: modes 0, 2: grad_stride =
+//             w_total + the bias buffer's length; mode 3: grad_stride =
+//             dir_dim * 128 + the bias buffer's length;
+//   grads     modes 0, 2: (grad_stride,) f32, weight grads in the packed
+//             layout then bias grads (written by the reduction, launched
+//             here); mode 3 launches no reduction (sfm_reduce_add).
+// n_blocks must not exceed n_rays; one block runs per SM.  Returns 0 or a
+// cudaError_t.
 int sfm_fused_train(int mode, const float* origins, const float* dirs, const float* z,
                     const float* target, const float* g_in, int n_rays, int n_sample,
                     const void* weights, const float* biases, const int* iparams,
-                    const float* fparams, float* rgb_out, float* tb, float* w_out,
-                    void* stash_act, float* stash_pt, float* partials, float* grads, int n_blocks, int keep,
-                    int stash_w, int w_total, int grad_stride, float gscale, void* stream) {
+                    const float* fparams, float* rgb_out, float* tb, void* stash_act,
+                    float* stash_pt, void* stash_cot, const int* layout, float* partials,
+                    float* grads, int n_blocks, int stash_w, int w_total, int grad_stride,
+                    float gscale, void* stream) {
   KParams P;
   const cudaError_t perr = parse_params(iparams, fparams, &P);
   if (perr != cudaSuccess) return perr;
@@ -462,7 +536,7 @@ int sfm_fused_train(int mode, const float* origins, const float* dirs, const flo
   if (n_blocks < 1 || n_blocks > n_rays || P.hidden > 256 || P.hidden % 16 ||
       stash_w < P.hidden || stash_w < RGB1_N)
     return cudaErrorInvalidValue;
-  TrainArgs a;
+  TrainArgs a{};
   a.origins = origins;
   a.dirs = dirs;
   a.z = z;
@@ -470,29 +544,47 @@ int sfm_fused_train(int mode, const float* origins, const float* dirs, const flo
   a.g_in = g_in;
   a.rgb_out = rgb_out;
   a.tb = tb;
-  a.w_out = w_out;
   a.stash_act = static_cast<__nv_bfloat16*>(stash_act);
   a.stash_pt = stash_pt;
+  a.stash_cot = static_cast<__nv_bfloat16*>(stash_cot);
   a.partials = partials;
   a.n_rays = n_rays;
   a.n_sample = n_sample;
   a.n_chunks = (n_sample + M - 1) / M;
-  a.keep = (mode == MODE_STEP && keep) ? 1 : 0;
   a.stash_w = stash_w;
   a.w_total = w_total;
   a.grad_stride = grad_stride;
   a.gscale = gscale;
+  if (mode == MODE_REV) {
+    if (!layout) return cudaErrorInvalidValue;
+    a.rec_act = layout[0];
+    a.enc_kb = layout[1];
+    a.act_kb = layout[2];
+    a.rec_cot = layout[3];
+    for (int i = 0; i < P.n_layers; ++i) a.cot_off[i] = layout[4 + i];
+  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (mode) {
     case MODE_STEP:
-      return w_out ? launch<MODE_STEP, true>(weights, biases, P, a, n_blocks, grads, st)
-                   : launch<MODE_STEP>(weights, biases, P, a, n_blocks, grads, st);
+      return launch<MODE_STEP>(weights, biases, P, a, n_blocks, grads, st);
     case MODE_FWD:
       return launch<MODE_FWD>(weights, biases, P, a, n_blocks, grads, st);
     case MODE_BWD:
       return launch<MODE_BWD>(weights, biases, P, a, n_blocks, grads, st);
+    case MODE_REV:
+      return launch<MODE_REV>(weights, biases, P, a, n_blocks, grads, st);
   }
   return cudaErrorInvalidValue;
+}
+
+// dst += the sum over n_blocks partial rows of length stride, in block
+// order: element i < n_a to dst_a[i], the rest to dst_b[i - n_a].
+int sfm_reduce_add(const float* partials, int n_blocks, int stride, int n_a, float* dst_a,
+                   float* dst_b, void* stream) {
+  if (n_blocks < 1 || stride < 1) return cudaErrorInvalidValue;
+  reduce_add_kernel<<<(stride + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      partials, n_blocks, stride, n_a, dst_a, dst_b);
+  return cudaGetLastError();
 }
 
 const char* sfm_cuda_error_string(int code) {

@@ -185,6 +185,35 @@ __device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, int byt
       : "memory");
 }
 
+// bytes from shared memory to device memory as one bulk-copy group, issued
+// by the thread whose ``on`` is set (predicated inside the asm, so the
+// compiler sees no divergent branch); the source must not change until the
+// same thread's bulk_wait_read returns
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src, int bytes, bool on) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %3, 0;\n"
+      "@p cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+      "@p cp.async.bulk.commit_group;\n}\n" ::"l"(dst),
+      "r"(src), "r"(bytes), "r"((int)on)
+      : "memory");
+}
+
+// the calling thread's bulk stores have read their shared-memory sources
+__device__ __forceinline__ void bulk_wait_read(bool on) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %0, 0;\n"
+      "@p cp.async.bulk.wait_group.read 0;\n}\n" ::"r"((int)on)
+      : "memory");
+}
+
+// the calling thread's bulk stores are complete (their writes performed)
+__device__ __forceinline__ void bulk_wait_all(bool on) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %0, 0;\n"
+      "@p cp.async.bulk.wait_group 0;\n}\n" ::"r"((int)on)
+      : "memory");
+}
+
 // generic-proxy shared-memory writes become visible to wgmma (async proxy)
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -248,11 +277,21 @@ __device__ __forceinline__ int sw128(int row, int col) {
   return (col >> 6) * KB_BYTES + row * 128 + ((((col >> 3) & 7) ^ (row & 7)) << 4) + ((col & 7) << 1);
 }
 
+// descriptor of an MN-major, 128-byte-swizzled operand: rows of 128 bytes
+// hold 64 consecutive M (or N) values of one k, 8 k-rows make a 1024-byte
+// swizzle atom (SBO 1024 to the next 8 k), and the next 64 M (N) values sit
+// ``mn_stride`` bytes on (LBO).  A k16 step adds 2048 bytes.
+__device__ __forceinline__ uint64_t desc_sw128_mn(uint32_t addr, uint32_t mn_stride) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((mn_stride >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
 // D (64 x N, f32 in registers) = or += A (64 x 16) * B (16 x N), both
 // bf16 in shared memory.  Thread t of the warpgroup holds rows
 // 16 (t / 32) + (t % 32) / 4 (+ 8) and columns 8 j + 2 (t % 4) (+ 1):
 // d[4j], d[4j+1] on the first row, d[4j+2], d[4j+3] on the second.
-template <int N>
+// TRANS = 1 reads both operands MN-major (desc_sw128_mn), 0 K-major.
+template <int N, int TRANS = 0>
 struct Wgmma;
 
 template <>
@@ -293,8 +332,8 @@ struct Wgmma<128> {
   }
 };
 
-template <>
-struct Wgmma<256> {
+template <int TRANS>
+struct Wgmma<256, TRANS> {
   static __device__ __forceinline__ void mma(float (&d)[128], uint64_t da, uint64_t db, int scale_d) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
@@ -307,7 +346,7 @@ struct Wgmma<256> {
         "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
         "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
         "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-        "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+        "}, %128, %129, p, 1, 1, %131, %131;\n}\n"
         :
           "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
@@ -325,7 +364,7 @@ struct Wgmma<256> {
           "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
           "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
           "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-        : "l"(da), "l"(db), "r"(scale_d));
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS));
   }
 };
 
@@ -489,11 +528,21 @@ __device__ __forceinline__ void epi_rgb(const float (&acc)[1][8], const float* _
 // warpgroup.  WIDE: every ReLU product
 // is 256 wide and runs as one m64n256k16 per k16 step; otherwise as
 // 16-wide slices, any width that is a multiple of 16.
-template <bool WIDE>
+//
+// STASH: thread 0 also copies the chunk's encoding and every ReLU / rgb1
+// output, as the swizzled buffer image each product read, to ``rec`` in
+// device memory (bulk copies): the encoding's enc_kb blocks first, then
+// output j (in pass order) at block enc_kb + j act_kb, ceil(n / 64) blocks
+// of it.  Each copy is issued once the rows are published and waited for
+// (its reads) after the next product, before an epilogue overwrites them.
+template <bool WIDE, bool STASH = false>
 __device__ __forceinline__ void mlp_chunk(const Plan& plan, const float* __restrict__ B,
                                           int softplus, const Wg& w, const Ring& r, uint32_t& q,
-                                          uint32_t k) {
+                                          uint32_t k, __nv_bfloat16* rec = nullptr) {
+  const bool lead = w.tid == 0;
   wait_encoding(w, k);
+  if constexpr (STASH) bulk_store(rec, w.enc, plan.enc_kb * KB_BYTES, lead);
+  int slot = 0;
   for (int p = 0; p < plan.n_passes; ++p) {
     const Pass& ps = plan.passes[p];
     if (ps.kind == P_RELU) {
@@ -501,12 +550,14 @@ __device__ __forceinline__ void mlp_chunk(const Plan& plan, const float* __restr
         float acc[1][128];
         init_bias<256, 1, false>(acc, 1, B + ps.b_off, nullptr, w);
         product<256, 1>(acc, 1, plan, ps, w, r, q, true);
+        if constexpr (STASH) bulk_wait_read(lead);
         wg_sync(w.g);
         epi_relu<256, 1>(acc, 1, w);
       } else {
         float acc[16][8];
         init_bias<16, 16, false>(acc, ps.n / 16, B + ps.b_off, nullptr, w);
         product<16, 16>(acc, ps.n / 16, plan, ps, w, r, q, true);
+        if constexpr (STASH) bulk_wait_read(lead);
         wg_sync(w.g);
         epi_relu<16, 16>(acc, ps.n / 16, w);
       }
@@ -514,11 +565,13 @@ __device__ __forceinline__ void mlp_chunk(const Plan& plan, const float* __restr
       float acc[1][64];
       init_bias<128, 1, true>(acc, 1, B + ps.b_off, w.dirpart, w);
       product<128, 1>(acc, 1, plan, ps, w, r, q, true);
+      if constexpr (STASH) bulk_wait_read(lead);
       wg_sync(w.g);
       epi_relu<128, 1>(acc, 1, w);
     } else {
       float acc[1][8];
       product<16, 1>(acc, 1, plan, ps, w, r, q, false);
+      if constexpr (STASH) bulk_wait_read(lead);
       wg_sync(w.g);
       if (ps.kind == P_DENS)
         epi_dens(acc, B + ps.b_off, softplus, w);
@@ -528,6 +581,13 @@ __device__ __forceinline__ void mlp_chunk(const Plan& plan, const float* __restr
     if (p == plan.last_enc_pass) mbar_arrive_lane0(w.enc_empty, w.lane);
     fence_proxy_async();
     wg_sync(w.g);
+    if constexpr (STASH) {
+      if (ps.kind == P_RELU || ps.kind == P_RGB1) {
+        bulk_store(rec + (size_t)(plan.enc_kb + slot * plan.act_kb) * (KB_BYTES / 2), w.act,
+                   ((ps.n + 63) / 64) * KB_BYTES, lead);
+        ++slot;
+      }
+    }
   }
 }
 

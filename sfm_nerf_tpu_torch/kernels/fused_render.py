@@ -465,6 +465,10 @@ def _kernel_lib() -> ctypes.CDLL:
     lib.sfm_fused_render.argtypes = (
         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6
         + [ctypes.c_int, ctypes.c_void_p])
+    lib.sfm_fused_render_stash.restype = ctypes.c_int
+    lib.sfm_fused_render_stash.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6
+        + [ctypes.c_int] + [ctypes.c_void_p] * 4)
     lib.sfm_fused_render_layout.restype = ctypes.c_int
     lib.sfm_fused_render_layout.argtypes = [ctypes.c_void_p] * 3
     lib.sfm_cuda_error_string.restype = ctypes.c_char_p

@@ -1,19 +1,32 @@
 """Fused NeRF training step: forward and hand-written backward in CUDA.
 
-Counterpart of sfm_nerf_tpu/kernels/fused_train.py.  One CUDA source
-(csrc/fused_train.cu, three modes of one kernel) behind three wrappers
-named as in the JAX package:
+Counterpart of sfm_nerf_tpu/kernels/fused_train.py.  Three wrappers named
+as in the JAX package:
 
-- ``fused_mse_loss``: mean((render(rays) - target)^2) as a scalar.  One
-  launch gives rgb and the grads of every packed weight and bias (the MSE
-  cotangent is made in the kernel); backward only scales them.
-- ``fused_mse_loss_weights``: the same loss and, from the same launch, the
-  per-sample compositing weights (N, S) of the forward sweep, detached: the
-  coarse pass of hierarchical training, whose weights feed ``sample_pdf``.
+- ``fused_mse_loss``: mean((render(rays) - target)^2) as a scalar; the
+  launches give rgb and the grads of every packed weight and bias (the MSE
+  cotangent is made on the card); backward only scales them.
+- ``fused_mse_loss_weights``: the same loss and, from the same launches,
+  the per-sample compositing weights (N, S) of the forward sweep, detached:
+  the coarse pass of hierarchical training, whose weights feed
+  ``sample_pdf``.
 - ``fused_render_train``: rgb (N, 3), differentiable for any loss on it.
   Forward launches the forward kernel (rgb and the transmittance entering
   each 128-sample chunk); backward launches the backward kernel, which
   recomputes each chunk and applies the caller's cotangent.
+
+The first two run the split step (``_split_step``): per group of RAY_GROUP
+rays, in ray order, (1) the render kernel compiled with STASH
+(csrc/fused_render.cu, K1's arithmetic: its rgb and weights are K1's and
+K5's), which also writes every layer input, the per-point density and
+colours and tb to a stash (``stash_layout``); (2) the reverse walk
+(csrc/fused_train.cu MODE_REV), which writes every layer's output cotangent
+to a second stash and keeps the bias and direction-row grads in per-block
+partials; (3) the weight gradient, sum over points of A^T D per layer, a
+wgmma GEMM over both stashes (csrc/grad_gemm.cu); then two fixed-order
+reductions add the group's partials to the grads.  ``keep_activations=False``
+selects instead the single-launch step kernel that recomputes each chunk
+(MODE_STEP, K3's backward with the MSE cotangent).
 
 All are ``torch.autograd.Function``s over the parameters of the module the
 weights were packed from (``PackedNeRF.model``): the packed grads go back to
@@ -26,9 +39,12 @@ Beside them, ``fused_mse_loss_reference``,
 ``fused_mse_loss_weights_reference`` and ``fused_render_train_reference``
 are the plain PyTorch versions: the chunked
 forward of ``fused_render_rays_reference`` and a hand-written reverse walk
-with the kernel's rounding points.  A wrapper given CPU tensors runs them;
-given CUDA tensors it launches the kernel or raises.  Each wrapper counts
-its kernel launches in ``LAUNCHES``.
+with the kernel's rounding points; ``split_forward_reference``,
+``split_reverse_reference`` and ``grad_gemm_reference`` are the plain
+versions of the split step's three launches on the stash layout
+(``split_step_reference`` chains them).  A wrapper given CPU tensors runs
+the plain version; given CUDA tensors it launches the kernels or raises.
+Each wrapper counts its calls that launch in ``LAUNCHES``, one per call.
 
 Types.  Master weights stay float32 in the ``nn.Module``.  The kernel takes
 them packed in bf16, as the render kernel does; products are bf16 x bf16 ->
@@ -44,27 +60,73 @@ included); the sample axis is masked in the kernel, so any n_sample runs.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from sfm_nerf_tpu_torch.config import RenderConfig
+from sfm_nerf_tpu_torch.kernels import fused_render as _fr
 from sfm_nerf_tpu_torch.kernels.fused_render import (
-    CHUNK, REF_RAY_CHUNK, RGB_HIDDEN, PackedNeRF, _ext, _kernel_args, _softplus,
+    CHUNK, REF_RAY_CHUNK, RGB_HIDDEN, TILE_K, PackedNeRF, _ext, _kernel_args, _softplus,
+    render_plan,
 )
 from sfm_nerf_tpu_torch.ops.render import sample_dists
 
-MODE_STEP, MODE_FWD, MODE_BWD = 0, 1, 2
+MODE_STEP, MODE_FWD, MODE_BWD, MODE_REV = 0, 1, 2, 3
+IMG_ROWS = 64                   # points per stash record: the render kernel's warpgroup tile
+IMG_BLOCK = IMG_ROWS * TILE_K   # bf16 elements of one 64-row x 64-column stash block
+# Rays per round of the split step (forward sweep, reverse walk, weight
+# GEMM): the stashes of a round take about 11.5 KB a point at hidden 256,
+# 3.0 GB at 1,024 x 256 samples.  Rounds run in ray order and their partial
+# grads are summed in that order, so the grads do not depend on timing.
+RAY_GROUP = 1024
+_GEMM_TASK_INTS = 13            # grad_gemm.cu Task
+_GEMM_MAX_TASKS = 64
 
 LAUNCHES: Dict[str, int] = {
     "fused_mse_loss": 0, "fused_mse_loss_weights": 0, "fused_render_train": 0,
-    "fused_render_train_backward": 0}
+    "fused_render_train_backward": 0, "weight_grad_gemm": 0}
+
+# Per-launch-class times of the split step, recorded only while
+# ``time_launches(True)``: CUDA event pairs by class ('forward', 'reverse',
+# 'gradient', 'reduction'), read (after a synchronize) by launch_times().
+_TIMING = {"on": False, "events": []}
 
 
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def time_launches(on: bool) -> None:
+    """Start (and clear) or stop recording the split step's launch times."""
+    _TIMING["on"] = on
+    _TIMING["events"] = []
+
+
+def launch_times() -> Dict[str, float]:
+    """ms per launch class summed over the launches recorded since
+    time_launches(True); synchronizes the device."""
+    if _TIMING["events"]:
+        torch.cuda.synchronize()
+    out: Dict[str, float] = {}
+    for cls, e0, e1 in _TIMING["events"]:
+        out[cls] = out.get(cls, 0.0) + e0.elapsed_time(e1)
+    return out
+
+
+def _timed(cls: str, fn):
+    if not _TIMING["on"]:
+        return fn()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    out = fn()
+    e1.record()
+    _TIMING["events"].append((cls, e0, e1))
+    return out
 
 
 def _check(rcfg: RenderConfig) -> None:
@@ -120,28 +182,28 @@ def unpack_grads(packed: PackedNeRF, gw: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _reference_pass(packed: PackedNeRF, origins, directions, z_vals, rcfg: RenderConfig,
-                    cotangent, chunk: int):
-    """Forward and reverse walk of the plain version over all rays.
-
-    ``cotangent(rgb, r0)`` -> g for the rays ``[r0, r0 + len(rgb))``, or
-    None for a forward only.  Returns (rgb, tb, w, gw, gb): tb (N,
-    n_chunks) is the transmittance entering each chunk, w (N, S) the
-    compositing weights, gw / gb the flat grads in the packed layout (None
-    without a cotangent)."""
+def _rounding(packed: PackedNeRF, origins):
+    """(ft, rnd): the plain versions' float type (float64 for float64 rays)
+    and the rounding to the packing dtype where the kernels round."""
     ft = torch.float64 if origins.dtype == torch.float64 else torch.float32
     wdt = packed.weights.dtype
     rnd = (lambda t: t.to(wdt).to(ft)) if wdt != torch.float32 else (lambda t: t)
+    return ft, rnd
+
+
+def _reference_forward(packed: PackedNeRF, origins, directions, z_vals, rcfg: RenderConfig,
+                       chunk: int, keep: bool):
+    """The plain forward, REF_RAY_CHUNK rays at a time.  Yields (r0, rgb,
+    tb, w, saved, extd) per ray chunk: tb the transmittance entering each
+    ``chunk``-sample chunk, w the compositing weights, and with ``keep``
+    ``saved`` the reverse walk's inputs of each chunk, (ext, hs, feat, rgb_h,
+    rgb, dens, dists, x, Ti, w)."""
+    ft, rnd = _rounding(packed, origins)
     body = [s for s in packed.layers if s.kind in ("plain", "skip")]
-    specs = {s.name: s for s in packed.layers}
     Wf = {s.name: packed.w(s).detach().to(ft) for s in packed.layers}
     Bf = {s.name: packed.b(s).detach().to(ft) for s in packed.layers}
     h, S = packed.hidden, z_vals.shape[1]
     dev = origins.device
-    gW = {n: torch.zeros_like(w) for n, w in Wf.items()}
-    gB = {n: torch.zeros_like(b) for n, b in Bf.items()}
-    rgb_parts, tb_parts, w_parts = [], [], []
-
     for r0 in range(0, origins.shape[0], REF_RAY_CHUNK):
         o = origins[r0:r0 + REF_RAY_CHUNK].to(ft)
         d = directions[r0:r0 + REF_RAY_CHUNK].to(ft)
@@ -153,7 +215,6 @@ def _reference_pass(packed: PackedNeRF, origins, directions, z_vals, rcfg: Rende
         T = torch.ones(n, 1, device=dev, dtype=ft)
         acc = torch.zeros(n, 3, device=dev, dtype=ft)
         saved, tb, ws = [], [], []
-        # ---- forward, chunk by chunk, transmittance carried -------------
         for c0 in range(0, S, chunk):
             zc, dc = z[:, c0:c0 + chunk], dists[:, c0:c0 + chunk]
             ch = zc.shape[1]
@@ -178,75 +239,356 @@ def _reference_pass(packed: PackedNeRF, origins, directions, z_vals, rcfg: Rende
             tb.append(T)
             ws.append(w)
             T = T * torch.exp(csum[:, -1:])
-            if cotangent is not None:
+            if keep:
                 saved.append((ext, hs, feat, rgb_h, rgb, dens, dc, xs, Ti, w))
         rgb_out = acc + T if rcfg.white_background else acc
+        yield r0, rgb_out, torch.cat(tb, 1), torch.cat(ws, 1), saved, extd
+
+
+def _walk_back(packed: PackedNeRF, item, g, gsum, carry, ddir, gB, on_layer):
+    """The reverse walk of one chunk (``item`` as _reference_forward saves
+    it) under the rgb cotangent ``g`` (n, 3).  Adds the bias grads to
+    ``gB`` and calls ``on_layer(name, parts, D)`` once per layer with its
+    output cotangent D and its input as [(first weight row, A)] (the skip
+    layer's encoding rows a second part).  Returns the updated (carry,
+    ddir)."""
+    ext, hs, feat, rgb_h, rgb, dens, dc, xs, Ti, w = item
+    ft, rnd = _rounding(packed, xs)
+    body = [s for s in packed.layers if s.kind in ("plain", "skip")]
+    specs = {s.name: s for s in packed.layers}
+    h = packed.hidden
+    n, ch = xs.shape
+    dev = xs.device
+    # compositing: dL/dalpha = q T - R / one_m, R the strict suffix sum of
+    # q w (this chunk's, plus the later chunks' carry)
+    e = torch.exp(-xs)
+    q = torch.sum(rgb * g[:, None, :], -1) - gsum
+    qw = q * w
+    incl = torch.flip(torch.cumsum(torch.flip(qw, [1]), 1), [1])
+    R = torch.cat([incl[:, 1:], torch.zeros_like(incl[:, :1])], 1) + carry
+    dalpha = q * Ti - R / (e + 1e-10)
+    dsigma = dalpha * dc * e
+    carry = carry + qw.sum(1, keepdim=True)
+    dens2 = dens.reshape(n, ch)
+    dact = (1.0 - torch.exp(-dens2) if packed.density_act == "softplus"
+            else (dens2 > 0).to(ft))
+    ddens = (dsigma * dact).reshape(-1)
+    drgb = ((w[..., None] * g[:, None, :]) * rgb * (1.0 - rgb)).reshape(-1, 3)
+
+    def back(name, parts, D):
+        """Layer ``name``'s grads from D; the input cotangent, masked by
+        A > 0 and rounded."""
+        on_layer(name, parts, D)
+        gB[name] += D.sum(0)
+        A = parts[0][1]
+        k = A.shape[1]
+        W = packed.w(specs[name]).detach().to(ft)
+        return rnd((D @ W[:k].t()) * (A > 0))
+
+    D = rnd(F.pad(drgb, (0, specs["rgb2"].n - 3)))
+    D = back("rgb2", [(0, rgb_h)], D)
+    ddir = ddir + D.reshape(n, ch, -1).sum(1)
+    D = back("rgb1", [(0, feat)], D)
+    D = torch.cat([D, rnd(ddens)[:, None],
+                   torch.zeros(D.shape[0], specs["densfeat"].n - h - 1, device=dev, dtype=ft)], 1)
+    D = back("densfeat", [(0, hs[-1])], D)
+    for j in range(len(body) - 1, -1, -1):
+        s = body[j]
+        D = back(s.name, [(0, hs[j])] + ([(h, ext)] if s.kind == "skip" else []), D)
+    on_layer("fc1", [(0, ext)], D)
+    gB["fc1"] += D.sum(0)
+    return carry, ddir
+
+
+def _flat_grads(packed: PackedNeRF, gW, gB, like):
+    gw = torch.zeros(packed.weights.numel(), device=like.device, dtype=like.dtype)
+    gb = torch.zeros(packed.biases.numel(), device=like.device, dtype=like.dtype)
+    for s in packed.layers:
+        if s.name in gW:
+            gw[s.w_off:s.w_off + s.k_rows * s.n] = gW[s.name].reshape(-1)
+        gb[s.b_off:s.b_off + s.n] = gB[s.name]
+    return gw, gb
+
+
+def _reference_pass(packed: PackedNeRF, origins, directions, z_vals, rcfg: RenderConfig,
+                    cotangent, chunk: int):
+    """Forward and reverse walk of the plain version over all rays.
+
+    ``cotangent(rgb, r0)`` -> g for the rays ``[r0, r0 + len(rgb))``, or
+    None for a forward only.  Returns (rgb, tb, w, gw, gb): tb (N,
+    n_chunks) is the transmittance entering each chunk, w (N, S) the
+    compositing weights, gw / gb the flat grads in the packed layout (None
+    without a cotangent)."""
+    ft, _ = _rounding(packed, origins)
+    h = packed.hidden
+    dev = origins.device
+    gW = {s.name: torch.zeros(s.k_rows, s.n, device=dev, dtype=ft) for s in packed.layers}
+    gB = {s.name: torch.zeros(s.n, device=dev, dtype=ft) for s in packed.layers}
+
+    def add_dw(name, parts, D):
+        for row0, A in parts:
+            gW[name][row0:row0 + A.shape[1]] += A.t() @ D
+
+    rgb_parts, tb_parts, w_parts = [], [], []
+    for r0, rgb_out, tb, ws, saved, extd in _reference_forward(
+            packed, origins, directions, z_vals, rcfg, chunk, cotangent is not None):
         rgb_parts.append(rgb_out)
-        tb_parts.append(torch.cat(tb, 1))
-        w_parts.append(torch.cat(ws, 1))
+        tb_parts.append(tb)
+        w_parts.append(ws)
         if cotangent is None:
             continue
-        # ---- reverse walk ----------------------------------------------
         g = cotangent(rgb_out, r0).to(ft)                                # (n, 3)
         gsum = g.sum(1, keepdim=True) if rcfg.white_background else 0.0
-        carry = torch.zeros(n, 1, device=dev, dtype=ft)
-        ddir = torch.zeros(n, RGB_HIDDEN, device=dev, dtype=ft)
-        for ext, hs, feat, rgb_h, rgb, dens, dc, xs, Ti, w in reversed(saved):
-            ch = xs.shape[1]
-            # compositing: dL/dalpha = q T - R / one_m, R the strict suffix
-            # sum of q w (this chunk's, plus the later chunks' carry)
-            e = torch.exp(-xs)
-            q = torch.sum(rgb * g[:, None, :], -1) - gsum
-            qw = q * w
-            incl = torch.flip(torch.cumsum(torch.flip(qw, [1]), 1), [1])
-            R = torch.cat([incl[:, 1:], torch.zeros_like(incl[:, :1])], 1) + carry
-            dalpha = q * Ti - R / (e + 1e-10)
-            dsigma = dalpha * dc * e
-            carry = carry + qw.sum(1, keepdim=True)
-            dens2 = dens.reshape(n, ch)
-            dact = (1.0 - torch.exp(-dens2) if packed.density_act == "softplus"
-                    else (dens2 > 0).to(ft))
-            ddens = (dsigma * dact).reshape(-1)
-            drgb = ((w[..., None] * g[:, None, :]) * rgb * (1.0 - rgb)).reshape(-1, 3)
-
-            def layer_back(name, A, D):
-                """Adds dW and db of layer ``name`` from its input A (the
-                weight's first rows) and output cotangent D; returns the
-                input cotangent, masked by A > 0 and rounded."""
-                k = A.shape[1]
-                gW[name][:k] += A.t() @ D
-                gB[name] += D.sum(0)
-                return rnd((D @ Wf[name][:k].t()) * (A > 0))
-
-            D = rnd(F.pad(drgb, (0, specs["rgb2"].n - 3)))
-            D = layer_back("rgb2", rgb_h, D)
-            ddir = ddir + D.reshape(n, ch, -1).sum(1)
-            D = layer_back("rgb1", feat, D)
-            D = torch.cat([D, rnd(ddens)[:, None],
-                           torch.zeros(D.shape[0], specs["densfeat"].n - h - 1,
-                                       device=dev, dtype=ft)], 1)
-            D = layer_back("densfeat", hs[-1], D)
-            for j in range(len(body) - 1, -1, -1):
-                s = body[j]
-                if s.kind == "skip":
-                    gW[s.name][h:] += ext.t() @ D
-                D = layer_back(s.name, hs[j], D)
-            gW["fc1"] += ext.t() @ D
-            gB["fc1"] += D.sum(0)
+        carry = torch.zeros(g.shape[0], 1, device=dev, dtype=ft)
+        ddir = torch.zeros(g.shape[0], RGB_HIDDEN, device=dev, dtype=ft)
+        for item in reversed(saved):
+            carry, ddir = _walk_back(packed, item, g, gsum, carry, ddir, gB, add_dw)
         # rgb1's direction rows, once per ray
         gW["rgb1"][h:] += extd.t() @ ddir
 
-    rgb = torch.cat(rgb_parts)
-    tb = torch.cat(tb_parts)
-    weights = torch.cat(w_parts)
+    rgb, tb, weights = torch.cat(rgb_parts), torch.cat(tb_parts), torch.cat(w_parts)
     if cotangent is None:
         return rgb, tb, weights, None, None
-    gw = torch.zeros(packed.weights.numel(), device=dev, dtype=ft)
+    gw, gb = _flat_grads(packed, gW, gB, rgb)
+    return rgb, tb, weights, gw, gb
+
+
+# ---------------------------------------------------------------------------
+# the split step's stashes and the plain versions of its three launches
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class StashLayout:
+    """Where the split step keeps a ray group's activations and cotangents.
+
+    A record holds 64 consecutive samples of one ray: ray i's record j
+    covers samples [64 j, 64 j + 64), j < 2 ceil(S / 128) (the forward sweep
+    walks whole 128-sample chunks; rows past S hold finite values that
+    every grad multiplies by a zero cotangent).  A record is a run of
+    blocks, each 64 rows (points) x 64 columns of bf16 in the render
+    kernel's 128-byte swizzle: element (r, c) of a block at r * 64 +
+    ((c // 8) ^ (r % 8)) * 8 + c % 8 (``image_index``), which is the
+    shared-memory image the forward's products read, copied out as it is.
+
+    - activation record (``rec_act`` elements): the encoding in ``enc_kb``
+      blocks, then slot j (the output of packed layer j, j < n_layers - 1)
+      at block ``enc_kb + j act_kb``;
+    - cotangent record (``rec_cot`` elements): layer l's output cotangent
+      (its n columns) from block ``cot_off[l]``;
+    - point record: (density, r, g, b) float32 per point."""
+    enc_kb: int
+    act_kb: int
+    n_slots: int
+    rec_act: int
+    cot_off: Tuple[int, ...]
+    rec_cot: int
+
+    def slot_block(self, j: int) -> int:
+        return self.enc_kb + j * self.act_kb
+
+    def ints(self) -> List[int]:
+        """The reverse walk's view (fused_train.cu MODE_REV)."""
+        return [self.rec_act, self.enc_kb, self.act_kb, self.rec_cot, *self.cot_off]
+
+
+def stash_layout(packed: PackedNeRF) -> StashLayout:
+    plan = render_plan(packed)
+    n_slots = len(packed.layers) - 1
+    offs, b = [], 0
+    for s in packed.layers:
+        offs.append(b)
+        b += -(-s.n // TILE_K)
+    return StashLayout(plan.enc_kb, plan.act_kb, n_slots,
+                       (plan.enc_kb + n_slots * plan.act_kb) * IMG_BLOCK, tuple(offs),
+                       b * IMG_BLOCK)
+
+
+def image_index(width: int, device=None) -> torch.Tensor:
+    """(64, width) element offsets of a 64-row image of ceil(width / 64)
+    blocks (StashLayout)."""
+    r = torch.arange(IMG_ROWS, device=device)[:, None]
+    c = torch.arange(width, device=device)[None, :]
+    return (c // TILE_K) * IMG_BLOCK + r * TILE_K + ((c % TILE_K // 8) ^ (r % 8)) * 8 + c % 8
+
+
+def from_image(records: torch.Tensor, block: int, width: int) -> torch.Tensor:
+    """(n_rec * 64, width) rows of the image starting at ``block`` of every
+    record of ``records`` (n_rec, rec)."""
+    idx = image_index(width, records.device) + block * IMG_BLOCK
+    return records[:, idx].reshape(-1, width)
+
+
+def to_image(records: torch.Tensor, block: int, rows: torch.Tensor) -> None:
+    """Writes ``rows`` (n_rec * 64, width) as the image at ``block`` of
+    every record, in place."""
+    width = rows.shape[1]
+    idx = image_index(width, records.device) + block * IMG_BLOCK
+    records[:, idx] = rows.reshape(records.shape[0], IMG_ROWS, width).to(records.dtype)
+
+
+def _points(n: int, S: int, r0: int, c0: int, ch: int, device) -> torch.Tensor:
+    """Record rows of rays [r0, r0 + n) x samples [c0, c0 + ch), ray-major,
+    in a group of 2 ceil(S / 128) records a ray."""
+    per_ray = 2 * -(-S // CHUNK) * IMG_ROWS
+    ray = torch.arange(r0, r0 + n, device=device)[:, None]
+    return (ray * per_ray + torch.arange(c0, c0 + ch, device=device)[None, :]).reshape(-1)
+
+
+def _stash_dtype(packed: PackedNeRF, ft):
+    return torch.bfloat16 if packed.weights.dtype == torch.bfloat16 else ft
+
+
+def split_forward_reference(packed: PackedNeRF, origins, directions, z_vals,
+                            rcfg: RenderConfig):
+    """Plain version of the split step's forward sweep (fused_render.cu
+    STASH) on one ray group: (rgb (n, 3), tb (n, ceil(S / 128)), weights (n,
+    S), stash), stash = {"act": (n_rec, rec_act), "pt": (n_rec * 64, 4)}
+    in the StashLayout (pad rows zero).  Activations are stored in bf16 for
+    a bf16 packing (they are bf16 values: exact in float64 too), the point
+    records in the float type."""
+    _check(rcfg)
+    ft, _ = _rounding(packed, origins)
+    lay = stash_layout(packed)
+    n, S = z_vals.shape
+    dev = origins.device
+    n_rec = n * 2 * -(-S // CHUNK)
+    act = torch.zeros(n_rec, lay.rec_act, device=dev, dtype=_stash_dtype(packed, ft))
+    pt = torch.zeros(n_rec * IMG_ROWS, 4, device=dev, dtype=ft)
+    dense = {j: torch.zeros(n_rec * IMG_ROWS, w, device=dev, dtype=ft)
+             for j, w in [(-1, packed.pos_pad)] + [
+                 (j, RGB_HIDDEN if s.kind == "rgb1" else packed.hidden)
+                 for j, s in enumerate(packed.layers[:-1])]}
+    rgb_p, tb_p, w_p = [], [], []
+    for r0, rgb_out, tb, ws, saved, _ in _reference_forward(
+            packed, origins, directions, z_vals, rcfg, CHUNK, True):
+        rgb_p.append(rgb_out)
+        tb_p.append(tb)
+        w_p.append(ws)
+        for c, (ext, hs, feat, rgb_h, rgb, dens, *_rest) in enumerate(saved):
+            m = rgb.shape[0]
+            rows = _points(m, S, r0, c * CHUNK, rgb.shape[1], dev)
+            for j, x in [(-1, ext)] + list(enumerate(hs + [feat, rgb_h])):
+                dense[j][rows] = x
+            pt[rows] = torch.cat([dens[:, None], rgb.reshape(-1, 3)], 1)
+    for j, x in dense.items():
+        to_image(act, 0 if j < 0 else lay.slot_block(j), x)
+    return (torch.cat(rgb_p), torch.cat(tb_p), torch.cat(w_p), {"act": act, "pt": pt})
+
+
+def split_reverse_reference(packed: PackedNeRF, directions, z_vals, rcfg: RenderConfig,
+                            rgb, target, tb, stash, gscale: float):
+    """Plain version of the split step's reverse walk (fused_train.cu
+    MODE_REV) on one ray group: from the forward's rgb, tb and stash and the
+    cotangent g = (rgb - target) * gscale, (cot (n_rec, rec_cot) with every
+    layer's output cotangent, gb (bias grads, packed layout), gdir (rgb1's
+    direction-row grads, (dir_dim, 128)))."""
+    _check(rcfg)
+    ft = stash["pt"].dtype
+    lay = stash_layout(packed)
+    n, S = z_vals.shape
+    dev = z_vals.device
+    act = stash["act"]
+    cot = torch.zeros(act.shape[0], lay.rec_cot, device=dev, dtype=act.dtype)
+    specs = {s.name: (i, s) for i, s in enumerate(packed.layers)}
+    body = [s for s in packed.layers if s.kind in ("plain", "skip")]
+    dense_in = {j: from_image(act, 0 if j < 0 else lay.slot_block(j), w).to(ft)
+                for j, w in [(-1, packed.pos_pad)] + [
+                    (j, RGB_HIDDEN if s.kind == "rgb1" else packed.hidden)
+                    for j, s in enumerate(packed.layers[:-1])]}
+    dense_cot = {s.name: torch.zeros(act.shape[0] * IMG_ROWS, s.n, device=dev, dtype=ft)
+                 for s in packed.layers}
+    gB = {s.name: torch.zeros(s.n, device=dev, dtype=ft) for s in packed.layers}
+    gdir = torch.zeros(packed.dir_dim, RGB_HIDDEN, device=dev, dtype=ft)
+    dists_all = sample_dists(z_vals.to(ft), rcfg.variant)
+    nc = -(-S // CHUNK)
+    for r0 in range(0, n, REF_RAY_CHUNK):
+        m = min(REF_RAY_CHUNK, n - r0)
+        g = (rgb[r0:r0 + m].to(ft) - target[r0:r0 + m].to(ft)) * gscale
+        gsum = g.sum(1, keepdim=True) if rcfg.white_background else 0.0
+        carry = torch.zeros(m, 1, device=dev, dtype=ft)
+        ddir = torch.zeros(m, RGB_HIDDEN, device=dev, dtype=ft)
+        for c in range(nc - 1, -1, -1):
+            ch = min(CHUNK, S - c * CHUNK)
+            rows = _points(m, S, r0, c * CHUNK, ch, dev)
+            dc = dists_all[r0:r0 + m, c * CHUNK:c * CHUNK + ch]
+            p = stash["pt"][rows]
+            dens, rgb_c = p[:, 0], p[:, 1:].reshape(m, ch, 3)
+            xs = dens.reshape(m, ch) * dc
+            Ti = tb[r0:r0 + m, c:c + 1].to(ft) * torch.exp(torch.cumsum(-xs, 1) + xs)
+            w = (1.0 - torch.exp(-xs)) * Ti
+            hs = [dense_in[j][rows] for j in range(len(body) + 1)]
+            item = (dense_in[-1][rows], hs, dense_in[len(body) + 1][rows],
+                    dense_in[len(body) + 2][rows], rgb_c, dens, dc, xs, Ti, w)
+
+            def keep_d(name, parts, D, rows=rows):
+                dense_cot[name][rows] = D
+
+            carry, ddir = _walk_back(packed, item, g, gsum, carry, ddir, gB, keep_d)
+        extd = _rounding(packed, z_vals.to(ft))[1](
+            _ext(directions[r0:r0 + m].to(ft), packed.n_dir_freq, packed.dir_dim))
+        gdir += extd.t() @ ddir
+    for name, (i, _) in specs.items():
+        to_image(cot, lay.cot_off[i], dense_cot[name])
     gb = torch.zeros(packed.biases.numel(), device=dev, dtype=ft)
     for s in packed.layers:
-        gw[s.w_off:s.w_off + s.k_rows * s.n] = gW[s.name].reshape(-1)
         gb[s.b_off:s.b_off + s.n] = gB[s.name]
-    return rgb, tb, weights, gw, gb
+    return cot, gb, gdir
+
+
+def _gemm_inputs(packed: PackedNeRF, lay: StashLayout, spec, li: int):
+    """[(first weight row, rows, activation block)] of the segments layer
+    ``li``'s weight rows read: fc1 the encoding, skip the previous output
+    then the encoding, every other layer the previous output."""
+    h, pad = packed.hidden, packed.pos_pad
+    if spec.kind == "fc1":
+        return [(0, pad, 0)]
+    if spec.kind == "skip":
+        return [(0, h, lay.slot_block(li - 1)), (h, pad, 0)]
+    return [(0, spec.k, lay.slot_block(li - 1))]
+
+
+def grad_gemm_reference(packed: PackedNeRF, act, cot, dtype=torch.float32):
+    """Plain version of grad_gemm.cu: the flat weight grads (packed layout)
+    sum over every record's points of A_l^T D_l, in ``dtype``; rgb1's
+    direction rows (the reverse walk's) are zero."""
+    lay = stash_layout(packed)
+    gw = torch.zeros(packed.weights.numel(), device=act.device, dtype=dtype)
+    for li, s in enumerate(packed.layers):
+        D = from_image(cot, lay.cot_off[li], s.n).to(dtype)
+        w = gw[s.w_off:s.w_off + s.k_rows * s.n].view(s.k_rows, s.n)
+        for row0, rows, block in _gemm_inputs(packed, lay, s, li):
+            w[row0:row0 + rows] = from_image(act, block, rows).to(dtype).t() @ D
+    return gw
+
+
+def split_step_reference(packed: PackedNeRF, origins, directions, z_vals, target,
+                         rcfg: RenderConfig, group: int = None):
+    """The three plain versions chained over ray groups of ``group`` rays
+    (RAY_GROUP by default), grads summed over the groups in order: (rgb (N,
+    3), weights (N, S), gw, gb), the function of fused_mse_loss_weights_grads."""
+    _check(rcfg)
+    group = group or RAY_GROUP
+    n = origins.shape[0]
+    ft, _ = _rounding(packed, origins)
+    gscale = 2.0 / (3.0 * n)
+    spec = {s.name: s for s in packed.layers}["rgb1"]
+    dir0 = spec.w_off + packed.hidden * spec.n
+    gw = torch.zeros(packed.weights.numel(), device=origins.device, dtype=ft)
+    gb = torch.zeros(packed.biases.numel(), device=origins.device, dtype=ft)
+    rgb_p, w_p = [], []
+    for r0 in range(0, n, group):
+        sl = slice(r0, r0 + group)
+        rgb, tb, w, stash = split_forward_reference(
+            packed, origins[sl], directions[sl], z_vals[sl], rcfg)
+        cot, gb_g, gdir = split_reverse_reference(
+            packed, directions[sl], z_vals[sl], rcfg, rgb, target[sl], tb, stash, gscale)
+        gw_g = grad_gemm_reference(packed, stash["act"], cot, ft)
+        gw_g[dir0:dir0 + gdir.numel()] = gdir.reshape(-1)
+        gw, gb = gw + gw_g, gb + gb_g
+        rgb_p.append(rgb)
+        w_p.append(w)
+    return torch.cat(rgb_p), torch.cat(w_p), gw, gb
 
 
 def fused_mse_loss_reference(packed: PackedNeRF, origins, directions, z_vals, target,
@@ -305,24 +647,44 @@ def _kernel_lib() -> ctypes.CDLL:
     lib.sfm_fused_train.restype = ctypes.c_int
     lib.sfm_fused_train.argtypes = (
         [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
-        + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
+        + [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p])
+    lib.sfm_reduce_add.restype = ctypes.c_int
+    lib.sfm_reduce_add.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+                                   + [ctypes.c_void_p] * 3)
     lib.sfm_cuda_error_string.restype = ctypes.c_char_p
     lib.sfm_cuda_error_string.argtypes = [ctypes.c_int]
     return lib
 
 
-def _launch(mode: int, packed: PackedNeRF, origins, directions, z_vals, rcfg: RenderConfig,
-            target=None, g=None, tb=None, keep: bool = True, emit_weights: bool = False):
-    """Check the inputs, allocate outputs and scratch, launch one mode of
-    the CUDA kernel.  Returns (rgb, tb, grads, w): grads is the flat float32
-    (weights then biases) gradient in the packed layout, None for the
-    forward mode; rgb is None for the backward mode; w (N, S) are the
-    compositing weights of the step mode with ``emit_weights``, else None."""
+def _gemm_lib() -> ctypes.CDLL:
+    from sfm_nerf_tpu_torch.kernels import _build
+
+    lib = _build.load("grad_gemm")
+    lib.sfm_grad_gemm.restype = ctypes.c_int
+    lib.sfm_grad_gemm.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_longlong] * 2
+        + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
+    lib.sfm_cuda_error_string.restype = ctypes.c_char_p
+    lib.sfm_cuda_error_string.argtypes = [ctypes.c_int]
+    return lib
+
+
+def _raise(lib, err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: " + lib.sfm_cuda_error_string(err).decode())
+
+
+def _ptr(x) -> Optional[int]:
+    return x.data_ptr() if x is not None else None
+
+
+def _check_inputs(packed: PackedNeRF, origins, directions, z_vals, **extra) -> None:
+    """The kernels' input checks: devices, shapes, the bf16 packing."""
     dev = origins.device
     n, S = z_vals.shape
     tensors = [("directions", directions), ("z_vals", z_vals),
                ("weights", packed.weights), ("biases", packed.biases)]
-    for name, t in (("target", target), ("g", g)):
+    for name, t in extra.items():
         if t is not None:
             tensors.append((name, t))
             if t.shape != (n, 3):
@@ -338,10 +700,22 @@ def _launch(mode: int, packed: PackedNeRF, origins, directions, z_vals, rcfg: Re
     if origins.shape != (n, 3) or directions.shape != (n, 3):
         raise ValueError(f"fused train: origins {tuple(origins.shape)}, directions "
                          f"{tuple(directions.shape)}, z_vals {(n, S)}")
-    w_total, b_total = packed.weights.numel(), packed.biases.numel()
-    if sum(s.k_rows * s.n for s in packed.layers) != w_total:
+    if sum(s.k_rows * s.n for s in packed.layers) != packed.weights.numel():
         raise ValueError("fused train kernel: the packed weights hold pad elements "
                          "between layers, which the grad reduction would read")
+
+
+def _launch(mode: int, packed: PackedNeRF, origins, directions, z_vals, rcfg: RenderConfig,
+            target=None, g=None, tb=None):
+    """Check the inputs, allocate outputs and scratch, launch one mode of
+    the single-launch kernels (the recomputing step, K3's forward or
+    backward).  Returns (rgb, tb, grads): grads is the flat float32 (weights
+    then biases) gradient in the packed layout, None for the forward mode;
+    rgb is None for the backward mode."""
+    _check_inputs(packed, origins, directions, z_vals, target=target, g=g)
+    dev = origins.device
+    n, S = z_vals.shape
+    w_total, b_total = packed.weights.numel(), packed.biases.numel()
     f32 = dict(device=dev, dtype=torch.float32)
     o = origins.float().contiguous()
     d = directions.float().contiguous()
@@ -350,41 +724,197 @@ def _launch(mode: int, packed: PackedNeRF, origins, directions, z_vals, rcfg: Re
     n_blocks = min(torch.cuda.get_device_properties(dev).multi_processor_count, n)
     stash_w = max(packed.hidden, RGB_HIDDEN)
     rgb = torch.empty(n, 3, **f32) if mode != MODE_BWD else None
-    if emit_weights and mode != MODE_STEP:
-        raise ValueError("fused train: only the step mode writes weights")
-    w = torch.empty(n, S, **f32) if emit_weights else None
     if mode == MODE_BWD:
         if tb is None or tb.shape != (n, n_chunks):
             raise ValueError("fused train backward: tb must be the forward's (N, n_chunks)")
         tb = tb.float().contiguous()
     else:
         tb = torch.empty(n, n_chunks, **f32)
-    stash_act = stash_pt = partials = grads = None
+    stash_act = partials = grads = None
     if mode != MODE_FWD:
-        slots = n_chunks if (mode == MODE_STEP and keep) else 1
-        stash_act = torch.empty(n_blocks, slots, len(packed.layers) - 1, CHUNK, stash_w,
+        stash_act = torch.empty(n_blocks, len(packed.layers) - 1, CHUNK, stash_w,
                                 device=dev, dtype=torch.bfloat16)
-        stash_pt = torch.empty(n_blocks, slots, CHUNK, 4, **f32)
         partials = torch.zeros(n_blocks, w_total + b_total, **f32)
         grads = torch.empty(w_total + b_total, **f32)
     t = target.float().contiguous() if target is not None else None
     gc = g.float().contiguous() if g is not None else None
-    ptr = lambda x: x.data_ptr() if x is not None else None
     lib = _kernel_lib()
     ip, fp_ptr, _fp_keep = _kernel_args(packed, rcfg)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.sfm_fused_train(
-            mode, o.data_ptr(), d.data_ptr(), z.data_ptr(), ptr(t), ptr(gc), n, S,
+            mode, o.data_ptr(), d.data_ptr(), z.data_ptr(), _ptr(t), _ptr(gc), n, S,
             packed.weights.data_ptr(), packed.biases.data_ptr(),
             ctypes.cast(ip, ctypes.c_void_p), fp_ptr,
-            ptr(rgb), tb.data_ptr(), ptr(w), ptr(stash_act), ptr(stash_pt), ptr(partials), ptr(grads),
-            n_blocks, int(keep), stash_w, w_total, w_total + b_total,
-            2.0 / (3.0 * n), stream)
-    if err != 0:
-        raise RuntimeError("fused train kernel launch failed: "
-                           + lib.sfm_cuda_error_string(err).decode())
-    return rgb, tb, grads, w
+            _ptr(rgb), tb.data_ptr(), _ptr(stash_act), None, None, None, _ptr(partials),
+            _ptr(grads), n_blocks, stash_w, w_total, w_total + b_total, 2.0 / (3.0 * n), stream)
+    _raise(lib, err, "fused train kernel")
+    return rgb, tb, grads
+
+
+def gemm_tasks(packed: PackedNeRF) -> List[List[int]]:
+    """grad_gemm.cu's tasks, each a block's share of one layer's weight
+    gradient: up to 256 columns of it and up to two 64-row tiles (one per
+    consumer warpgroup), as [w_off, n, n0, ncols, d_block, d_blocks,
+    n_tiles, (k0, k_rows, a_block) x 2].  Together they cover every packed
+    weight element but rgb1's direction rows once."""
+    lay = stash_layout(packed)
+    tasks = []
+    for li, s in enumerate(packed.layers):
+        tiles = [(row0 + r, min(TILE_K, rows - r), block + r // TILE_K)
+                 for row0, rows, block in _gemm_inputs(packed, lay, s, li)
+                 for r in range(0, rows, TILE_K)]
+        for n0 in range(0, s.n, 256):
+            ncols = min(256, s.n - n0)
+            for i in range(0, len(tiles), 2):
+                pair = tiles[i:i + 2]
+                flat = [x for t in pair + pair[:1] * (2 - len(pair)) for x in t]
+                tasks.append([s.w_off, s.n, n0, ncols, lay.cot_off[li] + n0 // TILE_K,
+                              -(-ncols // TILE_K), len(pair), *flat])
+    if len(tasks) > _GEMM_MAX_TASKS:
+        raise ValueError(f"weight GEMM: {len(tasks)} tasks > {_GEMM_MAX_TASKS}")
+    return tasks
+
+
+def _gemm_launch(packed: PackedNeRF, act, cot, n_rec: int, partials) -> int:
+    """grad_gemm.cu over ``n_rec`` records into ``partials`` (n_split rows
+    of the packed weights' length, only task elements written).  Returns
+    n_split."""
+    tasks = packed.tile_cache.get("gemm_tasks")
+    if tasks is None:
+        flat = np.asarray(gemm_tasks(packed), np.int32)
+        tasks = packed.tile_cache["gemm_tasks"] = (flat, flat.shape[0])
+    flat, n_tasks = tasks
+    dev = act.device
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n_split = max(1, min(n_rec, partials.shape[0], 2 * sms // n_tasks))
+    lay = stash_layout(packed)
+    lib = _gemm_lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.sfm_grad_gemm(act.data_ptr(), cot.data_ptr(),
+                                flat.ctypes.data_as(ctypes.c_void_p), n_tasks, n_split, n_rec,
+                                lay.rec_act, lay.rec_cot, packed.weights.numel(),
+                                partials.data_ptr(), stream)
+    _raise(lib, err, "weight-gradient GEMM")
+    return n_split
+
+
+def _reduce_add(partials, n_rows: int, n_a: int, dst_a, dst_b) -> None:
+    lib = _kernel_lib()
+    with torch.cuda.device(partials.device):
+        stream = torch.cuda.current_stream(partials.device).cuda_stream
+        err = lib.sfm_reduce_add(partials.data_ptr(), n_rows, partials.shape[1], n_a,
+                                 dst_a.data_ptr(), dst_b.data_ptr(), stream)
+    _raise(lib, err, "partials reduction")
+
+
+def _gemm_max_split(dev) -> int:
+    return 2 * torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def weight_grad_gemm(packed: PackedNeRF, act, cot) -> torch.Tensor:
+    """The weight GEMM alone: flat float32 weight grads (packed layout, rgb1's
+    direction rows zero) of the records ``act`` (n_rec, rec_act) and ``cot``
+    (n_rec, rec_cot).  CUDA tensors launch grad_gemm.cu and the fixed-order
+    reduction, CPU tensors run grad_gemm_reference."""
+    if _device_kind(act) == "cpu":
+        return grad_gemm_reference(packed, act, cot)
+    lay = stash_layout(packed)
+    n_rec = act.shape[0]
+    if act.shape != (n_rec, lay.rec_act) or cot.shape != (n_rec, lay.rec_cot) or \
+            act.dtype != torch.bfloat16 or cot.dtype != torch.bfloat16:
+        raise ValueError("weight GEMM: bf16 records of the stash layout expected")
+    n_w = packed.weights.numel()
+    partials = torch.zeros(min(n_rec, _gemm_max_split(act.device)), n_w,
+                           device=act.device, dtype=torch.float32)
+    gw = torch.zeros(n_w, device=act.device, dtype=torch.float32)
+    n_split = _gemm_launch(packed, act.contiguous(), cot.contiguous(), n_rec, partials)
+    _reduce_add(partials, n_split, n_w, gw, gw)
+    LAUNCHES["weight_grad_gemm"] += 1
+    return gw
+
+
+def _split_forward(packed: PackedNeRF, rcfg: RenderConfig, o, d, z, rgb, w, tb, act, pt) -> None:
+    """The forward sweep of one ray group (fused_render.cu STASH, K1's
+    arithmetic): writes rgb, the weights ``w`` (or none), tb and the stash
+    records ``act`` and ``pt``."""
+    n, S = z.shape
+    lib = _fr._kernel_lib()
+    ip, fp, _fp_keep = _fr._render_kernel_args(packed, rcfg)
+    image = _fr.render_tile_image(packed)
+    stream = torch.cuda.current_stream(o.device).cuda_stream
+    _raise(lib, _timed("forward", lambda: lib.sfm_fused_render_stash(
+        o.data_ptr(), d.data_ptr(), z.data_ptr(), n, S, image.data_ptr(),
+        packed.biases.data_ptr(), ctypes.cast(ip, ctypes.c_void_p), fp, rgb.data_ptr(),
+        _ptr(w), int(w is not None), act.data_ptr(), pt.data_ptr(), tb.data_ptr(), stream)),
+        "split-step forward sweep")
+
+
+def _split_backward(packed: PackedNeRF, rcfg: RenderConfig, o, d, z, t, rgb, tb, act, pt,
+                    gscale: float, grads) -> None:
+    """The reverse walk (fused_train.cu MODE_REV) and the weight GEMM
+    (grad_gemm.cu) of one ray group on its forward's rgb, tb and stash, and
+    the two fixed-order reductions that add the group's partial grads to
+    ``grads`` (weights then biases, packed layout)."""
+    dev = o.device
+    n, S = z.shape
+    n_rec = n * 2 * -(-S // CHUNK)
+    lay = stash_layout(packed)
+    n_w, n_b = packed.weights.numel(), packed.biases.numel()
+    dir_n = packed.dir_dim * RGB_HIDDEN
+    n_blocks = min(torch.cuda.get_device_properties(dev).multi_processor_count, n)
+    cot = torch.empty(n_rec, lay.rec_cot, device=dev, dtype=torch.bfloat16)
+    rev_part = torch.zeros(n_blocks, dir_n + n_b, device=dev, dtype=torch.float32)
+    gemm_part = torch.zeros(min(n_rec, _gemm_max_split(dev)), n_w, device=dev,
+                            dtype=torch.float32)
+    rgb1 = {s.name: s for s in packed.layers}["rgb1"]
+    lib = _kernel_lib()
+    ip, fp, _fp_keep = _kernel_args(packed, rcfg)
+    lay_ints = (ctypes.c_int * (4 + len(packed.layers)))(*lay.ints())
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _raise(lib, _timed("reverse", lambda: lib.sfm_fused_train(
+        MODE_REV, o.data_ptr(), d.data_ptr(), z.data_ptr(), t.data_ptr(), None, n, S,
+        packed.weights.data_ptr(), packed.biases.data_ptr(), ctypes.cast(ip, ctypes.c_void_p),
+        fp, rgb.data_ptr(), tb.data_ptr(), act.data_ptr(), pt.data_ptr(), cot.data_ptr(),
+        ctypes.cast(lay_ints, ctypes.c_void_p), rev_part.data_ptr(), None, n_blocks,
+        max(packed.hidden, RGB_HIDDEN), n_w, dir_n + n_b, gscale, stream)),
+        "split-step reverse walk")
+    n_split = _timed("gradient", lambda: _gemm_launch(packed, act, cot, n_rec, gemm_part))
+    _timed("reduction", lambda: (
+        _reduce_add(gemm_part, n_split, n_w, grads, grads),
+        _reduce_add(rev_part, n_blocks, dir_n, grads[rgb1.w_off + packed.hidden * rgb1.n:],
+                    grads[n_w:])))
+
+
+def _split_step(packed: PackedNeRF, origins, directions, z_vals, target, rcfg: RenderConfig,
+                emit_weights: bool, group: int = RAY_GROUP):
+    """The split step on the card: per group of ``group`` rays, in ray
+    order, _split_forward then _split_backward, each group's partials added
+    to the grads in order.  Returns (rgb, weights or None, grads)."""
+    _check_inputs(packed, origins, directions, z_vals, target=target)
+    dev = origins.device
+    n, S = z_vals.shape
+    f32 = dict(device=dev, dtype=torch.float32)
+    o, d, z, t = (x.float().contiguous() for x in (origins, directions, z_vals, target))
+    nc = -(-S // CHUNK)
+    lay = stash_layout(packed)
+    n_rec_max = min(group, n) * 2 * nc
+    rgb = torch.empty(n, 3, **f32)
+    tb = torch.empty(n, nc, **f32)
+    w = torch.empty(n, S, **f32) if emit_weights else None
+    grads = torch.zeros(packed.weights.numel() + packed.biases.numel(), **f32)
+    act = torch.empty(n_rec_max, lay.rec_act, device=dev, dtype=torch.bfloat16)
+    pt = torch.empty(n_rec_max * IMG_ROWS, 4, **f32)
+    with torch.cuda.device(dev):
+        for r0 in range(0, n, group):
+            sl = slice(r0, r0 + group)
+            og, dg, zg, rg, tbg = o[sl], d[sl], z[sl], rgb[sl], tb[sl]
+            _split_forward(packed, rcfg, og, dg, zg, rg, w[sl] if w is not None else None, tbg,
+                           act, pt)
+            _split_backward(packed, rcfg, og, dg, zg, t[sl], rg, tbg, act, pt,
+                            2.0 / (3.0 * n), grads)
+    return rgb, w, grads
 
 
 def _device_kind(t: torch.Tensor) -> str:
@@ -395,18 +925,22 @@ def _device_kind(t: torch.Tensor) -> str:
 
 def fused_mse_loss_grads(packed: PackedNeRF, origins, directions, z_vals, target,
                          rcfg: RenderConfig, keep_activations: bool = True):
-    """(rgb (N, 3), gw, gb): the step kernel's raw outputs, float32 grads of
-    mean((rgb - target)^2) in the packed layout.  CUDA tensors launch the
-    kernel (once), CPU tensors run the plain version.
-
-    ``keep_activations``: the forward sweep stashes every chunk of a ray and
-    the reverse walk consumes them (three forwards' worth of products);
-    off, the reverse walk recomputes each chunk (four)."""
+    """(rgb (N, 3), gw, gb): the step's raw outputs, float32 grads of
+    mean((rgb - target)^2) in the packed layout.  CPU tensors run the plain
+    version.  CUDA tensors run, with ``keep_activations``, the split step
+    (per ray group: the wgmma forward sweep that stashes every layer input,
+    the reverse walk that stashes every output cotangent, the weight GEMM
+    over both; three forwards' worth of products); without it, the
+    single-launch step kernel whose reverse walk recomputes each chunk (four
+    forwards' worth, the arithmetic of K3's backward)."""
     _check(rcfg)
     if _device_kind(origins) == "cpu":
         return fused_mse_loss_reference(packed, origins, directions, z_vals, target, rcfg)
-    rgb, _, grads, _ = _launch(MODE_STEP, packed, origins, directions, z_vals, rcfg,
-                               target=target, keep=keep_activations)
+    if keep_activations:
+        rgb, _, grads = _split_step(packed, origins, directions, z_vals, target, rcfg, False)
+    else:
+        rgb, _, grads = _launch(MODE_STEP, packed, origins, directions, z_vals, rcfg,
+                                target=target)
     LAUNCHES["fused_mse_loss"] += 1
     n_w = packed.weights.numel()
     return rgb, grads[:n_w], grads[n_w:]
@@ -415,14 +949,13 @@ def fused_mse_loss_grads(packed: PackedNeRF, origins, directions, z_vals, target
 def fused_mse_loss_weights_grads(packed: PackedNeRF, origins, directions, z_vals, target,
                                  rcfg: RenderConfig):
     """(rgb (N, 3), weights (N, S), gw, gb): fused_mse_loss_grads plus the
-    per-sample compositing weights of the forward sweep, from the same one
-    launch (CUDA tensors) or the plain version (CPU tensors)."""
+    per-sample compositing weights of the forward sweep, from the same split
+    step (CUDA tensors) or the plain version (CPU tensors)."""
     _check(rcfg)
     if _device_kind(origins) == "cpu":
         return fused_mse_loss_weights_reference(packed, origins, directions, z_vals, target,
                                                 rcfg)
-    rgb, _, grads, w = _launch(MODE_STEP, packed, origins, directions, z_vals, rcfg,
-                               target=target, emit_weights=True)
+    rgb, w, grads = _split_step(packed, origins, directions, z_vals, target, rcfg, True)
     LAUNCHES["fused_mse_loss_weights"] += 1
     n_w = packed.weights.numel()
     return rgb, w, grads[:n_w], grads[n_w:]
@@ -492,7 +1025,7 @@ def fused_render_train_forward(packed: PackedNeRF, origins, directions, z_vals,
     _check(rcfg)
     if _device_kind(origins) == "cpu":
         return fused_render_train_reference(packed, origins, directions, z_vals, rcfg)
-    rgb, tb, _, _ = _launch(MODE_FWD, packed, origins, directions, z_vals, rcfg)
+    rgb, tb, _ = _launch(MODE_FWD, packed, origins, directions, z_vals, rcfg)
     LAUNCHES["fused_render_train"] += 1
     return rgb, tb
 
@@ -506,7 +1039,7 @@ def fused_render_train_backward(packed: PackedNeRF, origins, directions, z_vals,
     _check(rcfg)
     if _device_kind(origins) == "cpu":
         return fused_render_train_reference(packed, origins, directions, z_vals, rcfg, g=g)
-    _, _, grads, _ = _launch(MODE_BWD, packed, origins, directions, z_vals, rcfg, g=g, tb=tb)
+    _, _, grads = _launch(MODE_BWD, packed, origins, directions, z_vals, rcfg, g=g, tb=tb)
     LAUNCHES["fused_render_train_backward"] += 1
     n_w = packed.weights.numel()
     return grads[:n_w], grads[n_w:]

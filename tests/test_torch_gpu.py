@@ -132,11 +132,13 @@ def _assert_grads_close(packed, got, ref, f64):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("white,n_rays,n_sample", [
-    (False, 1024, 256), (True, 777, 200), (False, 100, 64)])
+    (False, 1024, 256), (True, 777, 200), (False, 100, 64), (False, 300, 384)])
 def test_fused_train_kernels_match_plain_versions(white, n_rays, n_sample):
-    """K2 (fused_mse_loss) and K3 (fused_render_train forward and backward)
-    at hidden 256 against their plain versions on the same inputs; ragged
-    sample counts and ray counts that fill no block included."""
+    """K2 (fused_mse_loss: the split step, and the recomputing step kernel)
+    and K3 (fused_render_train forward and backward) at hidden 256 against
+    their plain versions on the same inputs; ragged sample counts and ray
+    counts that fill no block included.  The split step's forward sweep is
+    the render kernel's arithmetic: its rgb is K1's, bit for bit."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -170,7 +172,8 @@ def test_fused_train_kernels_match_plain_versions(white, n_rays, n_sample):
     assert ft.LAUNCHES["fused_render_train_backward"] == \
         before["fused_render_train_backward"] + 1
     rr3, tbr = ft.fused_render_train_reference(packed, o, d, z, rcfg)
-    assert torch.equal(rgb3, rgb)
+    assert torch.equal(rgb, fr.fused_render_rays(packed, o, d, z, rcfg))
+    assert (rgb3 - rr3).abs().max().item() <= 1e-2
     assert (tb - tbr).abs().max().item() <= 1e-2
     ref3 = ft.fused_render_train_reference(packed, o, d, z, rcfg, g=g)
     ref3_64 = ft.fused_render_train_reference(packed, o.double(), d.double(), z.double(),
@@ -187,10 +190,10 @@ def test_fused_train_kernels_match_plain_versions(white, n_rays, n_sample):
     (False, 1024, 256), (True, 777, 200), (False, 300, 384)])
 def test_fused_mse_loss_weights_kernel_matches_plain_version(white, n_rays, n_sample):
     """K4 (fused_mse_loss_weights): rgb and grads bit-equal to K2's on the
-    same inputs, bit-equal across two runs, and the weights within the
-    weight rule of the plain version's and of the render kernel's (K5, a
-    kernel of its own since the wgmma redesign); a ragged last chunk writes
-    the caller's S columns only."""
+    same inputs, bit-equal across two runs, the weights within the weight
+    rule of the plain version's and bit-equal to the render kernel's (K5:
+    the split step's forward sweep is its arithmetic); a ragged last chunk
+    writes the caller's S columns only."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -214,12 +217,97 @@ def test_fused_mse_loss_weights_kernel_matches_plain_version(white, n_rays, n_sa
         packed, o.double(), d.double(), z.double(), target.double(), rcfg)
     w_tol = max(1e-2, (wr.double() - w64).abs().max().item())
     rgb5, w5 = fr.fused_render_rays_weights(packed, o, d, z, rcfg)
-    for ref_rgb, ref_w in ((rr, wr), (rgb5, w5)):
-        assert (rgb - ref_rgb).abs().max().item() <= 1e-2
-        assert (w - ref_w).abs().max().item() <= w_tol
-        assert ((w - ref_w).abs() > 1e-3).float().mean().item() <= 1e-4
-        assert (w.sum(-1) - ref_w.sum(-1)).abs().max().item() <= 1e-2
+    assert torch.equal(rgb, rgb5) and torch.equal(w, w5)
+    assert (rgb - rr).abs().max().item() <= 1e-2
+    assert (w - wr).abs().max().item() <= w_tol
+    assert ((w - wr).abs() > 1e-3).float().mean().item() <= 1e-4
+    assert (w.sum(-1) - wr.sum(-1)).abs().max().item() <= 1e-2
     _assert_grads_close(packed, (gw, gb), (gwr, gbr), (gw64, gb64))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model,n_rec", [
+    ("synth800", 1000), ("synth800", 3), ("hidden64", 257), ("legacy", 130)])
+def test_weight_grad_gemm_matches_plain_version(model, n_rec):
+    """The weight-gradient GEMM alone (grad_gemm.cu) on random stashes
+    against its plain version: the f32 sums of A^T D over every record,
+    within 1e-5 of each layer's norm (the two sum in other orders), twice
+    bit-equal.  Everything outside the images' real rows and columns is
+    NaN, so a value the GEMM must discard that reached a grad would show;
+    3 records give fewer points than one block takes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    packed = _packed_model(model)
+    lay = ft.stash_layout(packed)
+    gen = torch.Generator(device="cuda").manual_seed(n_rec)
+    act = torch.full((n_rec, lay.rec_act), float("nan"), device="cuda", dtype=torch.bfloat16)
+    cot = torch.full((n_rec, lay.rec_cot), float("nan"), device="cuda", dtype=torch.bfloat16)
+    rows = n_rec * ft.IMG_ROWS
+    widths = [(0, packed.pos_pad)] + [
+        (lay.slot_block(j), ft.RGB_HIDDEN if s.kind == "rgb1" else packed.hidden)
+        for j, s in enumerate(packed.layers[:-1])]
+    for block, width in widths:
+        ft.to_image(act, block, torch.randn(rows, width, device="cuda", generator=gen).relu())
+    for i, s in enumerate(packed.layers):
+        ft.to_image(cot, lay.cot_off[i], torch.randn(rows, s.n, device="cuda", generator=gen))
+    before = ft.LAUNCHES["weight_grad_gemm"]
+    gw = ft.weight_grad_gemm(packed, act, cot)
+    again = ft.weight_grad_gemm(packed, act, cot)
+    assert ft.LAUNCHES["weight_grad_gemm"] == before + 2
+    ref = ft.grad_gemm_reference(packed, act, cot)
+    assert torch.equal(gw, again)
+    assert bool(torch.isfinite(gw).all())
+    for s in packed.layers:
+        sl = slice(s.w_off, s.w_off + s.k_rows * s.n)
+        err = (gw[sl] - ref[sl]).norm().item()
+        assert err <= 1e-5 * ref[sl].norm().item(), s.name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_rays,n_sample", [(300, 384), (1024, 256)])
+def test_split_backward_on_the_plain_forward_stash(n_rays, n_sample):
+    """The reverse walk and the weight GEMM on the card, fed the plain
+    version's forward (split_forward_reference: its rgb, tb and stash, in
+    the kernels' layout): every parameter's grad within 1e-3 of the plain
+    version's norm, on the batches of the K4 test.  Beyond that the split
+    step departs from its plain version only through its forward, the
+    render kernel's arithmetic (bias-initialised wgmma accumulators), whose
+    activations differ from the plain version's by one bf16 rounding in a
+    few of every thousand elements."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    packed = _packed_model("synth800")
+    o, d, z, target = _train_batch(n_rays, n_sample, seed=n_sample + 1)
+    rcfg = RenderConfig(n_sample=n_sample)
+    rr, gwr, gbr = ft.fused_mse_loss_reference(packed, o, d, z, target, rcfg)
+    rgb, tb, _, stash = ft.split_forward_reference(packed, o, d, z, rcfg)
+    assert torch.equal(rgb, rr)
+    n_w = packed.weights.numel()
+    grads = torch.zeros(n_w + packed.biases.numel(), device="cuda")
+    ft._split_backward(packed, rcfg, o, d, z, target, rgb, tb, stash["act"], stash["pt"],
+                       2.0 / (3.0 * n_rays), grads)
+    got, ref = ft.unpack_grads(packed, grads[:n_w], grads[n_w:]), ft.unpack_grads(packed, gwr, gbr)
+    for k in ref:
+        assert (got[k] - ref[k]).norm().item() <= 1e-3 * ref[k].norm().item(), k
+
+
+@pytest.mark.gpu
+def test_split_step_ray_groups():
+    """The split step in ray groups of 300 and of 1,024 on the same batch:
+    rgb and weights bit-equal (each ray's forward does not depend on its
+    group), grads within float32 rounding (the groups' partials are summed
+    in another grouping)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    packed = _packed_model("synth800")
+    o, d, z, target = _train_batch(1000, 128, seed=5)
+    rcfg = RenderConfig(n_sample=128)
+    rgb, w, g = ft._split_step(packed, o, d, z, target, rcfg, True)
+    rgb3, w3, g3 = ft._split_step(packed, o, d, z, target, rcfg, True, group=300)
+    assert torch.equal(rgb, rgb3) and torch.equal(w, w3)
+    assert (g - g3).norm().item() <= 1e-5 * g.norm().item()
 
 
 @pytest.mark.gpu
@@ -266,7 +354,9 @@ def test_hierarchical_step_and_frame_launch_counts():
 @pytest.mark.gpu
 def test_fused_train_wrappers_fill_parameter_grads():
     """loss.backward() through either wrapper fills every parameter's .grad
-    on the card, and the two routes agree."""
+    on the card, and the two routes agree with the plain version under the
+    grads rule (their forwards are two layer chains: the split step's is
+    the render kernel's wgmma chain, K3's the WMMA one)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     params, _ = ckpt.load_params_untyped(SYNTH800)
@@ -282,10 +372,28 @@ def test_fused_train_wrappers_fill_parameter_grads():
     rgb = ft.fused_render_train(packed, o, d, z, rcfg)
     loss3 = torch.mean((rgb - target) ** 2)
     loss3.backward()
-    assert loss.item() == pytest.approx(loss3.item(), rel=1e-6)
-    for n, p in model.named_parameters():
-        assert p.grad is not None and bool(torch.isfinite(p.grad).all()), n
-        assert (p.grad - g2[n]).norm().item() <= 1e-5 * g2[n].norm().item() + 1e-12, n
+    rr, gwr, gbr = ft.fused_mse_loss_reference(packed, o, d, z, target, rcfg)
+    _, gw64, gb64 = ft.fused_mse_loss_reference(packed, o.double(), d.double(), z.double(),
+                                                target.double(), rcfg)
+    plain = torch.mean((rr - target) ** 2).item()
+    assert loss.item() == pytest.approx(plain, rel=1e-3)
+    assert loss3.item() == pytest.approx(plain, rel=1e-3)
+    g3 = {n: p.grad for n, p in model.named_parameters()}
+    named = {n: i for i, (n, _) in enumerate(model.named_parameters())}
+    for grads in (g2, g3):
+        for n in named:
+            assert grads[n] is not None and bool(torch.isfinite(grads[n]).all()), n
+        # the parameter grads against the plain version's, unpacked
+        ref = ft.unpack_grads(packed, gwr, gbr)
+        f64 = ft.unpack_grads(packed, gw64.float(), gb64.float())
+        for n in named:
+            nr, mr = ref[n].norm().item(), ref[n].abs().max().item()
+            if nr == 0.0:
+                assert grads[n].abs().max().item() == 0.0, n
+                continue
+            e, e64 = grads[n] - ref[n], f64[n] - ref[n]
+            assert e.norm().item() / nr <= max(2e-2, e64.norm().item() / nr), n
+            assert e.abs().max().item() / mr <= max(5e-2, e64.abs().max().item() / mr), n
 
 
 @pytest.mark.gpu
