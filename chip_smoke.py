@@ -158,18 +158,16 @@ def main():
         torch.cuda.synchronize()
         return e0.elapsed_time(e1) / reps, out
 
-    def compare(name, got, ref, weights=None, z=None, plain_w=None):
+    def compare(name, got, ref, weights=None, z=None):
         """Kernel output vs plain version: rgb per-ray max error and PSNR,
         and for K5 the weights and the acc and depth maps they give; raises
-        past the tolerances.  ``plain_w``: the plain version's float32
-        weights, where ``ref`` is another kernel's (the spread is always the
-        plain version's).  Returns a dict of the errors."""
+        past the tolerances.  Returns a dict of the errors."""
         r = {"rgb_max_abs": (got - ref).abs().max().item(), "psnr": psnr(got, ref)}
         ok = r["rgb_max_abs"] <= RGB_TOL and r["psnr"] >= PSNR_PLAIN
         if weights is not None:
             w, wr, w64 = weights
             ew = (w - wr).abs()
-            e64 = ((wr if plain_w is None else plain_w).double() - w64).abs()
+            e64 = (wr.double() - w64).abs()
             far = z.max()
             r.update(w_max_abs=ew.max().item(), w_above_1e_3=int((ew > W_TOL_BULK).sum()),
                      w_count=ew.numel(),

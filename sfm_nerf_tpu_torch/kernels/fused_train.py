@@ -79,7 +79,7 @@ MODE_STEP, MODE_FWD, MODE_BWD, MODE_REV = 0, 1, 2, 3
 IMG_ROWS = 64                   # points per stash record: the render kernel's warpgroup tile
 IMG_BLOCK = IMG_ROWS * TILE_K   # bf16 elements of one 64-row x 64-column stash block
 # Rays per round of the split step (forward sweep, reverse walk, weight
-# GEMM): the stashes of a round take about 11.5 KB a point at hidden 256,
+# GEMM): the stashes of a round take about 11.4 KB a point at hidden 256,
 # 3.0 GB at 1,024 x 256 samples.  Rounds run in ray order and their partial
 # grads are summed in that order, so the grads do not depend on timing.
 RAY_GROUP = 1024
@@ -776,28 +776,37 @@ def gemm_tasks(packed: PackedNeRF) -> List[List[int]]:
     return tasks
 
 
-def _gemm_launch(packed: PackedNeRF, act, cot, n_rec: int, partials) -> int:
-    """grad_gemm.cu over ``n_rec`` records into ``partials`` (n_split rows
-    of the packed weights' length, only task elements written).  Returns
-    n_split."""
-    tasks = packed.tile_cache.get("gemm_tasks")
-    if tasks is None:
-        flat = np.asarray(gemm_tasks(packed), np.int32)
-        tasks = packed.tile_cache["gemm_tasks"] = (flat, flat.shape[0])
-    flat, n_tasks = tasks
-    dev = act.device
+def _gemm_partials(packed: PackedNeRF, n_rec: int, dev) -> torch.Tensor:
+    """Zeroed float32 partials of the weight GEMM over ``n_rec`` records:
+    one row of the packed weights' length per point slice, as many slices
+    as fill about two blocks per SM (elements no task writes, rgb1's
+    direction rows, stay zero)."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    n_split = max(1, min(n_rec, partials.shape[0], 2 * sms // n_tasks))
+    n_split = max(1, min(n_rec, 2 * sms // _gemm_tasks(packed)[0]))
+    return torch.zeros(n_split, packed.weights.numel(), device=dev, dtype=torch.float32)
+
+
+def _gemm_tasks(packed: PackedNeRF):
+    """(n_tasks, tasks as an int32 array), cached on the packing."""
+    if "gemm_tasks" not in packed.tile_cache:
+        flat = np.asarray(gemm_tasks(packed), np.int32)
+        packed.tile_cache["gemm_tasks"] = (flat.shape[0], flat)
+    return packed.tile_cache["gemm_tasks"]
+
+
+def _gemm_launch(packed: PackedNeRF, act, cot, n_rec: int, partials) -> None:
+    """grad_gemm.cu over ``n_rec`` records into ``partials`` (one row per
+    point slice, _gemm_partials)."""
+    n_tasks, flat = _gemm_tasks(packed)
     lay = stash_layout(packed)
     lib = _gemm_lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(act.device):
+        stream = torch.cuda.current_stream(act.device).cuda_stream
         err = lib.sfm_grad_gemm(act.data_ptr(), cot.data_ptr(),
-                                flat.ctypes.data_as(ctypes.c_void_p), n_tasks, n_split, n_rec,
-                                lay.rec_act, lay.rec_cot, packed.weights.numel(),
-                                partials.data_ptr(), stream)
+                                flat.ctypes.data_as(ctypes.c_void_p), n_tasks,
+                                partials.shape[0], n_rec, lay.rec_act, lay.rec_cot,
+                                packed.weights.numel(), partials.data_ptr(), stream)
     _raise(lib, err, "weight-gradient GEMM")
-    return n_split
 
 
 def _reduce_add(partials, n_rows: int, n_a: int, dst_a, dst_b) -> None:
@@ -807,10 +816,6 @@ def _reduce_add(partials, n_rows: int, n_a: int, dst_a, dst_b) -> None:
         err = lib.sfm_reduce_add(partials.data_ptr(), n_rows, partials.shape[1], n_a,
                                  dst_a.data_ptr(), dst_b.data_ptr(), stream)
     _raise(lib, err, "partials reduction")
-
-
-def _gemm_max_split(dev) -> int:
-    return 2 * torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def weight_grad_gemm(packed: PackedNeRF, act, cot) -> torch.Tensor:
@@ -826,11 +831,10 @@ def weight_grad_gemm(packed: PackedNeRF, act, cot) -> torch.Tensor:
             act.dtype != torch.bfloat16 or cot.dtype != torch.bfloat16:
         raise ValueError("weight GEMM: bf16 records of the stash layout expected")
     n_w = packed.weights.numel()
-    partials = torch.zeros(min(n_rec, _gemm_max_split(act.device)), n_w,
-                           device=act.device, dtype=torch.float32)
+    partials = _gemm_partials(packed, n_rec, act.device)
     gw = torch.zeros(n_w, device=act.device, dtype=torch.float32)
-    n_split = _gemm_launch(packed, act.contiguous(), cot.contiguous(), n_rec, partials)
-    _reduce_add(partials, n_split, n_w, gw, gw)
+    _gemm_launch(packed, act.contiguous(), cot.contiguous(), n_rec, partials)
+    _reduce_add(partials, partials.shape[0], n_w, gw, gw)
     LAUNCHES["weight_grad_gemm"] += 1
     return gw
 
@@ -866,8 +870,7 @@ def _split_backward(packed: PackedNeRF, rcfg: RenderConfig, o, d, z, t, rgb, tb,
     n_blocks = min(torch.cuda.get_device_properties(dev).multi_processor_count, n)
     cot = torch.empty(n_rec, lay.rec_cot, device=dev, dtype=torch.bfloat16)
     rev_part = torch.zeros(n_blocks, dir_n + n_b, device=dev, dtype=torch.float32)
-    gemm_part = torch.zeros(min(n_rec, _gemm_max_split(dev)), n_w, device=dev,
-                            dtype=torch.float32)
+    gemm_part = _gemm_partials(packed, n_rec, dev)
     rgb1 = {s.name: s for s in packed.layers}["rgb1"]
     lib = _kernel_lib()
     ip, fp, _fp_keep = _kernel_args(packed, rcfg)
@@ -880,9 +883,9 @@ def _split_backward(packed: PackedNeRF, rcfg: RenderConfig, o, d, z, t, rgb, tb,
         ctypes.cast(lay_ints, ctypes.c_void_p), rev_part.data_ptr(), None, n_blocks,
         max(packed.hidden, RGB_HIDDEN), n_w, dir_n + n_b, gscale, stream)),
         "split-step reverse walk")
-    n_split = _timed("gradient", lambda: _gemm_launch(packed, act, cot, n_rec, gemm_part))
+    _timed("gradient", lambda: _gemm_launch(packed, act, cot, n_rec, gemm_part))
     _timed("reduction", lambda: (
-        _reduce_add(gemm_part, n_split, n_w, grads, grads),
+        _reduce_add(gemm_part, gemm_part.shape[0], n_w, grads, grads),
         _reduce_add(rev_part, n_blocks, dir_n, grads[rgb1.w_off + packed.hidden * rgb1.n:],
                     grads[n_w:])))
 
