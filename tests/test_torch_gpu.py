@@ -35,7 +35,9 @@ def _packed_model(name):
         mcfg = ckpt.infer_model_config(params)
         return fr.pack_nerf_params(params_from_jax(params, mcfg, "cuda"), mcfg, torch.bfloat16)
     mcfg = {"legacy": NeRFModelConfig(arch="legacy"),
-            "hidden64": NeRFModelConfig(hidden=64, n_pos_freq=6, n_dir_freq=2)}[name]
+            "hidden64": NeRFModelConfig(hidden=64, n_pos_freq=6, n_dir_freq=2),
+            "legacy48": NeRFModelConfig(arch="legacy", hidden=48, n_pos_freq=5,
+                                        n_dir_freq=3)}[name]
     return fr.pack_nerf_params(NeRF(mcfg, device="cuda", seed=1), mcfg, torch.bfloat16)
 
 
@@ -306,6 +308,35 @@ def test_split_backward_on_the_plain_forward_stash(n_rays, n_sample):
         b = ft.from_image(stash["act"], block, width)[rows].float()
         assert (a - b).norm().item() <= 1e-2 * b.norm().item(), block
         assert (a != b).float().mean().item() <= 1e-2, block
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model,white,n_rays,n_sample", [
+    ("legacy", False, 500, 192), ("hidden64", True, 300, 100),
+    ("legacy48", False, 400, 130), ("synth800_nope", False, 300, 128)])
+def test_split_step_other_networks_match_plain_version(model, white, n_rays, n_sample):
+    """The split step (K2 and K4) beyond the 256-wide active arch: the
+    legacy arch, widths under 256 (the render kernel's narrow path, weight
+    tiles that a width of 48 fills in part), no PE.  rgb and weights
+    bit-equal to K1's and K5's, grads under the grads rule of the plain
+    version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    packed = _packed_model(model)
+    o, d, z, target = _train_batch(n_rays, n_sample, seed=n_sample + 2)
+    rcfg = RenderConfig(n_sample=n_sample, white_background=white)
+    rgb, w, gw, gb = ft.fused_mse_loss_weights_grads(packed, o, d, z, target, rcfg)
+    rgb2, gw2, gb2 = ft.fused_mse_loss_grads(packed, o, d, z, target, rcfg)
+    rgb5, w5 = fr.fused_render_rays_weights(packed, o, d, z, rcfg)
+    assert torch.equal(rgb, rgb5) and torch.equal(w, w5) and torch.equal(rgb2, rgb5)
+    assert torch.equal(gw, gw2) and torch.equal(gb, gb2)
+    rr, gwr, gbr = ft.fused_mse_loss_reference(packed, o, d, z, target, rcfg)
+    _, gw64, gb64 = ft.fused_mse_loss_reference(packed, o.double(), d.double(), z.double(),
+                                                target.double(), rcfg)
+    assert (rgb - rr).abs().max().item() <= 1e-2
+    assert bool(torch.isfinite(gw).all()) and bool(torch.isfinite(gb).all())
+    _assert_grads_close(packed, (gw, gb), (gwr, gbr), (gw64, gb64))
 
 
 @pytest.mark.gpu
