@@ -451,19 +451,10 @@ fused_train_kernel(const __nv_bfloat16* __restrict__ W, const float* __restrict_
   }
 }
 
-// grads[i] = sum over blocks, in index order, of partials[b][i]
-__global__ void reduce_partials_kernel(const float* __restrict__ partials, int n_blocks,
-                                       int stride, float* __restrict__ grads) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= stride) return;
-  float sum = 0.0f;
-  for (int b = 0; b < n_blocks; ++b) sum += partials[(size_t)b * stride + i];
-  grads[i] = sum;
-}
-
-// The same sum added to a destination in two runs: element i < n_a to
-// dst_a[i], the rest to dst_b[i - n_a] (the split step adds each ray
-// group's partials to the grads in group order)
+// dst += the sum over blocks, in index order, of partials[b][i]: element
+// i < n_a to dst_a[i], the rest to dst_b[i - n_a] (the split step adds each
+// ray group's partials to the grads in group order; MODE_STEP / BWD add
+// theirs to zeroed grads)
 __global__ void reduce_add_kernel(const float* __restrict__ partials, int n_blocks, int stride,
                                   int n_a, float* dst_a, float* dst_b) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -490,8 +481,10 @@ int launch(const void* w, const float* b, const KParams& P, const TrainArgs& a, 
       static_cast<const __nv_bfloat16*>(w), b, P, a);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if (MODE == MODE_STEP || MODE == MODE_BWD) {
-    reduce_partials_kernel<<<(a.grad_stride + 255) / 256, 256, 0, stream>>>(
-        a.partials, n_blocks, a.grad_stride, grads);
+    if ((err = cudaMemsetAsync(grads, 0, sizeof(float) * a.grad_stride, stream)) != cudaSuccess)
+      return err;
+    reduce_add_kernel<<<(a.grad_stride + 255) / 256, 256, 0, stream>>>(
+        a.partials, n_blocks, a.grad_stride, a.grad_stride, grads, grads);
     err = cudaGetLastError();
   }
   return err;

@@ -42,7 +42,8 @@ forward of ``fused_render_rays_reference`` and a hand-written reverse walk
 with the kernel's rounding points; ``split_forward_reference``,
 ``split_reverse_reference`` and ``grad_gemm_reference`` are the plain
 versions of the split step's three launches on the stash layout
-(``split_step_reference`` chains them).  A wrapper given CPU tensors runs
+(``split_backward_reference`` chains the last two, ``split_step_reference``
+all three).  A wrapper given CPU tensors runs
 the plain version; given CUDA tensors it launches the kernels or raises.
 Each wrapper counts its calls that launch in ``LAUNCHES``, one per call.
 
@@ -88,7 +89,7 @@ _GEMM_MAX_TASKS = 64
 
 LAUNCHES: Dict[str, int] = {
     "fused_mse_loss": 0, "fused_mse_loss_weights": 0, "fused_render_train": 0,
-    "fused_render_train_backward": 0, "weight_grad_gemm": 0}
+    "fused_render_train_backward": 0}
 
 # Per-launch-class times of the split step, recorded only while
 # ``time_launches(True)``: CUDA event pairs by class ('forward', 'reverse',
@@ -192,18 +193,34 @@ def _rounding(packed: PackedNeRF, origins):
 
 
 def _reference_forward(packed: PackedNeRF, origins, directions, z_vals, rcfg: RenderConfig,
-                       chunk: int, keep: bool):
+                       chunk: int, keep: bool, tc_order: bool = False):
     """The plain forward, REF_RAY_CHUNK rays at a time.  Yields (r0, rgb,
     tb, w, saved, extd) per ray chunk: tb the transmittance entering each
     ``chunk``-sample chunk, w the compositing weights, and with ``keep``
     ``saved`` the reverse walk's inputs of each chunk, (ext, hs, feat, rgb_h,
-    rgb, dens, dists, x, Ti, w)."""
+    rgb, dens, dists, x, Ti, w).
+
+    With ``tc_order`` every product is summed in the order of the render
+    kernel's wgmma chain: 16 rows of K at a time into a float32 accumulator
+    that starts at the bias for a ReLU product (at the direction head plus
+    the bias for rgb1) and at zero for the density and rgb heads, whose bias
+    comes last; the direction head is one product at a time from zero."""
     ft, rnd = _rounding(packed, origins)
     body = [s for s in packed.layers if s.kind in ("plain", "skip")]
     Wf = {s.name: packed.w(s).detach().to(ft) for s in packed.layers}
     Bf = {s.name: packed.b(s).detach().to(ft) for s in packed.layers}
     h, S = packed.hidden, z_vals.shape[1]
     dev = origins.device
+
+    def lin(x, W, b, bias_first=True):
+        if not tc_order:
+            return x @ W + b
+        acc = (b.expand(x.shape[0], W.shape[1]).clone() if bias_first
+               else torch.zeros(x.shape[0], W.shape[1], device=dev, dtype=ft))
+        for k0 in range(0, W.shape[0], 16):
+            acc = acc + x[:, k0:k0 + 16] @ W[k0:k0 + 16]
+        return acc if bias_first else acc + b
+
     for r0 in range(0, origins.shape[0], REF_RAY_CHUNK):
         o = origins[r0:r0 + REF_RAY_CHUNK].to(ft)
         d = directions[r0:r0 + REF_RAY_CHUNK].to(ft)
@@ -211,7 +228,12 @@ def _reference_forward(packed: PackedNeRF, origins, directions, z_vals, rcfg: Re
         n = o.shape[0]
         dists = sample_dists(z, rcfg.variant)
         extd = rnd(_ext(d, packed.n_dir_freq, packed.dir_dim))
-        dir_part = extd @ Wf["rgb1"][h:]
+        if tc_order:
+            dir_part = torch.zeros(n, RGB_HIDDEN, device=dev, dtype=ft)
+            for k in range(extd.shape[1]):
+                dir_part = dir_part + extd[:, k:k + 1] * Wf["rgb1"][h + k]
+        else:
+            dir_part = extd @ Wf["rgb1"][h:]
         T = torch.ones(n, 1, device=dev, dtype=ft)
         acc = torch.zeros(n, 3, device=dev, dtype=ft)
         saved, tb, ws = [], [], []
@@ -220,17 +242,23 @@ def _reference_forward(packed: PackedNeRF, origins, directions, z_vals, rcfg: Re
             ch = zc.shape[1]
             pts = (o[:, None, :] + d[:, None, :] * zc[..., None]).reshape(-1, 3)
             ext = rnd(_ext(pts, packed.n_pos_freq, packed.pos_pad))
-            hs = [rnd(torch.relu(ext @ Wf["fc1"] + Bf["fc1"]))]
+            hs = [rnd(torch.relu(lin(ext, Wf["fc1"], Bf["fc1"])))]
             for s in body:
                 inp = torch.cat([hs[-1], ext], -1) if s.kind == "skip" else hs[-1]
-                hs.append(rnd(torch.relu(inp @ Wf[s.name] + Bf[s.name])))
-            df = hs[-1] @ Wf["densfeat"] + Bf["densfeat"]
+                hs.append(rnd(torch.relu(lin(inp, Wf[s.name], Bf[s.name]))))
+            df = lin(hs[-1], Wf["densfeat"], Bf["densfeat"])
             feat = rnd(torch.relu(df[:, :h]))
-            dens = df[:, h]
+            dens = (lin(hs[-1], Wf["densfeat"][:, h:h + 1], Bf["densfeat"][h:h + 1], False)[:, 0]
+                    if tc_order else df[:, h])
             dens = _softplus(dens) if packed.density_act == "softplus" else torch.relu(dens)
-            fp = (feat @ Wf["rgb1"][:h]).reshape(n, ch, RGB_HIDDEN)
-            rgb_h = rnd(torch.relu(fp + dir_part[:, None, :] + Bf["rgb1"])).reshape(n * ch, -1)
-            rgb = torch.sigmoid((rgb_h @ Wf["rgb2"] + Bf["rgb2"])[:, :3]).reshape(n, ch, 3)
+            if tc_order:
+                head = (dir_part[:, None, :] + Bf["rgb1"]).expand(n, ch, RGB_HIDDEN)
+                pre = lin(feat, Wf["rgb1"][:h], head.reshape(n * ch, -1))
+            else:
+                pre = (feat @ Wf["rgb1"][:h]).reshape(n, ch, RGB_HIDDEN) + dir_part[:, None, :] \
+                    + Bf["rgb1"]
+            rgb_h = rnd(torch.relu(pre)).reshape(n * ch, -1)
+            rgb = torch.sigmoid(lin(rgb_h, Wf["rgb2"], Bf["rgb2"], False)[:, :3]).reshape(n, ch, 3)
             xs = dens.reshape(n, ch) * dc
             csum = torch.cumsum(-xs, 1)
             Ti = T * torch.exp(csum + xs)
@@ -311,7 +339,7 @@ def _flat_grads(packed: PackedNeRF, gW, gB, like):
 
 
 def _reference_pass(packed: PackedNeRF, origins, directions, z_vals, rcfg: RenderConfig,
-                    cotangent, chunk: int):
+                    cotangent, chunk: int, tc_order: bool = False):
     """Forward and reverse walk of the plain version over all rays.
 
     ``cotangent(rgb, r0)`` -> g for the rays ``[r0, r0 + len(rgb))``, or
@@ -331,7 +359,8 @@ def _reference_pass(packed: PackedNeRF, origins, directions, z_vals, rcfg: Rende
 
     rgb_parts, tb_parts, w_parts = [], [], []
     for r0, rgb_out, tb, ws, saved, extd in _reference_forward(
-            packed, origins, directions, z_vals, rcfg, chunk, cotangent is not None):
+            packed, origins, directions, z_vals, rcfg, chunk, cotangent is not None,
+            tc_order):
         rgb_parts.append(rgb_out)
         tb_parts.append(tb)
         w_parts.append(ws)
@@ -562,6 +591,21 @@ def grad_gemm_reference(packed: PackedNeRF, act, cot, dtype=torch.float32):
     return gw
 
 
+def split_backward_reference(packed: PackedNeRF, directions, z_vals, rcfg: RenderConfig,
+                             rgb, target, tb, stash, gscale: float):
+    """The plain versions of the reverse walk and the weight GEMM chained on
+    one ray group's forward (rgb, tb, stash): (gw, gb), the group's flat
+    grads in the packed layout, in the float type of ``stash["pt"]``."""
+    ft = stash["pt"].dtype
+    cot, gb, gdir = split_reverse_reference(packed, directions, z_vals, rcfg, rgb, target, tb,
+                                            stash, gscale)
+    gw = grad_gemm_reference(packed, stash["act"], cot, ft)
+    spec = {s.name: s for s in packed.layers}["rgb1"]
+    dir0 = spec.w_off + packed.hidden * spec.n
+    gw[dir0:dir0 + gdir.numel()] = gdir.reshape(-1)
+    return gw, gb
+
+
 def split_step_reference(packed: PackedNeRF, origins, directions, z_vals, target,
                          rcfg: RenderConfig, group: int = None):
     """The three plain versions chained over ray groups of ``group`` rays
@@ -571,9 +615,6 @@ def split_step_reference(packed: PackedNeRF, origins, directions, z_vals, target
     group = group or RAY_GROUP
     n = origins.shape[0]
     ft, _ = _rounding(packed, origins)
-    gscale = 2.0 / (3.0 * n)
-    spec = {s.name: s for s in packed.layers}["rgb1"]
-    dir0 = spec.w_off + packed.hidden * spec.n
     gw = torch.zeros(packed.weights.numel(), device=origins.device, dtype=ft)
     gb = torch.zeros(packed.biases.numel(), device=origins.device, dtype=ft)
     rgb_p, w_p = [], []
@@ -581,10 +622,8 @@ def split_step_reference(packed: PackedNeRF, origins, directions, z_vals, target
         sl = slice(r0, r0 + group)
         rgb, tb, w, stash = split_forward_reference(
             packed, origins[sl], directions[sl], z_vals[sl], rcfg)
-        cot, gb_g, gdir = split_reverse_reference(
-            packed, directions[sl], z_vals[sl], rcfg, rgb, target[sl], tb, stash, gscale)
-        gw_g = grad_gemm_reference(packed, stash["act"], cot, ft)
-        gw_g[dir0:dir0 + gdir.numel()] = gdir.reshape(-1)
+        gw_g, gb_g = split_backward_reference(packed, directions[sl], z_vals[sl], rcfg, rgb,
+                                              target[sl], tb, stash, 2.0 / (3.0 * n))
         gw, gb = gw + gw_g, gb + gb_g
         rgb_p.append(rgb)
         w_p.append(w)
@@ -592,21 +631,26 @@ def split_step_reference(packed: PackedNeRF, origins, directions, z_vals, target
 
 
 def fused_mse_loss_reference(packed: PackedNeRF, origins, directions, z_vals, target,
-                             rcfg: RenderConfig, chunk: int = CHUNK):
+                             rcfg: RenderConfig, chunk: int = CHUNK,
+                             tc_order: bool = False):
     """Plain PyTorch version of the step kernel: (rgb (N, 3), gw, gb) with
     gw / gb the grads of mean((rgb - target)^2) in the packed layout.
 
     It repeats the kernel's arithmetic step by step: the chunked forward of
     ``fused_render_rays_reference`` and a hand-written reverse walk (no
     autograd) with the kernel's rounding points, in float32, or in float64
-    when given float64 rays."""
+    when given float64 rays.  With ``tc_order`` the forward's products are
+    summed in the order of the split step's forward sweep (the render
+    kernel's wgmma chain, _reference_forward): a witness of how far the
+    grads move with the forward's summation order alone."""
     rgb, _, gw, gb = fused_mse_loss_weights_reference(
-        packed, origins, directions, z_vals, target, rcfg, chunk)
+        packed, origins, directions, z_vals, target, rcfg, chunk, tc_order)
     return rgb, gw, gb
 
 
 def fused_mse_loss_weights_reference(packed: PackedNeRF, origins, directions, z_vals, target,
-                                     rcfg: RenderConfig, chunk: int = CHUNK):
+                                     rcfg: RenderConfig, chunk: int = CHUNK,
+                                     tc_order: bool = False):
     """Plain PyTorch version of the step kernel with its weights output:
     (rgb (N, 3), weights (N, S), gw, gb), the weights those the forward
     sweep composited with, at the caller's sample count."""
@@ -614,7 +658,8 @@ def fused_mse_loss_weights_reference(packed: PackedNeRF, origins, directions, z_
     scale = 2.0 / (3.0 * origins.shape[0])
     rgb, _, weights, gw, gb = _reference_pass(
         packed, origins, directions, z_vals, rcfg,
-        lambda rgb, r0: (rgb - target[r0:r0 + rgb.shape[0]].to(rgb.dtype)) * scale, chunk)
+        lambda rgb, r0: (rgb - target[r0:r0 + rgb.shape[0]].to(rgb.dtype)) * scale, chunk,
+        tc_order)
     return rgb, weights, gw, gb
 
 
@@ -818,25 +863,14 @@ def _reduce_add(partials, n_rows: int, n_a: int, dst_a, dst_b) -> None:
     _raise(lib, err, "partials reduction")
 
 
-def weight_grad_gemm(packed: PackedNeRF, act, cot) -> torch.Tensor:
-    """The weight GEMM alone: flat float32 weight grads (packed layout, rgb1's
-    direction rows zero) of the records ``act`` (n_rec, rec_act) and ``cot``
-    (n_rec, rec_cot).  CUDA tensors launch grad_gemm.cu and the fixed-order
-    reduction, CPU tensors run grad_gemm_reference."""
-    if _device_kind(act) == "cpu":
-        return grad_gemm_reference(packed, act, cot)
-    lay = stash_layout(packed)
-    n_rec = act.shape[0]
-    if act.shape != (n_rec, lay.rec_act) or cot.shape != (n_rec, lay.rec_cot) or \
-            act.dtype != torch.bfloat16 or cot.dtype != torch.bfloat16:
-        raise ValueError("weight GEMM: bf16 records of the stash layout expected")
-    n_w = packed.weights.numel()
-    partials = _gemm_partials(packed, n_rec, act.device)
-    gw = torch.zeros(n_w, device=act.device, dtype=torch.float32)
-    _gemm_launch(packed, act.contiguous(), cot.contiguous(), n_rec, partials)
-    _reduce_add(partials, partials.shape[0], n_w, gw, gw)
-    LAUNCHES["weight_grad_gemm"] += 1
-    return gw
+def _weight_grad(packed: PackedNeRF, act, cot, n_rec: int, gw) -> None:
+    """The weight GEMM (grad_gemm.cu) over ``n_rec`` records of the stashes
+    ``act`` and ``cot`` and the fixed-order reduction that adds its partials
+    to ``gw`` (float32, the packed weights' layout first; rgb1's direction
+    rows get nothing)."""
+    part = _gemm_partials(packed, n_rec, act.device)
+    _timed("gradient", lambda: _gemm_launch(packed, act, cot, n_rec, part))
+    _timed("reduction", lambda: _reduce_add(part, part.shape[0], part.shape[1], gw, gw))
 
 
 def _split_forward(packed: PackedNeRF, rcfg: RenderConfig, o, d, z, rgb, w, tb, act, pt) -> None:
@@ -870,7 +904,6 @@ def _split_backward(packed: PackedNeRF, rcfg: RenderConfig, o, d, z, t, rgb, tb,
     n_blocks = min(torch.cuda.get_device_properties(dev).multi_processor_count, n)
     cot = torch.empty(n_rec, lay.rec_cot, device=dev, dtype=torch.bfloat16)
     rev_part = torch.zeros(n_blocks, dir_n + n_b, device=dev, dtype=torch.float32)
-    gemm_part = _gemm_partials(packed, n_rec, dev)
     rgb1 = {s.name: s for s in packed.layers}["rgb1"]
     lib = _kernel_lib()
     ip, fp, _fp_keep = _kernel_args(packed, rcfg)
@@ -883,11 +916,9 @@ def _split_backward(packed: PackedNeRF, rcfg: RenderConfig, o, d, z, t, rgb, tb,
         ctypes.cast(lay_ints, ctypes.c_void_p), rev_part.data_ptr(), None, n_blocks,
         max(packed.hidden, RGB_HIDDEN), n_w, dir_n + n_b, gscale, stream)),
         "split-step reverse walk")
-    _timed("gradient", lambda: _gemm_launch(packed, act, cot, n_rec, gemm_part))
-    _timed("reduction", lambda: (
-        _reduce_add(gemm_part, gemm_part.shape[0], n_w, grads, grads),
-        _reduce_add(rev_part, n_blocks, dir_n, grads[rgb1.w_off + packed.hidden * rgb1.n:],
-                    grads[n_w:])))
+    _weight_grad(packed, act, cot, n_rec, grads)
+    _timed("reduction", lambda: _reduce_add(
+        rev_part, n_blocks, dir_n, grads[rgb1.w_off + packed.hidden * rgb1.n:], grads[n_w:]))
 
 
 def _split_step(packed: PackedNeRF, origins, directions, z_vals, target, rcfg: RenderConfig,

@@ -65,6 +65,28 @@ def _rel(a, b):
     return (a - b).norm().item() / max(b.norm().item(), 1e-30)
 
 
+@pytest.mark.parametrize("arch,white,n_rays,n_sample", [
+    ("active", False, 4, 150), ("legacy", True, 3, 100), ("active64", False, 3, 64)])
+def test_tc_order_plain_version_is_the_same_function(arch, white, n_rays, n_sample):
+    """The plain version with tc_order (products summed as the render
+    kernel's wgmma chain sums them: from the bias, 16 rows of K at a time;
+    the density and rgb heads' bias last; the direction head one row at a
+    time) computes the plain version's function: in float64, where the two
+    orders round alike, rgb and weights to 1e-12 and every grad to 1e-10
+    of its norm."""
+    _, _, packed, _, (o, d, z, t) = _setup(arch, n_rays, n_sample, seed=7,
+                                           dtype=torch.float64)
+    rcfg = RenderConfig(n_sample=n_sample, white_background=white)
+    rgb, w, gw, gb = tft.fused_mse_loss_weights_reference(packed, o, d, z, t, rcfg)
+    rgb_t, w_t, gw_t, gb_t = tft.fused_mse_loss_weights_reference(packed, o, d, z, t, rcfg,
+                                                                  tc_order=True)
+    assert (rgb_t - rgb).abs().max().item() <= 1e-12
+    assert (w_t - w).abs().max().item() <= 1e-12
+    got, want = tft.unpack_grads(packed, gw_t, gb_t), tft.unpack_grads(packed, gw, gb)
+    for k in want:
+        assert _rel(got[k], want[k]) <= 1e-10, k
+
+
 @pytest.mark.parametrize("arch,white,n_rays,n_sample,dtype,tol", [
     ("active", False, 5, 200, torch.float32, 1e-5),
     ("active", True, 3, 64, torch.float32, 1e-5),
@@ -219,7 +241,7 @@ def test_weight_gemm_plain_version_is_each_layers_product():
     n_rec = 3
     act = torch.randn(n_rec, lay.rec_act, generator=gen).bfloat16()
     cot = torch.randn(n_rec, lay.rec_cot, generator=gen).bfloat16()
-    gw = tft.weight_grad_gemm(packed, act, cot)
+    gw = tft.grad_gemm_reference(packed, act, cot)
     h = packed.hidden
     enc = tft.from_image(act, 0, packed.pos_pad).float()
     for li, s in enumerate(packed.layers):
