@@ -4,7 +4,10 @@
 // Replaces the Pallas TPU kernel of sfm_nerf_tpu/kernels/fused_render.py
 // (`_make_kernel`, reached by `fused_render_rays` for rgb and by
 // `fused_render_rays_weights` with emit_weights=True).  The template flag
-// EMIT_WEIGHTS selects the second entry point.
+// EMIT_WEIGHTS selects the second entry point.  Compiled with TB it is also
+// the forward of `fused_render_train` (sfm_nerf_tpu/kernels/fused_train.py
+// `_make_fwd_kernel`): rgb and tb, the transmittance entering each
+// 128-sample chunk, the residual its backward starts from.
 //
 // Bound on this card: operations.  Per point the active arch does 655,488
 // MACs (fc1 16,128; 4 hidden 262,144; skip 81,664; 3 hidden 196,608;
@@ -35,14 +38,14 @@
 //   same tiles), so an encoding done by the consumers themselves left the
 //   tensor cores idle for a fifth of the time.
 //
-// STASH (the forward sweep of the split training step, kernels/fused_train.py)
-// changes no arithmetic: it walks the ray in whole 128-sample chunks (a pad
-// half has zero distances and adds exactly nothing, so rgb and the weights
-// stay bit-equal to the render's) and also writes what the reverse walk and
-// the weight-gradient GEMM read: per 64-row chunk the stash record of
-// mlp_chunk (bulk copies of the encoding and of every layer input, see
-// sm90_mlp.cuh), per point (density, r, g, b) f32, and per ray the
-// transmittance entering each 128-sample chunk (tb).
+// TB and STASH change no arithmetic.  TB walks the ray in whole 128-sample
+// chunks (a pad half has zero distances and adds exactly nothing, so rgb and
+// the weights stay bit-equal to the render's) and writes per ray the
+// transmittance entering each 128-sample chunk (tb).  STASH (the forward
+// sweep of the split training step, kernels/fused_train.py; implies TB) also
+// writes what the reverse walk and the weight-gradient GEMM read: per 64-row
+// chunk the stash record of mlp_chunk (bulk copies of the encoding and of
+// every layer input, see sm90_mlp.cuh) and per point (density, r, g, b) f32.
 //
 // The numerics of the TPU kernel are kept: exact f32 encoding phase and
 // accurate sinf (encode() of nerf_device.cuh), bf16 rounding of the
@@ -168,15 +171,15 @@ __device__ __forceinline__ void composite_chunk(const KParams& P, const sm90::Wg
   T = T * expf(total);
 }
 
-// where STASH writes: act (rays, 2 ceil(S / 128), rec) bf16 records, pt
-// (rays, 2 ceil(S / 128), 64) float4, tb (rays, ceil(S / 128))
+// where TB writes tb (rays, ceil(S / 128)); STASH also act (rays,
+// 2 ceil(S / 128), rec) bf16 records and pt (rays, 2 ceil(S / 128), 64) float4
 struct StashOut {
   __nv_bfloat16* act;
   float4* pt;
   float* tb;
 };
 
-template <bool EMIT_WEIGHTS, bool WIDE, bool STASH>
+template <bool EMIT_WEIGHTS, bool WIDE, bool TB, bool STASH>
 __global__ void __launch_bounds__(sm90::THREADS, 1)
 fused_render_kernel(const float* __restrict__ origins, const float* __restrict__ dirs,
                     const float* __restrict__ z, int n_rays, int n_sample,
@@ -184,6 +187,7 @@ fused_render_kernel(const float* __restrict__ origins, const float* __restrict__
                     const __grid_constant__ KParams P, const __grid_constant__ sm90::Plan plan,
                     float* __restrict__ rgb_out, float* __restrict__ w_out,
                     const __grid_constant__ StashOut st) {
+  static_assert(TB || !STASH, "the stash's reverse walk reads tb");
   extern __shared__ __align__(128) char smem_raw[];
   char* base = smem_raw + ((1024 - (sm90::smem_addr(smem_raw) & 1023)) & 1023);
   sm90::Ring ring;
@@ -209,8 +213,8 @@ fused_render_kernel(const float* __restrict__ origins, const float* __restrict__
   __syncthreads();
 
   const int S = n_sample;
-  // samples walked: STASH rounds up to whole 128-sample chunks
-  const int S_run = STASH ? (S + 127) / 128 * 128 : S;
+  // samples walked: TB rounds up to whole 128-sample chunks
+  const int S_run = TB ? (S + 127) / 128 * 128 : S;
   const int n_chunks = (S_run + sm90::ROWS - 1) / sm90::ROWS;
   const size_t rec = (size_t)(plan.enc_kb + (P.n_layers - 1) * plan.act_kb) * (sm90::KB_BYTES / 2);
   const int step = sm90::CONSUMERS * gridDim.x;
@@ -281,9 +285,10 @@ fused_render_kernel(const float* __restrict__ origins, const float* __restrict__
       float T = 1.0f, acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
       for (int c0 = 0; c0 < S_run; c0 += sm90::ROWS) {
         chunk_dists(P, w, z_ray, S, c0);
+        if (TB && c0 % 128 == 0 && w.tid == 0)
+          st.tb[(size_t)ray * (n_chunks / 2) + c0 / 128] = T;
         if constexpr (STASH) {
           const size_t ch = (size_t)ray * n_chunks + c0 / sm90::ROWS;
-          if (c0 % 128 == 0 && w.tid == 0) st.tb[(size_t)ray * (n_chunks / 2) + c0 / 128] = T;
           sm90::mlp_chunk<WIDE, true>(plan, B, P.density_softplus, w, ring, q, k++,
                                       st.act + ch * rec);
           if (w.tid < sm90::ROWS)
@@ -305,11 +310,11 @@ fused_render_kernel(const float* __restrict__ origins, const float* __restrict__
   }
 }
 
-template <bool EMIT, bool WIDE, bool STASH>
+template <bool EMIT, bool WIDE, bool TB, bool STASH>
 int launch(const float* o, const float* d, const float* z, int n_rays, int n_sample,
            const void* img, const float* b, const KParams& P, const sm90::Plan& plan, float* rgb,
            float* wts, const StashOut& st, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(fused_render_kernel<EMIT, WIDE, STASH>,
+  cudaError_t err = cudaFuncSetAttribute(fused_render_kernel<EMIT, WIDE, TB, STASH>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, plan.total);
   if (err != cudaSuccess) return err;
   int dev = 0, sms = 0;
@@ -318,14 +323,18 @@ int launch(const float* o, const float* d, const float* z, int n_rays, int n_sam
     return err;
   const int pairs = (n_rays + sm90::CONSUMERS - 1) / sm90::CONSUMERS;
   const int grid = pairs < sms ? pairs : sms;
-  fused_render_kernel<EMIT, WIDE, STASH><<<grid, sm90::THREADS, plan.total, stream>>>(
+  fused_render_kernel<EMIT, WIDE, TB, STASH><<<grid, sm90::THREADS, plan.total, stream>>>(
       o, d, z, n_rays, n_sample, static_cast<const __nv_bfloat16*>(img), b, P, plan, rgb, wts, st);
   return cudaGetLastError();
 }
 
+// out: what the kernel writes beside rgb (and the weights)
+enum Out { OUT_NONE = 0, OUT_TB = 1, OUT_STASH = 2 };
+
 int run(const float* origins, const float* dirs, const float* z, int n_rays, int n_sample,
         const void* weights, const float* biases, const int* iparams, const float* fparams,
-        float* rgb_out, float* w_out, int emit_weights, const StashOut* st, void* stream) {
+        float* rgb_out, float* w_out, int emit_weights, Out out, const StashOut& st,
+        void* stream) {
   KParams P;
   cudaError_t err = nerf::parse_params(iparams, fparams, &P);
   if (err != cudaSuccess) return err;
@@ -336,16 +345,17 @@ int run(const float* origins, const float* dirs, const float* z, int n_rays, int
   for (int i = 0; i < plan.n_passes; ++i)
     if (plan.passes[i].kind == sm90::P_RELU && plan.passes[i].n != 256) wide = false;
   if (n_rays <= 0) return cudaSuccess;
-  const StashOut none{};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (st) {
-    auto go = emit_weights ? (wide ? launch<true, true, true> : launch<true, false, true>)
-                           : (wide ? launch<false, true, true> : launch<false, false, true>);
-    return go(origins, dirs, z, n_rays, n_sample, weights, biases, P, plan, rgb_out, w_out, *st, s);
-  }
-  auto go = emit_weights ? (wide ? launch<true, true, false> : launch<true, false, false>)
-                         : (wide ? launch<false, true, false> : launch<false, false, false>);
-  return go(origins, dirs, z, n_rays, n_sample, weights, biases, P, plan, rgb_out, w_out, none, s);
+  decltype(&launch<false, false, false, false>) go;
+  if (out == OUT_STASH)
+    go = emit_weights ? (wide ? launch<true, true, true, true> : launch<true, false, true, true>)
+                      : (wide ? launch<false, true, true, true> : launch<false, false, true, true>);
+  else if (out == OUT_TB)   // the forward of fused_render_train: no weights
+    go = wide ? launch<false, true, true, false> : launch<false, false, true, false>;
+  else
+    go = emit_weights ? (wide ? launch<true, true, false, false> : launch<true, false, false, false>)
+                      : (wide ? launch<false, true, false, false> : launch<false, false, false, false>);
+  return go(origins, dirs, z, n_rays, n_sample, weights, biases, P, plan, rgb_out, w_out, st, s);
 }
 
 }  // namespace
@@ -361,7 +371,18 @@ int sfm_fused_render(const float* origins, const float* dirs, const float* z,
                      const float* biases, const int* iparams, const float* fparams,
                      float* rgb_out, float* w_out, int emit_weights, void* stream) {
   return run(origins, dirs, z, n_rays, n_sample, weights, biases, iparams, fparams, rgb_out,
-             w_out, emit_weights, nullptr, stream);
+             w_out, emit_weights, OUT_NONE, StashOut{}, stream);
+}
+
+// The forward of fused_render_train: sfm_fused_render (rgb only) plus tb
+// (n_rays, ceil(n_sample / 128)) f32, the transmittance entering each
+// 128-sample chunk.
+int sfm_fused_render_tb(const float* origins, const float* dirs, const float* z, int n_rays,
+                        int n_sample, const void* weights, const float* biases,
+                        const int* iparams, const float* fparams, float* rgb_out, float* tb,
+                        void* stream) {
+  return run(origins, dirs, z, n_rays, n_sample, weights, biases, iparams, fparams, rgb_out,
+             nullptr, 0, OUT_TB, StashOut{nullptr, nullptr, tb}, stream);
 }
 
 // The forward sweep of the split training step: sfm_fused_render plus the
@@ -373,7 +394,7 @@ int sfm_fused_render_stash(const float* origins, const float* dirs, const float*
                            void* stash_pt, float* tb, void* stream) {
   const StashOut st{static_cast<__nv_bfloat16*>(stash_act), static_cast<float4*>(stash_pt), tb};
   return run(origins, dirs, z, n_rays, n_sample, weights, biases, iparams, fparams, rgb_out,
-             w_out, emit_weights, &st, stream);
+             w_out, emit_weights, OUT_STASH, st, stream);
 }
 
 // The plan's shared-memory layout: out[0] bytes of dynamic shared memory a

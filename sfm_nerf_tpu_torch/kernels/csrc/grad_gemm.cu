@@ -2,14 +2,15 @@
 // for every packed layer l, dW_l[k, n] = sum over the points p of a ray
 // group of A_l[p, k] * D_l[p, n], with A_l the layer's input activation
 // (the forward sweep's stash, fused_render.cu STASH) and D_l the cotangent
-// of its output (the reverse walk's stash, fused_train.cu MODE_REV), both
+// of its output (the reverse walk's stash, fused_train.cu), both
 // bf16 in 64-point records of swizzled 64 x 64 blocks.
 //
 // Replaces, with the two launches before it, the weight-gradient half of
-// the Pallas TPU kernel of sfm_nerf_tpu/kernels/fused_train.py
+// the Pallas TPU kernels of sfm_nerf_tpu/kernels/fused_train.py
 // (`_make_step_kernel`, reached by `fused_mse_loss` and
-// `fused_mse_loss_weights`), which sums act^T d_h over its ray tiles in
-// VMEM scratch across the sequential grid.
+// `fused_mse_loss_weights`, and `_make_bwd_kernel`, the backward of
+// `fused_render_train`), which sum act^T d_h over their ray tiles in VMEM
+// scratch across the sequential grid.
 //
 // Bound on this card: bytes.  At 8,192 rays x 256 samples the products are
 // one forward's worth, 2.75 TFLOP (2.8 ms at 989 TFLOP/s dense bf16), while

@@ -7,6 +7,10 @@ one CUDA source (csrc/fused_render.cu, template flag EMIT_WEIGHTS):
 - ``fused_render_rays_weights``: rgb and the per-sample compositing
   weights (N, S).
 
+kernels/fused_train.py launches the same source compiled with TB (the
+forward of ``fused_render_train``) and with STASH (the split step's forward
+sweep).
+
 Beside them, ``fused_render_rays_reference`` is the plain PyTorch version
 of the kernel's function.  A wrapper given CPU tensors runs it; given CUDA
 tensors it launches the kernel or raises.  Each wrapper counts its kernel
@@ -469,6 +473,9 @@ def _kernel_lib() -> ctypes.CDLL:
     lib.sfm_fused_render_stash.argtypes = (
         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6
         + [ctypes.c_int] + [ctypes.c_void_p] * 4)
+    lib.sfm_fused_render_tb.restype = ctypes.c_int
+    lib.sfm_fused_render_tb.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 7)
     lib.sfm_fused_render_layout.restype = ctypes.c_int
     lib.sfm_fused_render_layout.argtypes = [ctypes.c_void_p] * 3
     lib.sfm_cuda_error_string.restype = ctypes.c_char_p

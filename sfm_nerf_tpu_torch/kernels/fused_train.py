@@ -11,22 +11,24 @@ as in the JAX package:
   the coarse pass of hierarchical training, whose weights feed
   ``sample_pdf``.
 - ``fused_render_train``: rgb (N, 3), differentiable for any loss on it.
-  Forward launches the forward kernel (rgb and the transmittance entering
-  each 128-sample chunk); backward launches the backward kernel, which
-  recomputes each chunk and applies the caller's cotangent.
+  Forward launches the render kernel compiled with TB
+  (csrc/fused_render.cu, K1's arithmetic: its rgb is K1's) once over all
+  rays: rgb and tb, the transmittance entering each 128-sample chunk.
+  Backward runs the split step under the caller's cotangent g, its forward
+  sweep recomputing what JAX's backward kernel recomputes from tb.
 
-The first two run the split step (``_split_step``): per group of RAY_GROUP
-rays, in ray order, (1) the render kernel compiled with STASH
-(csrc/fused_render.cu, K1's arithmetic: its rgb and weights are K1's and
-K5's), which also writes every layer input, the per-point density and
-colours and tb to a stash (``stash_layout``); (2) the reverse walk
-(csrc/fused_train.cu MODE_REV), which writes every layer's output cotangent
-to a second stash and keeps the bias and direction-row grads in per-block
-partials; (3) the weight gradient, sum over points of A^T D per layer, a
-wgmma GEMM over both stashes (csrc/grad_gemm.cu); then two fixed-order
-reductions add the group's partials to the grads.  ``keep_activations=False``
-selects instead the single-launch step kernel that recomputes each chunk
-(MODE_STEP, K3's backward with the MSE cotangent).
+All three run the split step (``_split_step``): per group of RAY_GROUP
+rays, in ray order, (1) the render kernel compiled with STASH (K1's
+arithmetic: its rgb and weights are K1's and K5's), which also writes every
+layer input, the per-point density and colours and tb to a stash
+(``stash_layout``); (2) the reverse walk (csrc/fused_train.cu), which
+makes the cotangent (the MSE's from rgb and the target, or takes the
+caller's g), writes every layer's output cotangent to a second stash and
+keeps the bias and direction-row grads in per-block partials; (3) the
+weight gradient, sum over points of A^T D per layer, a wgmma GEMM over both
+stashes (csrc/grad_gemm.cu); then two fixed-order reductions add the
+group's partials to the grads.  Under g = (rgb - target) * 2 / (3 N) the
+backward of ``fused_render_train`` is the MSE step's launches, bit for bit.
 
 All are ``torch.autograd.Function``s over the parameters of the module the
 weights were packed from (``PackedNeRF.model``): the packed grads go back to
@@ -43,7 +45,7 @@ with the kernel's rounding points; ``split_forward_reference``,
 ``split_reverse_reference`` and ``grad_gemm_reference`` are the plain
 versions of the split step's three launches on the stash layout
 (``split_backward_reference`` chains the last two, ``split_step_reference``
-all three).  A wrapper given CPU tensors runs
+all three), each under the MSE's cotangent or a given g.  A wrapper given CPU tensors runs
 the plain version; given CUDA tensors it launches the kernels or raises.
 Each wrapper counts its calls that launch in ``LAUNCHES``, one per call.
 
@@ -76,7 +78,6 @@ from sfm_nerf_tpu_torch.kernels.fused_render import (
 )
 from sfm_nerf_tpu_torch.ops.render import sample_dists
 
-MODE_STEP, MODE_FWD, MODE_BWD, MODE_REV = 0, 1, 2, 3
 IMG_ROWS = 64                   # points per stash record: the render kernel's warpgroup tile
 IMG_BLOCK = IMG_ROWS * TILE_K   # bf16 elements of one 64-row x 64-column stash block
 # Rays per round of the split step (forward sweep, reverse walk, weight
@@ -417,7 +418,7 @@ class StashLayout:
         return self.enc_kb + j * self.act_kb
 
     def ints(self) -> List[int]:
-        """The reverse walk's view (fused_train.cu MODE_REV)."""
+        """The reverse walk's view (fused_train.cu)."""
         return [self.rec_act, self.enc_kb, self.act_kb, self.rec_cot, *self.cot_off]
 
 
@@ -506,10 +507,11 @@ def split_forward_reference(packed: PackedNeRF, origins, directions, z_vals,
 
 
 def split_reverse_reference(packed: PackedNeRF, directions, z_vals, rcfg: RenderConfig,
-                            rgb, target, tb, stash, gscale: float):
-    """Plain version of the split step's reverse walk (fused_train.cu
-    MODE_REV) on one ray group: from the forward's rgb, tb and stash and the
-    cotangent g = (rgb - target) * gscale, (cot (n_rec, rec_cot) with every
+                            rgb, target, tb, stash, gscale: float,
+                            g: Optional[torch.Tensor] = None):
+    """Plain version of the split step's reverse walk (fused_train.cu) on
+    one ray group: from the forward's tb and stash and the cotangent, ``g``
+    (n, 3) or else (rgb - target) * gscale, (cot (n_rec, rec_cot) with every
     layer's output cotangent, gb (bias grads, packed layout), gdir (rgb1's
     direction-row grads, (dir_dim, 128)))."""
     _check(rcfg)
@@ -533,8 +535,9 @@ def split_reverse_reference(packed: PackedNeRF, directions, z_vals, rcfg: Render
     nc = -(-S // CHUNK)
     for r0 in range(0, n, REF_RAY_CHUNK):
         m = min(REF_RAY_CHUNK, n - r0)
-        g = (rgb[r0:r0 + m].to(ft) - target[r0:r0 + m].to(ft)) * gscale
-        gsum = g.sum(1, keepdim=True) if rcfg.white_background else 0.0
+        gr = (g[r0:r0 + m].to(ft) if g is not None
+              else (rgb[r0:r0 + m].to(ft) - target[r0:r0 + m].to(ft)) * gscale)
+        gsum = gr.sum(1, keepdim=True) if rcfg.white_background else 0.0
         carry = torch.zeros(m, 1, device=dev, dtype=ft)
         ddir = torch.zeros(m, RGB_HIDDEN, device=dev, dtype=ft)
         for c in range(nc - 1, -1, -1):
@@ -553,7 +556,7 @@ def split_reverse_reference(packed: PackedNeRF, directions, z_vals, rcfg: Render
             def keep_d(name, parts, D, rows=rows):
                 dense_cot[name][rows] = D
 
-            carry, ddir = _walk_back(packed, item, g, gsum, carry, ddir, gB, keep_d)
+            carry, ddir = _walk_back(packed, item, gr, gsum, carry, ddir, gB, keep_d)
         extd = _rounding(packed, z_vals.to(ft))[1](
             _ext(directions[r0:r0 + m].to(ft), packed.n_dir_freq, packed.dir_dim))
         gdir += extd.t() @ ddir
@@ -592,13 +595,15 @@ def grad_gemm_reference(packed: PackedNeRF, act, cot, dtype=torch.float32):
 
 
 def split_backward_reference(packed: PackedNeRF, directions, z_vals, rcfg: RenderConfig,
-                             rgb, target, tb, stash, gscale: float):
+                             rgb, target, tb, stash, gscale: float,
+                             g: Optional[torch.Tensor] = None):
     """The plain versions of the reverse walk and the weight GEMM chained on
-    one ray group's forward (rgb, tb, stash): (gw, gb), the group's flat
-    grads in the packed layout, in the float type of ``stash["pt"]``."""
+    one ray group's forward (rgb, tb, stash) under the cotangent of
+    split_reverse_reference: (gw, gb), the group's flat grads in the packed
+    layout, in the float type of ``stash["pt"]``."""
     ft = stash["pt"].dtype
     cot, gb, gdir = split_reverse_reference(packed, directions, z_vals, rcfg, rgb, target, tb,
-                                            stash, gscale)
+                                            stash, gscale, g)
     gw = grad_gemm_reference(packed, stash["act"], cot, ft)
     spec = {s.name: s for s in packed.layers}["rgb1"]
     dir0 = spec.w_off + packed.hidden * spec.n
@@ -607,10 +612,14 @@ def split_backward_reference(packed: PackedNeRF, directions, z_vals, rcfg: Rende
 
 
 def split_step_reference(packed: PackedNeRF, origins, directions, z_vals, target,
-                         rcfg: RenderConfig, group: int = None):
+                         rcfg: RenderConfig, group: int = None,
+                         g: Optional[torch.Tensor] = None):
     """The three plain versions chained over ray groups of ``group`` rays
     (RAY_GROUP by default), grads summed over the groups in order: (rgb (N,
-    3), weights (N, S), gw, gb), the function of fused_mse_loss_weights_grads."""
+    3), weights (N, S), gw, gb).  Under the MSE's cotangent (``target``)
+    the function of fused_mse_loss_weights_grads; given the cotangent ``g``
+    (N, 3) (``target`` unused), rgb and weights and the grads of
+    fused_render_train_backward."""
     _check(rcfg)
     group = group or RAY_GROUP
     n = origins.shape[0]
@@ -622,8 +631,10 @@ def split_step_reference(packed: PackedNeRF, origins, directions, z_vals, target
         sl = slice(r0, r0 + group)
         rgb, tb, w, stash = split_forward_reference(
             packed, origins[sl], directions[sl], z_vals[sl], rcfg)
-        gw_g, gb_g = split_backward_reference(packed, directions[sl], z_vals[sl], rcfg, rgb,
-                                              target[sl], tb, stash, 2.0 / (3.0 * n))
+        gw_g, gb_g = split_backward_reference(
+            packed, directions[sl], z_vals[sl], rcfg, rgb,
+            target[sl] if g is None else None, tb, stash, 2.0 / (3.0 * n),
+            g[sl] if g is not None else None)
         gw, gb = gw + gw_g, gb + gb_g
         rgb_p.append(rgb)
         w_p.append(w)
@@ -665,17 +676,19 @@ def fused_mse_loss_weights_reference(packed: PackedNeRF, origins, directions, z_
 
 def fused_render_train_reference(packed: PackedNeRF, origins, directions, z_vals,
                                  rcfg: RenderConfig, g: Optional[torch.Tensor] = None,
-                                 chunk: int = CHUNK):
+                                 chunk: int = CHUNK, tc_order: bool = False):
     """Plain PyTorch version of the two-kernel route.  Without ``g``: the
     forward kernel's (rgb (N, 3), tb (N, n_chunks)).  With the cotangent
-    ``g`` (N, 3): the backward kernel's (gw, gb) in the packed layout."""
+    ``g`` (N, 3): the backward kernel's (gw, gb) in the packed layout.
+    ``tc_order`` as for fused_mse_loss_reference."""
     _check(rcfg)
     if g is None:
-        rgb, tb, _, _, _ = _reference_pass(packed, origins, directions, z_vals, rcfg, None, chunk)
+        rgb, tb, _, _, _ = _reference_pass(packed, origins, directions, z_vals, rcfg, None, chunk,
+                                           tc_order)
         return rgb, tb
     _, _, _, gw, gb = _reference_pass(
         packed, origins, directions, z_vals, rcfg,
-        lambda rgb, r0: g[r0:r0 + rgb.shape[0]], chunk)
+        lambda rgb, r0: g[r0:r0 + rgb.shape[0]], chunk, tc_order)
     return gw, gb
 
 
@@ -689,10 +702,10 @@ def _kernel_lib() -> ctypes.CDLL:
     from sfm_nerf_tpu_torch.kernels import _build
 
     lib = _build.load("fused_train")
-    lib.sfm_fused_train.restype = ctypes.c_int
-    lib.sfm_fused_train.argtypes = (
-        [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
-        + [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p])
+    lib.sfm_reverse_walk.restype = ctypes.c_int
+    lib.sfm_reverse_walk.argtypes = (
+        [ctypes.c_void_p] * 5 + [ctypes.c_float] + [ctypes.c_int] * 2
+        + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
     lib.sfm_reduce_add.restype = ctypes.c_int
     lib.sfm_reduce_add.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int]
                                    + [ctypes.c_void_p] * 3)
@@ -748,53 +761,6 @@ def _check_inputs(packed: PackedNeRF, origins, directions, z_vals, **extra) -> N
     if sum(s.k_rows * s.n for s in packed.layers) != packed.weights.numel():
         raise ValueError("fused train kernel: the packed weights hold pad elements "
                          "between layers, which the grad reduction would read")
-
-
-def _launch(mode: int, packed: PackedNeRF, origins, directions, z_vals, rcfg: RenderConfig,
-            target=None, g=None, tb=None):
-    """Check the inputs, allocate outputs and scratch, launch one mode of
-    the single-launch kernels (the recomputing step, K3's forward or
-    backward).  Returns (rgb, tb, grads): grads is the flat float32 (weights
-    then biases) gradient in the packed layout, None for the forward mode;
-    rgb is None for the backward mode."""
-    _check_inputs(packed, origins, directions, z_vals, target=target, g=g)
-    dev = origins.device
-    n, S = z_vals.shape
-    w_total, b_total = packed.weights.numel(), packed.biases.numel()
-    f32 = dict(device=dev, dtype=torch.float32)
-    o = origins.float().contiguous()
-    d = directions.float().contiguous()
-    z = z_vals.float().contiguous()
-    n_chunks = -(-S // CHUNK)
-    n_blocks = min(torch.cuda.get_device_properties(dev).multi_processor_count, n)
-    stash_w = max(packed.hidden, RGB_HIDDEN)
-    rgb = torch.empty(n, 3, **f32) if mode != MODE_BWD else None
-    if mode == MODE_BWD:
-        if tb is None or tb.shape != (n, n_chunks):
-            raise ValueError("fused train backward: tb must be the forward's (N, n_chunks)")
-        tb = tb.float().contiguous()
-    else:
-        tb = torch.empty(n, n_chunks, **f32)
-    stash_act = partials = grads = None
-    if mode != MODE_FWD:
-        stash_act = torch.empty(n_blocks, len(packed.layers) - 1, CHUNK, stash_w,
-                                device=dev, dtype=torch.bfloat16)
-        partials = torch.zeros(n_blocks, w_total + b_total, **f32)
-        grads = torch.empty(w_total + b_total, **f32)
-    t = target.float().contiguous() if target is not None else None
-    gc = g.float().contiguous() if g is not None else None
-    lib = _kernel_lib()
-    ip, fp_ptr, _fp_keep = _kernel_args(packed, rcfg)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.sfm_fused_train(
-            mode, o.data_ptr(), d.data_ptr(), z.data_ptr(), _ptr(t), _ptr(gc), n, S,
-            packed.weights.data_ptr(), packed.biases.data_ptr(),
-            ctypes.cast(ip, ctypes.c_void_p), fp_ptr,
-            _ptr(rgb), tb.data_ptr(), _ptr(stash_act), None, None, None, _ptr(partials),
-            _ptr(grads), n_blocks, stash_w, w_total, w_total + b_total, 2.0 / (3.0 * n), stream)
-    _raise(lib, err, "fused train kernel")
-    return rgb, tb, grads
 
 
 def gemm_tasks(packed: PackedNeRF) -> List[List[int]]:
@@ -873,6 +839,13 @@ def _weight_grad(packed: PackedNeRF, act, cot, n_rec: int, gw) -> None:
     _timed("reduction", lambda: _reduce_add(part, part.shape[0], part.shape[1], gw, gw))
 
 
+def _scratch(shape, dtype, device) -> torch.Tensor:
+    """Uninitialised device memory for what a launch writes before another
+    reads it (the stashes; tb and rgb where the caller does not keep
+    them)."""
+    return torch.empty(shape, device=device, dtype=dtype)
+
+
 def _split_forward(packed: PackedNeRF, rcfg: RenderConfig, o, d, z, rgb, w, tb, act, pt) -> None:
     """The forward sweep of one ray group (fused_render.cu STASH, K1's
     arithmetic): writes rgb, the weights ``w`` (or none), tb and the stash
@@ -890,11 +863,12 @@ def _split_forward(packed: PackedNeRF, rcfg: RenderConfig, o, d, z, rgb, w, tb, 
 
 
 def _split_backward(packed: PackedNeRF, rcfg: RenderConfig, o, d, z, t, rgb, tb, act, pt,
-                    gscale: float, grads) -> None:
-    """The reverse walk (fused_train.cu MODE_REV) and the weight GEMM
-    (grad_gemm.cu) of one ray group on its forward's rgb, tb and stash, and
-    the two fixed-order reductions that add the group's partial grads to
-    ``grads`` (weights then biases, packed layout)."""
+                    gscale: float, grads, g=None) -> None:
+    """The reverse walk (fused_train.cu) and the weight GEMM (grad_gemm.cu)
+    of one ray group on its forward's tb and stash, under the cotangent
+    ``g`` (n, 3) or, without it, (rgb - t) * gscale, and the two
+    fixed-order reductions that add the group's partial grads to ``grads``
+    (weights then biases, packed layout)."""
     dev = o.device
     n, S = z.shape
     n_rec = n * 2 * -(-S // CHUNK)
@@ -902,19 +876,20 @@ def _split_backward(packed: PackedNeRF, rcfg: RenderConfig, o, d, z, t, rgb, tb,
     n_w, n_b = packed.weights.numel(), packed.biases.numel()
     dir_n = packed.dir_dim * RGB_HIDDEN
     n_blocks = min(torch.cuda.get_device_properties(dev).multi_processor_count, n)
-    cot = torch.empty(n_rec, lay.rec_cot, device=dev, dtype=torch.bfloat16)
+    cot = _scratch((n_rec, lay.rec_cot), torch.bfloat16, dev)
     rev_part = torch.zeros(n_blocks, dir_n + n_b, device=dev, dtype=torch.float32)
     rgb1 = {s.name: s for s in packed.layers}["rgb1"]
     lib = _kernel_lib()
     ip, fp, _fp_keep = _kernel_args(packed, rcfg)
     lay_ints = (ctypes.c_int * (4 + len(packed.layers)))(*lay.ints())
+    mse = g is None
     stream = torch.cuda.current_stream(dev).cuda_stream
-    _raise(lib, _timed("reverse", lambda: lib.sfm_fused_train(
-        MODE_REV, o.data_ptr(), d.data_ptr(), z.data_ptr(), t.data_ptr(), None, n, S,
-        packed.weights.data_ptr(), packed.biases.data_ptr(), ctypes.cast(ip, ctypes.c_void_p),
-        fp, rgb.data_ptr(), tb.data_ptr(), act.data_ptr(), pt.data_ptr(), cot.data_ptr(),
-        ctypes.cast(lay_ints, ctypes.c_void_p), rev_part.data_ptr(), None, n_blocks,
-        max(packed.hidden, RGB_HIDDEN), n_w, dir_n + n_b, gscale, stream)),
+    _raise(lib, _timed("reverse", lambda: lib.sfm_reverse_walk(
+        d.data_ptr(), z.data_ptr(), rgb.data_ptr() if mse else None,
+        t.data_ptr() if mse else None, None if mse else g.data_ptr(), gscale, n, S,
+        packed.weights.data_ptr(), ctypes.cast(ip, ctypes.c_void_p), fp, tb.data_ptr(),
+        act.data_ptr(), pt.data_ptr(), cot.data_ptr(), ctypes.cast(lay_ints, ctypes.c_void_p),
+        rev_part.data_ptr(), n_blocks, dir_n + n_b, stream)),
         "split-step reverse walk")
     _weight_grad(packed, act, cot, n_rec, grads)
     _timed("reduction", lambda: _reduce_add(
@@ -922,33 +897,36 @@ def _split_backward(packed: PackedNeRF, rcfg: RenderConfig, o, d, z, t, rgb, tb,
 
 
 def _split_step(packed: PackedNeRF, origins, directions, z_vals, target, rcfg: RenderConfig,
-                emit_weights: bool, group: int = RAY_GROUP):
+                emit_weights: bool, group: int = RAY_GROUP, g: Optional[torch.Tensor] = None):
     """The split step on the card: per group of ``group`` rays, in ray
     order, _split_forward then _split_backward, each group's partials added
-    to the grads in order.  Returns (rgb, weights or None, grads)."""
-    _check_inputs(packed, origins, directions, z_vals, target=target)
+    to the grads in order.  The cotangent is the MSE's against ``target``,
+    or ``g`` (N, 3) where given (``target`` None).  Returns (rgb, weights or
+    None, tb, grads)."""
+    _check_inputs(packed, origins, directions, z_vals, target=target, g=g)
     dev = origins.device
     n, S = z_vals.shape
     f32 = dict(device=dev, dtype=torch.float32)
-    o, d, z, t = (x.float().contiguous() for x in (origins, directions, z_vals, target))
+    o, d, z = (x.float().contiguous() for x in (origins, directions, z_vals))
+    cot = (target if g is None else g).float().contiguous()
     nc = -(-S // CHUNK)
     lay = stash_layout(packed)
     n_rec_max = min(group, n) * 2 * nc
     rgb = torch.empty(n, 3, **f32)
-    tb = torch.empty(n, nc, **f32)
+    tb = _scratch((n, nc), torch.float32, dev)
     w = torch.empty(n, S, **f32) if emit_weights else None
     grads = torch.zeros(packed.weights.numel() + packed.biases.numel(), **f32)
-    act = torch.empty(n_rec_max, lay.rec_act, device=dev, dtype=torch.bfloat16)
-    pt = torch.empty(n_rec_max * IMG_ROWS, 4, **f32)
+    act = _scratch((n_rec_max, lay.rec_act), torch.bfloat16, dev)
+    pt = _scratch((n_rec_max * IMG_ROWS, 4), torch.float32, dev)
     with torch.cuda.device(dev):
         for r0 in range(0, n, group):
             sl = slice(r0, r0 + group)
             og, dg, zg, rg, tbg = o[sl], d[sl], z[sl], rgb[sl], tb[sl]
             _split_forward(packed, rcfg, og, dg, zg, rg, w[sl] if w is not None else None, tbg,
                            act, pt)
-            _split_backward(packed, rcfg, og, dg, zg, t[sl], rg, tbg, act, pt,
-                            2.0 / (3.0 * n), grads)
-    return rgb, w, grads
+            _split_backward(packed, rcfg, og, dg, zg, cot[sl] if g is None else None, rg, tbg,
+                            act, pt, 2.0 / (3.0 * n), grads, g=None if g is None else cot[sl])
+    return rgb, w, tb, grads
 
 
 def _device_kind(t: torch.Tensor) -> str:
@@ -958,23 +936,17 @@ def _device_kind(t: torch.Tensor) -> str:
 
 
 def fused_mse_loss_grads(packed: PackedNeRF, origins, directions, z_vals, target,
-                         rcfg: RenderConfig, keep_activations: bool = True):
+                         rcfg: RenderConfig):
     """(rgb (N, 3), gw, gb): the step's raw outputs, float32 grads of
     mean((rgb - target)^2) in the packed layout.  CPU tensors run the plain
-    version.  CUDA tensors run, with ``keep_activations``, the split step
-    (per ray group: the wgmma forward sweep that stashes every layer input,
-    the reverse walk that stashes every output cotangent, the weight GEMM
-    over both; three forwards' worth of products); without it, the
-    single-launch step kernel whose reverse walk recomputes each chunk (four
-    forwards' worth, the arithmetic of K3's backward)."""
+    version.  CUDA tensors run the split step (per ray group: the wgmma
+    forward sweep that stashes every layer input, the reverse walk that
+    stashes every output cotangent, the weight GEMM over both; three
+    forwards' worth of products)."""
     _check(rcfg)
     if _device_kind(origins) == "cpu":
         return fused_mse_loss_reference(packed, origins, directions, z_vals, target, rcfg)
-    if keep_activations:
-        rgb, _, grads = _split_step(packed, origins, directions, z_vals, target, rcfg, False)
-    else:
-        rgb, _, grads = _launch(MODE_STEP, packed, origins, directions, z_vals, rcfg,
-                                target=target)
+    rgb, _, _, grads = _split_step(packed, origins, directions, z_vals, target, rcfg, False)
     LAUNCHES["fused_mse_loss"] += 1
     n_w = packed.weights.numel()
     return rgb, grads[:n_w], grads[n_w:]
@@ -989,7 +961,7 @@ def fused_mse_loss_weights_grads(packed: PackedNeRF, origins, directions, z_vals
     if _device_kind(origins) == "cpu":
         return fused_mse_loss_weights_reference(packed, origins, directions, z_vals, target,
                                                 rcfg)
-    rgb, w, grads = _split_step(packed, origins, directions, z_vals, target, rcfg, True)
+    rgb, w, _, grads = _split_step(packed, origins, directions, z_vals, target, rcfg, True)
     LAUNCHES["fused_mse_loss_weights"] += 1
     n_w = packed.weights.numel()
     return rgb, w, grads[:n_w], grads[n_w:]
@@ -1055,11 +1027,27 @@ def fused_render_train_forward(packed: PackedNeRF, origins, directions, z_vals,
                                rcfg: RenderConfig):
     """(rgb (N, 3), tb (N, n_chunks)): the forward kernel's raw outputs, tb
     the transmittance entering each 128-sample chunk.  CUDA tensors launch
-    the kernel (once), CPU tensors run the plain version."""
+    the render kernel compiled with TB once over all rays (rgb bit-equal to
+    fused_render_rays', tb to the split step's forward sweep's); CPU tensors
+    run the plain version."""
     _check(rcfg)
     if _device_kind(origins) == "cpu":
         return fused_render_train_reference(packed, origins, directions, z_vals, rcfg)
-    rgb, tb, _ = _launch(MODE_FWD, packed, origins, directions, z_vals, rcfg)
+    _check_inputs(packed, origins, directions, z_vals)
+    dev = origins.device
+    n, S = z_vals.shape
+    o, d, z = (x.float().contiguous() for x in (origins, directions, z_vals))
+    rgb = torch.empty(n, 3, device=dev, dtype=torch.float32)
+    tb = torch.empty(n, -(-S // CHUNK), device=dev, dtype=torch.float32)
+    lib = _fr._kernel_lib()
+    ip, fp, _fp_keep = _fr._render_kernel_args(packed, rcfg)
+    image = _fr.render_tile_image(packed)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _raise(lib, _timed("forward", lambda: lib.sfm_fused_render_tb(
+            o.data_ptr(), d.data_ptr(), z.data_ptr(), n, S, image.data_ptr(),
+            packed.biases.data_ptr(), ctypes.cast(ip, ctypes.c_void_p), fp, rgb.data_ptr(),
+            tb.data_ptr(), stream)), "fused_render_train forward")
     LAUNCHES["fused_render_train"] += 1
     return rgb, tb
 
@@ -1068,12 +1056,17 @@ def fused_render_train_backward(packed: PackedNeRF, origins, directions, z_vals,
                                 rcfg: RenderConfig, tb, g):
     """(gw, gb): the backward kernel's raw outputs for the cotangent ``g``
     (N, 3) of rgb, float32 grads in the packed layout.  ``tb`` is the
-    forward's.  CUDA tensors launch the kernel (once), CPU tensors run the
-    plain version (which recomputes tb)."""
+    forward's residual, as JAX's backward takes it.  CUDA tensors run the
+    split step under ``g`` (its forward sweep recomputes tb, into scratch,
+    with the stashes); CPU tensors run the plain version (which recomputes
+    tb too)."""
     _check(rcfg)
     if _device_kind(origins) == "cpu":
         return fused_render_train_reference(packed, origins, directions, z_vals, rcfg, g=g)
-    _, _, grads = _launch(MODE_BWD, packed, origins, directions, z_vals, rcfg, g=g, tb=tb)
+    n, S = z_vals.shape
+    if tb is None or tb.shape != (n, -(-S // CHUNK)):
+        raise ValueError("fused train backward: tb must be the forward's (N, n_chunks)")
+    grads = _split_step(packed, origins, directions, z_vals, None, rcfg, False, g=g)[3]
     LAUNCHES["fused_render_train_backward"] += 1
     n_w = packed.weights.numel()
     return grads[:n_w], grads[n_w:]
@@ -1099,8 +1092,9 @@ def fused_render_train(packed: PackedNeRF, origins, directions, z_vals,
                        rcfg: RenderConfig) -> torch.Tensor:
     """rgb (N, 3), differentiable with respect to the parameters of
     ``packed.model`` for any loss on it: the forward kernel keeps the
-    transmittance entering each chunk, the backward kernel recomputes each
-    chunk's activations and applies the caller's cotangent."""
+    transmittance entering each chunk, the backward recomputes every
+    chunk's activations (the split step's forward sweep) and applies the
+    caller's cotangent."""
     if packed.model is None:
         raise ValueError("fused_render_train: pack with pack_nerf_params(model, ...)")
     return _FusedRenderTrain.apply(packed, origins, directions, z_vals, rcfg,

@@ -7,9 +7,10 @@ loss with its grads, and ``torch.optim.Adam`` under a staircase ``StepLR``
 the config alone (``fused_train_supported``):
 
 - ``use_fused_kernel`` and ``fused_merged_step`` -> ``fused_mse_loss``: one
-  CUDA launch gives the loss's rgb and every grad;
+  call of the split step gives the loss's rgb and every grad;
 - ``use_fused_kernel`` without ``fused_merged_step`` -> ``fused_render_train``
-  (forward kernel, backward kernel) under an MSE written in torch;
+  under an MSE written in torch: the render kernel's forward (rgb and tb),
+  then the split step under autograd's cotangent;
 - ``--no_fused`` -> the float32 ``nn.Module`` under autograd.
 
 With ``n_importance > 0`` the model is a coarse/fine ``NeRFPair`` under one

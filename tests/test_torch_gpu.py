@@ -161,11 +161,13 @@ def _assert_grads_close(packed, got, ref, f64, tc=None):
 @pytest.mark.parametrize("white,n_rays,n_sample", [
     (False, 1024, 256), (True, 777, 200), (False, 100, 64), (False, 300, 384)])
 def test_fused_train_kernels_match_plain_versions(white, n_rays, n_sample):
-    """K2 (fused_mse_loss: the split step, and the recomputing step kernel)
-    and K3 (fused_render_train forward and backward) at hidden 256 against
-    their plain versions on the same inputs; ragged sample counts and ray
-    counts that fill no block included.  The split step's forward sweep is
-    the render kernel's arithmetic: its rgb is K1's, bit for bit."""
+    """K2 (fused_mse_loss: the split step) and K3 (fused_render_train
+    forward and backward) at hidden 256 against their plain versions on the
+    same inputs; ragged sample counts and ray counts that fill no block
+    included.  The split step's forward sweep and K3's forward are the
+    render kernel's arithmetic: their rgb is K1's and K3's tb the sweep's,
+    bit for bit; K3's backward is the split step under the caller's
+    cotangent, so under the MSE's it gives K2's grads bit for bit."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -176,12 +178,10 @@ def test_fused_train_kernels_match_plain_versions(white, n_rays, n_sample):
     o, d, z, target = _train_batch(n_rays, n_sample, seed=n_sample)
     rcfg = RenderConfig(n_sample=n_sample, white_background=white)
     before = dict(ft.LAUNCHES)
-    # K2, both ways of holding activations, and twice: bit-equal
+    # K2 twice: bit-equal
     rgb, gw, gb = ft.fused_mse_loss_grads(packed, o, d, z, target, rcfg)
     rgb_b, gw_b, gb_b = ft.fused_mse_loss_grads(packed, o, d, z, target, rcfg)
-    _, gw_r, gb_r = ft.fused_mse_loss_grads(packed, o, d, z, target, rcfg,
-                                            keep_activations=False)
-    assert ft.LAUNCHES["fused_mse_loss"] == before["fused_mse_loss"] + 3
+    assert ft.LAUNCHES["fused_mse_loss"] == before["fused_mse_loss"] + 2
     assert torch.equal(gw, gw_b) and torch.equal(gb, gb_b) and torch.equal(rgb, rgb_b)
     rr, gwr, gbr = ft.fused_mse_loss_reference(packed, o, d, z, target, rcfg)
     _, gw64, gb64 = ft.fused_mse_loss_reference(packed, o.double(), d.double(), z.double(),
@@ -191,27 +191,42 @@ def test_fused_train_kernels_match_plain_versions(white, n_rays, n_sample):
     assert bool(torch.isfinite(gw).all()) and bool(torch.isfinite(gb).all())
     worst = _assert_grads_close(packed, (gw, gb), (gwr, gbr), (gw64, gb64), tc=(gwt, gbt))
     print(json.dumps({"k2_grads": [white, n_rays, n_sample], "worst": worst}))
-    _assert_grads_close(packed, (gw_r, gb_r), (gwr, gbr), (gw64, gb64))
-    # K3 with a cotangent that is not the MSE's
+    # K3's forward: rgb K1's, tb the split step's forward sweep's
     rgb3, tb = ft.fused_render_train_forward(packed, o, d, z, rcfg)
+    k1 = fr.fused_render_rays(packed, o, d, z, rcfg)
+    assert torch.equal(rgb, k1) and torch.equal(rgb3, k1)
+    nc = -(-n_sample // fr.CHUNK)
+    lay = ft.stash_layout(packed)
+    act = torch.empty(n_rays * 2 * nc, lay.rec_act, device="cuda", dtype=torch.bfloat16)
+    pt = torch.empty(n_rays * 2 * nc * ft.IMG_ROWS, 4, device="cuda")
+    srgb, stb = torch.empty_like(rgb3), torch.empty_like(tb)
+    ft._split_forward(packed, rcfg, o, d, z, srgb, None, stb, act, pt)
+    assert torch.equal(tb, stb) and torch.equal(rgb3, srgb)
+    del act, pt
+    rr3, tbr = ft.fused_render_train_reference(packed, o, d, z, rcfg)
+    assert (rgb3 - rr3).abs().max().item() <= 1e-2
+    assert (tb - tbr).abs().max().item() <= 1e-2
+    # K3's backward under the MSE's cotangent is K2, bit for bit
+    gm = (rgb3 - target) * (2.0 / (3.0 * n_rays))
+    gw3m, gb3m = ft.fused_render_train_backward(packed, o, d, z, rcfg, tb, gm)
+    assert torch.equal(gw, gw3m) and torch.equal(gb, gb3m)
+    # K3's backward with a cotangent that is not the MSE's: twice bit-equal,
+    # under the grads rule of the plain version in either summation order
     g = torch.from_numpy(np.random.default_rng(0).normal(size=(n_rays, 3))
                          .astype(np.float32)).cuda() * 1e-3
     gw3, gb3 = ft.fused_render_train_backward(packed, o, d, z, rcfg, tb, g)
+    gw3b, gb3b = ft.fused_render_train_backward(packed, o, d, z, rcfg, tb, g)
+    assert torch.equal(gw3, gw3b) and torch.equal(gb3, gb3b)
     assert ft.LAUNCHES["fused_render_train"] == before["fused_render_train"] + 1
     assert ft.LAUNCHES["fused_render_train_backward"] == \
-        before["fused_render_train_backward"] + 1
-    rr3, tbr = ft.fused_render_train_reference(packed, o, d, z, rcfg)
-    assert torch.equal(rgb, fr.fused_render_rays(packed, o, d, z, rcfg))
-    assert (rgb3 - rr3).abs().max().item() <= 1e-2
-    assert (tb - tbr).abs().max().item() <= 1e-2
+        before["fused_render_train_backward"] + 3
+    assert ft.LAUNCHES["fused_mse_loss"] == before["fused_mse_loss"] + 2
     ref3 = ft.fused_render_train_reference(packed, o, d, z, rcfg, g=g)
     ref3_64 = ft.fused_render_train_reference(packed, o.double(), d.double(), z.double(),
                                               rcfg, g=g.double())
-    _assert_grads_close(packed, (gw3, gb3), ref3, ref3_64)
-    # the recomputing step kernel is the backward kernel with the MSE cotangent
-    gm = (rgb3 - target) * (2.0 / (3.0 * n_rays))
-    gw3m, gb3m = ft.fused_render_train_backward(packed, o, d, z, rcfg, tb, gm)
-    assert torch.equal(gw_r, gw3m) and torch.equal(gb_r, gb3m)
+    ref3_tc = ft.fused_render_train_reference(packed, o, d, z, rcfg, g=g, tc_order=True)
+    worst = _assert_grads_close(packed, (gw3, gb3), ref3, ref3_64, tc=ref3_tc)
+    print(json.dumps({"k3_grads": [white, n_rays, n_sample], "worst": worst}))
 
 
 @pytest.mark.gpu
@@ -399,6 +414,33 @@ def test_split_step_other_networks_match_plain_version(model, white, n_rays, n_s
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("model,white,n_rays,n_sample", [
+    ("synth800", False, 1100, 200), ("legacy48", True, 300, 130), ("hidden64", False, 200, 64)])
+def test_k3_backward_reads_no_unwritten_scratch(monkeypatch, model, white, n_rays, n_sample):
+    """K3's backward (and K2 with it: the same launches) with every scratch
+    buffer of the split step filled with NaN (the stashes, the cotangent
+    stash, tb): the grads are finite and bit-equal to a run on uninitialised
+    scratch, so no launch reads what no launch wrote; 1,100 rays leave the
+    last ray group short."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    packed = _packed_model(model)
+    o, d, z, target = _train_batch(n_rays, n_sample, seed=n_sample + 3)
+    rcfg = RenderConfig(n_sample=n_sample, white_background=white)
+    _, tb = ft.fused_render_train_forward(packed, o, d, z, rcfg)
+    g = torch.from_numpy(np.random.default_rng(1).normal(size=(n_rays, 3))
+                         .astype(np.float32)).cuda() * 1e-3
+    want = ft.fused_render_train_backward(packed, o, d, z, rcfg, tb, g)
+    want2 = ft.fused_mse_loss_grads(packed, o, d, z, target, rcfg)
+    monkeypatch.setattr(ft, "_scratch", lambda shape, dtype, device: torch.full(
+        shape, float("nan"), device=device, dtype=dtype))
+    got = ft.fused_render_train_backward(packed, o, d, z, rcfg, tb, g)
+    got2 = ft.fused_mse_loss_grads(packed, o, d, z, target, rcfg)
+    assert all(bool(torch.isfinite(t).all()) for t in got + got2)
+    assert all(torch.equal(a, b) for a, b in zip(got + got2, want + want2))
+
+
+@pytest.mark.gpu
 def test_split_step_ray_groups():
     """The split step in ray groups of 300 and of 1,024 on the same batch:
     rgb and weights bit-equal (each ray's forward does not depend on its
@@ -409,8 +451,8 @@ def test_split_step_ray_groups():
     packed = _packed_model("synth800")
     o, d, z, target = _train_batch(1000, 128, seed=5)
     rcfg = RenderConfig(n_sample=128)
-    rgb, w, g = ft._split_step(packed, o, d, z, target, rcfg, True)
-    rgb3, w3, g3 = ft._split_step(packed, o, d, z, target, rcfg, True, group=300)
+    rgb, w, _, g = ft._split_step(packed, o, d, z, target, rcfg, True)
+    rgb3, w3, _, g3 = ft._split_step(packed, o, d, z, target, rcfg, True, group=300)
     assert torch.equal(rgb, rgb3) and torch.equal(w, w3)
     assert (g - g3).norm().item() <= 1e-5 * g.norm().item()
 
@@ -463,9 +505,8 @@ def test_fused_train_wrappers_fill_parameter_grads():
     those of fused_mse_loss_grads (the split step) and of
     fused_render_train_backward under the MSE's cotangent (K3); the loss is
     the mean of the route's own rgb.  Both routes' grads agree with the
-    plain version under the grads rule (their forwards are two layer
-    chains: the split step's is the render kernel's wgmma chain, K3's the
-    WMMA one)."""
+    plain version under the grads rule (both run the split step; autograd's
+    MSE cotangent rounds otherwise than the one K2 makes on the card)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     params, _ = ckpt.load_params_untyped(SYNTH800)
