@@ -59,10 +59,19 @@ training step; hierarchical: 256 coarse + 128 importance samples):
    frame by arithmetic and a cuBLAS yardstick for its products; then one
    JSON line with every kernel's launches on its path, its error against
    the plain version, its time at the main-path shape beside the plain
-   version's and the card's bound.
+   version's and the card's bound;
+12. sfm: ``cli.sfm`` on the card at SfMConfig's defaults (50,000 F and
+   10,000 PnP hypotheses, 2 x 50 BA steps) plus track merging, on a
+   12-camera ring this script writes (4,000 points, 0.5 px noise, 10% of
+   the match rows outliers): stage seconds, registered cameras, BA error,
+   pose error against the ground truth, peak memory; then its NeRF export
+   read back through io/blender.py;
+13. sfm_ops: F-RANSAC, PnP RANSAC and five BA steps on the card against
+   the same calls on the CPU, given the same draws;
+14. sfm_scale: the same pipeline on 48 cameras x 8,000 points.
 
-Each path runs with the launch counters set to 0 just before it and read
-just after; a path that did not launch its kernel fails the run.  Every
+Each kernel path runs with the launch counters set to 0 just before it and
+read just after; a path that did not launch its kernel fails the run.  Every
 phase prints one JSON line; the last line is the result.  Exits non-zero
 without a result when no card is visible, when the package is missing, or
 when any phase fails.
@@ -110,6 +119,284 @@ PEAK_BYTES = 3.35e12     # H100 SXM HBM3 bytes/s
 
 def emit(phase, **kw):
     print(json.dumps({"phase": phase, **kw}), flush=True)
+
+
+# ---- Phase 1 SfM -----------------------------------------------------------
+SFM_CAMS, SFM_POINTS, SFM_WINDOW = 12, 4000, 4
+SCALE_CAMS, SCALE_POINTS, SCALE_WINDOW, SCALE_F_ITERS = 48, 8000, 8, 4000
+SFM_NOISE_PX, SFM_OUTLIER_FRAC = 0.5, 0.10
+SFM_MEAN_PX, SFM_ROT_DEG = 1.0, 0.1   # final BA mean error, median rotation error
+F_REL_TOL = 1e-8                      # F on the card vs on the CPU, relative
+BA_PIXEL_TOL = 1e-6                   # BA on the card vs the CPU: seen pixels
+
+
+def write_sfm_dataset(out_dir, n_cams, n_points, window, noise_px=SFM_NOISE_PX,
+                      outlier_frac=SFM_OUTLIER_FRAC, width=800, height=600, seed=0):
+    """A reference-format SfM dataset (calibration.txt, matching{i}.txt,
+    {i}.png) in the format of tests/util_synthetic.py's
+    write_reference_format_dataset, written without cv2: cameras on a ring
+    looking inward, each point seen by a window of consecutive cameras,
+    pixel noise, and ``outlier_frac`` of the match rows moved to uniform
+    pixels.  Returns the ground truth (K, Rs, Cs, points)."""
+    import numpy as np
+
+    from sfm_nerf_tpu_torch.io.png import write_png
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(out_dir, exist_ok=True)
+    f = 0.9 * width
+    K = np.array([[f, 0, width / 2], [0, f, height / 2], [0, 0, 1.0]])
+    points = rng.uniform(-1.5, 1.5, (n_points, 3))
+    Rs, Cs = [], []
+    for i in range(n_cams):
+        th = 2 * np.pi * i / n_cams
+        C = np.array([6 * np.cos(th), 0.4 * np.sin(3 * th), 6 * np.sin(th)])
+        fwd = -C / np.linalg.norm(C)
+        right = np.cross([0.0, 1.0, 0.0], fwd)
+        right /= np.linalg.norm(right)
+        Rs.append(np.stack([right, np.cross(fwd, right), fwd]))
+        Cs.append(C)
+    Rs, Cs = np.stack(Rs), np.stack(Cs)
+    Xh = np.hstack([points, np.ones((n_points, 1))])
+    obs = np.zeros((n_cams, n_points, 2))
+    ok = np.zeros((n_cams, n_points), bool)
+    for c in range(n_cams):
+        x = Xh @ (K @ Rs[c] @ np.hstack([np.eye(3), -Cs[c][:, None]])).T
+        z = x[:, 2]
+        x = x[:, :2] / np.maximum(z[:, None], 1e-9) + rng.normal(0, noise_px, (n_points, 2))
+        obs[c] = x
+        ok[c] = (z > 0.2) & (x[:, 0] >= 0) & (x[:, 0] < width) & (x[:, 1] >= 0) \
+            & (x[:, 1] < height)
+    start = rng.integers(0, n_cams, n_points)
+    for p in range(n_points):
+        win = np.zeros(n_cams, bool)
+        win[(start[p] + np.arange(window)) % n_cams] = True
+        ok[:, p] &= win
+    with open(os.path.join(out_dir, "calibration.txt"), "w") as fc:
+        for row in K:
+            fc.write(" ".join(f"{v:.6f}" for v in row) + "\n")
+    yy, xx = np.mgrid[0:height, 0:width]
+    img = np.stack([xx * 255 // width, yy * 255 // height,
+                    np.full_like(xx, 128)], -1).astype(np.uint8)
+    for i in range(1, n_cams + 1):
+        write_png(os.path.join(out_dir, f"{i}.png"), img)
+    n_rows = n_out = 0
+    for i in range(1, n_cams):
+        lines = []
+        for p in np.flatnonzero(ok[i - 1]):
+            js = [j for j in range(i + 1, n_cams + 1) if ok[j - 1, p]]
+            if not js:
+                continue
+            u, v = obs[i - 1, p]
+            toks = [str(len(js) + 1), "128", "128", "128", f"{u:.4f}", f"{v:.4f}"]
+            for j in js:
+                uj, vj = obs[j - 1, p]
+                if rng.random() < outlier_frac:
+                    uj, vj = rng.uniform(0, width), rng.uniform(0, height)
+                    n_out += 1
+                toks += [str(j), f"{uj:.4f}", f"{vj:.4f}"]
+            lines.append(" ".join(toks))
+            n_rows += len(js)
+        with open(os.path.join(out_dir, f"matching{i}.txt"), "w") as fm:
+            fm.write(f"nFeatures: {len(lines)}\n" + "\n".join(lines) + "\n")
+    return {"K": K, "Rs": Rs, "Cs": Cs, "points": points, "obs": obs, "ok": ok,
+            "match_rows": n_rows, "outlier_rows": n_out}
+
+
+def pose_errors(camera_info, gt):
+    """Registered poses against the ground truth after a similarity
+    alignment of the camera centres (Umeyama): median and max rotation
+    error in degrees, median centre error in ground-truth units (the ring's
+    radius is 6)."""
+    import numpy as np
+
+    ids = sorted(camera_info)
+    src = np.stack([np.asarray(camera_info[i]["C"]).reshape(3) for i in ids])
+    dst = gt["Cs"][[i - 1 for i in ids]]
+    mu_s, mu_d = src.mean(0), dst.mean(0)
+    cov = (dst - mu_d).T @ (src - mu_s) / len(ids)
+    U, S, Vt = np.linalg.svd(cov)
+    D = np.diag([1.0, 1.0, np.sign(np.linalg.det(U @ Vt))])
+    Rs_ = U @ D @ Vt                          # sfm world -> gt world
+    s = np.trace(np.diag(S) @ D) / ((src - mu_s) ** 2).sum(1).mean()
+    t = mu_d - s * Rs_ @ mu_s
+    rot, cen = [], []
+    for i, c in zip(ids, src):
+        R_al = np.asarray(camera_info[i]["R"]) @ Rs_.T      # in gt coordinates
+        cosang = (np.trace(R_al.T @ gt["Rs"][i - 1]) - 1) / 2
+        rot.append(np.degrees(np.arccos(np.clip(cosang, -1, 1))))
+        cen.append(np.linalg.norm(s * Rs_ @ c + t - gt["Cs"][i - 1]))
+    return {"rot_err_deg_median": float(np.median(rot)), "rot_err_deg_max": float(np.max(rot)),
+            "centre_err_median": float(np.median(cen)), "centre_err_max": float(np.max(cen)),
+            "scale": float(s)}
+
+
+def run_sfm_phases(phase, out_root):
+    """The Phase 1 phases: sfm (cli.sfm at the SfMConfig defaults on a
+    12-camera ring, then its NeRF export read back), sfm_ops (F-RANSAC,
+    PnP RANSAC and five BA steps on the card against the same calls on the
+    CPU, given the same draws), sfm_scale (48 cameras x 8,000 points)."""
+    import numpy as np
+    import torch
+
+    from sfm_nerf_tpu_torch.cli import sfm as cli_sfm
+    from sfm_nerf_tpu_torch.io.blender import load_blender_dataset
+    from sfm_nerf_tpu_torch.ops import ba as ba_ops
+    from sfm_nerf_tpu_torch.ops import epipolar as ep
+    from sfm_nerf_tpu_torch.ops import pnp as pnp_ops
+
+    dev = torch.device("cuda")
+    state = {}
+
+    def reconstruct(tag, n_cams, n_points, window, extra):
+        data = os.path.join(out_root, f"{tag}_data")
+        out = os.path.join(out_root, f"{tag}_out")
+        shutil.rmtree(data, ignore_errors=True)
+        t0 = time.time()
+        gt = write_sfm_dataset(data, n_cams, n_points, window)
+        write_s = time.time() - t0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        res = cli_sfm.main(["--data_path", data, "--num_images", str(n_cams),
+                            "--output_dir", out, "--merge_tracks", *extra])
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        st = res["stats"]
+        errs = pose_errors(res["camera_info"], gt)
+        rec = {"cams": n_cams, "points": n_points, "window": window,
+               "match_rows": gt["match_rows"], "outlier_rows": gt["outlier_rows"],
+               "dataset_write_s": round(write_s, 2), "wall_s": round(wall, 2),
+               "stage_seconds": st["stage_seconds"], "registered": st["n_registered"],
+               "points_3d": st["n_points_total"],
+               "ba_mean_px": st["ba"]["final_err_px"]["mean"],
+               "ba_median_px": st["ba"]["final_err_px"]["median"],
+               "ba_rms_px": [st["ba"]["rms_px_before"], st["ba"]["rms_px_after"]],
+               **errs, "peak_mem_gib": round(torch.cuda.max_memory_allocated() / 2**30, 3),
+               "device": st["device"]}
+        if st["device"] != "cuda":
+            raise AssertionError(f"{tag}: ran on {st['device']}")
+        if (rec["registered"] != n_cams or rec["ba_mean_px"] >= SFM_MEAN_PX
+                or rec["rot_err_deg_median"] >= SFM_ROT_DEG):
+            raise AssertionError(f"{tag}: {rec}")
+        return data, gt, res, rec
+
+    def sfm():
+        exp = os.path.join(out_root, "sfm_nerf")
+        data, gt, res, rec = reconstruct(
+            "sfm", SFM_CAMS, SFM_POINTS, SFM_WINDOW, ["--export_nerf", exp])
+        images, poses, cam = load_blender_dataset(exp, "train")
+        ids = sorted(res["camera_info"])
+        c2w_err = max(float(np.abs(poses[k, :3, 3] - res["camera_info"][i]["C"]).max())
+                      for k, i in enumerate(ids))
+        if len(images) != len(ids) or c2w_err > 1e-5 or not cam.near < cam.far:
+            raise AssertionError(f"sfm export: {len(images)} frames, c2w err {c2w_err}")
+        state.update(data=data, gt=gt, res=res)
+        emit("sfm", **rec, export={"frames": len(images), "near": cam.near, "far": cam.far,
+                                   "c2w_centre_max_err": c2w_err})
+
+    def sfm_ops():
+        gt = state["gt"] if "gt" in state else write_sfm_dataset(
+            os.path.join(out_root, "sfm_data"), SFM_CAMS, SFM_POINTS, SFM_WINDOW)
+        data = os.path.join(out_root, "sfm_data")
+        from sfm_nerf_tpu_torch.io.sfm_data import parse_matching_files
+
+        matches, _, _ = parse_matching_files(data, SFM_CAMS)
+        m = matches[(1, 2)]
+        rng = np.random.default_rng(1)
+        n_iters, chunk = 8192, 1024
+        total = -(-n_iters // chunk) * chunk
+        samples = np.stack([rng.permutation(len(m))[:8] for _ in range(total)])
+        # a later copy of a row scores the same: the first must win
+        samples[total - 1] = samples[7]
+        out, times = {}, {}
+        sides = (("cuda", dev), ("cpu", torch.device("cpu")))
+        for name, d in sides:
+            t = lambda a: torch.as_tensor(a, device=d)
+            t0 = time.time()
+            r = ep.ransac_fundamental(t(m[:, 0:2]), t(m[:, 2:4]), n_iters=n_iters,
+                                      samples=t(samples))
+            out[name] = [x.cpu().numpy() for x in r]
+            times[name] = time.time() - t0
+        F_c, F_h = out["cuda"][0], out["cpu"][0]
+        f_rel = float(np.abs(F_c - F_h).max() / np.abs(F_h).max())
+        same_f = (int(out["cuda"][3]) == int(out["cpu"][3])
+                  and np.array_equal(out["cuda"][1], out["cpu"][1]))
+        # ties: argmax on the card takes the first of equal scores
+        ties = torch.zeros(4, 50176, device=dev, dtype=torch.float64)
+        ties[:, [5, 17, 40000]] = 1.0
+        first_tie = torch.argmax(ties, dim=1).tolist() == [5, 5, 5, 5]
+        dup_ok = int(out["cuda"][3]) != total - 1
+        # PnP RANSAC on camera 3's view of the ground-truth points
+        cam = 2
+        vis = np.flatnonzero(gt["ok"][cam])
+        X3 = gt["points"][vis]
+        x2 = gt["obs"][cam, vis].copy()
+        bad = rng.random(len(vis)) < SFM_OUTLIER_FRAC
+        x2[bad] = rng.uniform([0, 0], [800, 600], (int(bad.sum()), 2))
+        p_total = 2048
+        psamp = np.stack([rng.permutation(len(vis))[:6] for _ in range(p_total)])
+        pout = {}
+        for name, d in sides:
+            t = lambda a: torch.as_tensor(a, device=d)
+            t0 = time.time()
+            r = pnp_ops.pnp_ransac(t(X3), t(x2), t(gt["K"]), samples=t(psamp))
+            pout[name] = [x.cpu().numpy() for x in r]
+            times[f"pnp_{name}"] = time.time() - t0
+        pnp_same = bool(np.array_equal(pout["cuda"][2], pout["cpu"][2]))
+        pnp_rel = float(np.abs(pout["cuda"][1] - pout["cpu"][1]).max()
+                        / np.abs(pout["cpu"][1]).max())
+        # five BA steps from perturbed ground truth over every camera
+        from sfm_nerf_tpu_torch.ops.linalg import rotation_to_rvec
+
+        rv = rotation_to_rvec(torch.as_tensor(gt["Rs"])).numpy()
+        cams = np.concatenate([rv, -np.einsum("nij,nj->ni", gt["Rs"], gt["Cs"])], 1)
+        cams = cams + rng.normal(0, 1e-3, cams.shape)
+        pts = gt["points"] + rng.normal(0, 1e-2, gt["points"].shape)
+        bout = {}
+        for name, d in sides:
+            t = lambda a: torch.as_tensor(a, device=d)
+            t0 = time.time()
+            r = ba_ops.bundle_adjust(t(gt["K"]), t(cams), t(pts), t(gt["obs"]),
+                                     t(gt["ok"].astype(np.float64)), n_iters=5)
+            bout[name] = [x.cpu().numpy() for x in r]
+            times[f"ba_{name}"] = time.time() - t0
+        # the parameters are free up to a similarity, along which rounding
+        # moves them; the cost and every seen pixel are not
+        par_rel = max(float(np.abs(bout["cuda"][k] - bout["cpu"][k]).max()
+                            / np.abs(bout["cpu"][k]).max()) for k in (0, 1))
+        cost_rel = abs(float(bout["cuda"][2]) / float(bout["cpu"][2]) - 1)
+        proj = {k: ba_ops._lanes(ba_ops._observe, torch.as_tensor(v[0]), torch.as_tensor(v[1]),
+                                 torch.as_tensor(gt["K"])).numpy() for k, v in bout.items()}
+        pix = float(np.abs(proj["cuda"] - proj["cpu"])[gt["ok"]].max())
+        rec = {"ransac": {"matches": len(m), "hypotheses": total,
+                          "best_iter": int(out["cuda"][3]), "same_winner_and_inliers": same_f,
+                          "n_inliers": int(out["cuda"][2]), "F_rel_err": f_rel,
+                          "later_copy_of_row_7_lost": dup_ok, "argmax_first_tie": first_tie,
+                          "cuda_s": times["cuda"], "cpu_s": times["cpu"]},
+               "pnp": {"points": len(vis), "hypotheses": p_total,
+                       "same_inliers": pnp_same, "C_rel_err": pnp_rel,
+                       "n_inliers": int(pout["cuda"][3]),
+                       "cuda_s": times["pnp_cuda"], "cpu_s": times["pnp_cpu"]},
+               "ba": {"cams": SFM_CAMS, "points": SFM_POINTS, "iters": 5,
+                      "params_rel_err": par_rel, "cost_rel_err": cost_rel,
+                      "seen_pixel_max_err": pix,
+                      "cost": [float(bout["cuda"][3]), float(bout["cuda"][2])],
+                      "cuda_s": times["ba_cuda"], "cpu_s": times["ba_cpu"]}}
+        if not (same_f and f_rel <= F_REL_TOL and dup_ok and first_tie and pnp_same
+                and pnp_rel <= F_REL_TOL and cost_rel <= 1e-9 and pix <= BA_PIXEL_TOL):
+            raise AssertionError(f"sfm_ops: {rec}")
+        emit("sfm_ops", **rec)
+
+    def sfm_scale():
+        _, _, _, rec = reconstruct(
+            "sfm_scale", SCALE_CAMS, SCALE_POINTS, SCALE_WINDOW,
+            ["--ransac_iters", str(SCALE_F_ITERS), "--ba_interval", "12"])
+        emit("sfm_scale", **rec)
+
+    phase(sfm)
+    phase(sfm_ops)
+    phase(sfm_scale)
 
 
 def main():
@@ -937,6 +1224,7 @@ def main():
 
     if not failed:
         phase(kernel_line)
+    run_sfm_phases(phase, OUT)
     emit("timing", elapsed_s=round(time.time() - t_start, 1))
     if failed:
         print(f"chip_smoke: failed phases {failed}", file=sys.stderr)
