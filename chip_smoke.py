@@ -68,7 +68,23 @@ training step; hierarchical: 256 coarse + 128 importance samples):
    read back through io/blender.py;
 13. sfm_ops: F-RANSAC, PnP RANSAC and five BA steps on the card against
    the same calls on the CPU, given the same draws;
-14. sfm_scale: the same pipeline on 48 cameras x 8,000 points.
+14. sfm_scale: the same pipeline on 48 cameras x 8,000 points;
+15. dp_train: ``cli.nerf --mode train`` under a one-rank torchrun
+   environment (NCCL, started in this process: the code a multi-GPU user
+   runs), 20 flat steps and 5 hierarchical ones through the data-parallel
+   trainer, against the same runs of the one-device trainer: parameters
+   bit for bit, ms per step side by side;
+16. dp2_one_card: two spawned ranks over gloo, both on cuda:0 (NCCL refuses
+   two ranks on one card): one data-parallel step (K2 on 4,096 rays a
+   rank) against K2 on the concatenated 8,192 rays under the grad rule;
+   one dp1 x tp2 step (parameters sharded as DTensors, K2 on the gathered
+   weights) against its one-process replay; one 800x800 synth800 view
+   through the sharded frame renderer (K1 on half the rays a rank) against
+   the one-device frame;
+17. sfm_sharded: hypothesis-sharded F-RANSAC over [cuda:0] x 2 against the
+   one-device call (bit for bit), point-sharded BA over 2 shards against
+   the one-device BA (cost within 1e-9), and the pipeline's refusal of
+   --ransac_devices / --ba_devices larger than the visible card count.
 
 Each kernel path runs with the launch counters set to 0 just before it and
 read just after; a path that did not launch its kernel fails the run.  Every
@@ -128,6 +144,15 @@ SFM_NOISE_PX, SFM_OUTLIER_FRAC = 0.5, 0.10
 SFM_MEAN_PX, SFM_ROT_DEG = 1.0, 0.1   # final BA mean error, median rotation error
 F_REL_TOL = 1e-8                      # F on the card vs on the CPU, relative
 BA_PIXEL_TOL = 1e-6                   # BA on the card vs the CPU: seen pixels
+
+# ---- multi-device phases ---------------------------------------------------
+DP_STEPS, DP_HIER_STEPS = 20, 5
+DP2_RAYS = 8192                       # the dp2_one_card step's batch: 4,096 a rank
+DP2_TIMEOUT = 600                     # s for both ranks of dp2_one_card
+SPMD_RTOL, SPMD_ATOL = 1e-4, 1e-6     # the dp x tp step vs its replay (tests' rule)
+SHARDED_F_ITERS = 16384               # 16 chunks: 8 a shard, one solve block each
+SHARDED_BA_ITERS = 20
+BA_COST_REL_TOL = 1e-9                # point-sharded BA vs one device
 
 
 def write_sfm_dataset(out_dir, n_cams, n_points, window, noise_px=SFM_NOISE_PX,
@@ -394,9 +419,339 @@ def run_sfm_phases(phase, out_root):
             ["--ransac_iters", str(SCALE_F_ITERS), "--ba_interval", "12"])
         emit("sfm_scale", **rec)
 
+    def sfm_sharded():
+        """Hypothesis-sharded F-RANSAC and point-sharded BA over two shards
+        of the one card, each against its one-device call; the pipeline
+        refuses more shards than cards."""
+        from sfm_nerf_tpu_torch.config import SfMConfig
+        from sfm_nerf_tpu_torch.io.sfm_data import parse_matching_files
+        from sfm_nerf_tpu_torch.parallel.ba import bundle_adjust_sharded
+        from sfm_nerf_tpu_torch.parallel.ransac import ransac_fundamental_sharded
+        from sfm_nerf_tpu_torch.sfm.pipeline import SfMPipeline
+
+        gt = state["gt"] if "gt" in state else write_sfm_dataset(
+            os.path.join(out_root, "sfm_data"), SFM_CAMS, SFM_POINTS, SFM_WINDOW)
+        matches, _, _ = parse_matching_files(os.path.join(out_root, "sfm_data"), SFM_CAMS)
+        m = torch.as_tensor(matches[(1, 2)], device=dev)
+        shards = [dev, dev]
+
+        def timed(fn):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            r = fn()
+            torch.cuda.synchronize()
+            return r, time.time() - t0
+
+        one, one_s = timed(lambda: ep.ransac_fundamental(
+            m[:, 0:2], m[:, 2:4], n_iters=SHARDED_F_ITERS,
+            generator=torch.Generator(device=dev).manual_seed(3)))
+        two, two_s = timed(lambda: ransac_fundamental_sharded(
+            m[:, 0:2], m[:, 2:4], shards, n_iters=SHARDED_F_ITERS,
+            generator=torch.Generator(device=dev).manual_seed(3)))
+        f_equal = bool(torch.equal(one.F, two.F))
+        same = (int(one.best_iter) == int(two.best_iter) and torch.equal(one.inliers, two.inliers)
+                and f_equal)
+        rng = np.random.default_rng(2)
+        from sfm_nerf_tpu_torch.ops.linalg import rotation_to_rvec
+
+        rv = rotation_to_rvec(torch.as_tensor(gt["Rs"])).numpy()
+        cams = np.concatenate([rv, -np.einsum("nij,nj->ni", gt["Rs"], gt["Cs"])], 1)
+        cams = cams + rng.normal(0, 1e-3, cams.shape)
+        pts = gt["points"] + rng.normal(0, 1e-2, gt["points"].shape)
+        t = lambda a: torch.as_tensor(a, device=dev)
+        args = (t(gt["K"]), t(cams), t(pts), t(gt["obs"]), t(gt["ok"].astype(np.float64)))
+        b1, b1_s = timed(lambda: ba_ops.bundle_adjust(*args, n_iters=SHARDED_BA_ITERS))
+        b2, b2_s = timed(lambda: bundle_adjust_sharded(*args, shards, n_iters=SHARDED_BA_ITERS))
+        cost_rel = abs(float(b2.cost) / float(b1.cost) - 1)
+        geom = max(float((b2.camera_params - b1.camera_params).abs().max()),
+                   float((b2.points - b1.points).abs().max()))
+        refused = []
+        for kw in (dict(ransac_devices=torch.cuda.device_count() + 1),
+                   dict(ba_devices=torch.cuda.device_count() + 1)):
+            try:
+                SfMPipeline(SfMConfig(**kw), device="cuda")
+            except ValueError as e:
+                refused.append(str(e))
+        rec = {"ransac": {"matches": int(m.shape[0]), "hypotheses": SHARDED_F_ITERS,
+                          "shards": len(shards), "bit_equal": same,
+                          "best_iter": int(two.best_iter), "n_inliers": int(two.n_inliers),
+                          "one_device_s": one_s, "sharded_s": two_s},
+               "ba": {"cams": SFM_CAMS, "points": SFM_POINTS, "iters": SHARDED_BA_ITERS,
+                      "shards": len(shards), "cost_rel_err": cost_rel,
+                      "geometry_max_abs_diff": geom,
+                      "cost": [float(b1.initial_cost), float(b2.cost)],
+                      "one_device_s": b1_s, "sharded_s": b2_s},
+               "refused": refused}
+        if not same or cost_rel > BA_COST_REL_TOL or len(refused) != 2:
+            raise AssertionError(f"sfm_sharded: {rec}")
+        emit("sfm_sharded", **rec)
+
     phase(sfm)
     phase(sfm_ops)
+    phase(sfm_sharded)
     phase(sfm_scale)
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _grad_rule(got, ref):
+    """Per tensor: relative error of the norm and max error over the max,
+    the worst of each; raises past GRAD_REL_TOL / GRAD_MAX_TOL."""
+    worst = {"rel": 0.0, "max": 0.0}
+    for k in ref:
+        e = got[k] - ref[k]
+        row = {"rel": e.norm().item() / ref[k].norm().item(),
+               "max": e.abs().max().item() / ref[k].abs().max().item()}
+        if row["rel"] > GRAD_REL_TOL or row["max"] > GRAD_MAX_TOL:
+            raise AssertionError(f"grad {k}: {row}")
+        worst = {m: max(worst[m], row[m]) for m in worst}
+    return worst
+
+
+def _dp2_rank(rank, port, out_dir, data):
+    """One of dp2_one_card's two ranks: gloo, cuda:0.  Writes its record to
+    ``out_dir/rank{rank}.json``; rank 0 also replays each step in one
+    process and renders the one-device frame."""
+    import faulthandler
+
+    faulthandler.enable()     # a crash in a rank prints where it happened
+    sys.path.insert(0, REPO)
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from sfm_nerf_tpu_torch.config import NeRFModelConfig, NeRFPipelineConfig, RenderConfig
+    from sfm_nerf_tpu_torch.config import TrainConfig
+    from sfm_nerf_tpu_torch.io.blender import load_blender_dataset
+    from sfm_nerf_tpu_torch.kernels import fused_render as fr
+    from sfm_nerf_tpu_torch.kernels import fused_train as ft
+    from sfm_nerf_tpu_torch.models.convert import params_from_jax, params_to_jax
+    from sfm_nerf_tpu_torch.models.nerf import NeRF
+    from sfm_nerf_tpu_torch.ops.rays import sample_ray_batch
+    from sfm_nerf_tpu_torch.ops.render import stratified_samples
+    from sfm_nerf_tpu_torch.parallel import mesh as pmesh
+    from sfm_nerf_tpu_torch.parallel import train_step as pstep
+    from sfm_nerf_tpu_torch.parallel.render import make_sharded_render_image
+    from sfm_nerf_tpu_torch.train import checkpoint as ckpt
+    from sfm_nerf_tpu_torch.train.nerf_trainer import (
+        make_loss_fn, make_optimizer, make_render_image,
+    )
+    from sfm_nerf_tpu_torch.utils.metrics import psnr
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    pmesh.init_local("gloo", rank, 2, port, dev)
+    rec = {"rank": rank, "backend": dist.get_backend()}
+    try:
+        f32 = dict(dtype=torch.float32, device=dev)
+        images, poses, cam = load_blender_dataset(data, "train")
+        scene = (torch.as_tensor(images, **f32), torch.as_tensor(poses, **f32),
+                 torch.as_tensor(cam.camera_matrix, **f32))
+        cfg = NeRFPipelineConfig(model=NeRFModelConfig(),
+                                 render=RenderConfig(n_sample=256, use_fused_kernel=True),
+                                 train=TrainConfig(n_rays_batch=DP2_RAYS))
+        n_local = DP2_RAYS // 2
+
+        def gen(i):
+            return torch.Generator(device=dev).manual_seed(pstep.draw_seed(0, i))
+
+        # 1. one data-parallel step: K2 on this rank's 4,096 rays
+        mesh = pmesh.make_mesh(dp=2, tp=1, device_type="cuda")
+        model = NeRF(cfg.model, device=dev, seed=0)
+        opt, sched = make_optimizer(cfg, model)
+        step = pstep.make_dp_train_step(cfg, opt, sched, mesh)
+        ft.reset_launch_counts()
+        loss = float(step(model, gen(step.draw_index), *scene))
+        rec["dp"] = {"launches": dict(ft.LAUNCHES), "loss": loss,
+                     "draw_index": step.draw_index}
+        if rank == 0:
+            # the replay: both ranks' draws concatenated, K2 on 8,192 rays
+            parts = []
+            for r in range(2):
+                g = gen(r)
+                o_, d_, t_ = sample_ray_batch(*scene, n_local, g)
+                parts.append((o_, d_, stratified_samples(n_local, cfg.render, g, dev), t_))
+            o, d, z, t = (torch.cat(x) for x in zip(*parts))
+            packed = fr.pack_nerf_params(NeRF(cfg.model, device=dev, seed=0), cfg.model,
+                                         torch.bfloat16)
+            rgb, gw, gb = ft.fused_mse_loss_grads(packed, o, d, z, t, cfg.render)
+            ref = ft.unpack_grads(packed, gw, gb)
+            got = {n: p.grad for n, p in model.named_parameters()}
+            ref_loss = torch.mean((rgb - t) ** 2).item()
+            rec["dp"].update(replay_loss=ref_loss, loss_rel_err=abs(loss / ref_loss - 1),
+                             grads_vs_replay=_grad_rule(got, ref),
+                             grads_bit_equal=all(torch.equal(got[k], ref[k]) for k in ref))
+            if rec["dp"]["loss_rel_err"] > LOSS_REL_TOL:
+                raise AssertionError(f"dp step loss vs replay: {rec['dp']}")
+
+        # 2. one dp1 x tp2 step: parameters sharded over 'model', K2 on the
+        # gathered weights, 4,096 rays a rank
+        grid = pmesh.make_mesh(dp=1, tp=2, device_type="cuda")
+        model = NeRF(cfg.model, device=dev, seed=0)
+        pstep.distribute_params(model, grid, pstep.mlp_param_placements(model, grid))
+        opt, sched = make_optimizer(cfg, model)
+        step = pstep.make_spmd_train_step(cfg, opt, sched, grid, model)
+        ft.reset_launch_counts()
+        loss = float(step(model, gen(step.draw_index), *scene))
+        rec["spmd"] = {"launches": dict(ft.LAUNCHES), "loss": loss,
+                       "draw_index": step.draw_index,
+                       "local_fc2_0_weight": list(model.layers["fc2_0"].weight.to_local().shape)}
+        after = params_to_jax(model)
+        if rank == 0:
+            fresh = NeRF(cfg.model, device=dev, seed=0)
+            fopt, fsched = make_optimizer(cfg, fresh)
+            loss_fn = make_loss_fn(cfg, n_rays=n_local)
+            ref_loss = torch.stack([loss_fn(fresh, gen(r), *scene) for r in range(2)]).mean()
+            ref_loss.backward()
+            fopt.step()
+            fsched.step()
+            want = params_to_jax(fresh)
+            diffs = [np.abs(after[k][kk] - want[k][kk]).max() for k in want for kk in ("w", "b")]
+            close = all(np.allclose(after[k][kk], want[k][kk], rtol=SPMD_RTOL, atol=SPMD_ATOL)
+                        for k in want for kk in ("w", "b"))
+            rec["spmd"].update(replay_loss=float(ref_loss), params_max_abs_diff=float(max(diffs)),
+                               params_bit_equal=all(np.array_equal(after[k][kk], want[k][kk])
+                                                    for k in want for kk in ("w", "b")))
+            if not close or abs(loss - float(ref_loss)) > 1e-5 * abs(float(ref_loss)):
+                raise AssertionError(f"spmd step vs replay: {rec['spmd']}")
+
+        # 3. an 800x800 view through the sharded frame renderer, K1 on half
+        # of the rays a rank
+        params, _ = ckpt.load_params_untyped(
+            os.path.join(REPO, "Phase2", "checkpoints", "synth800", "final_model.ckpt.npz"))
+        mcfg = ckpt.infer_model_config(params)
+        net = params_from_jax(params, mcfg, dev).eval()
+        timgs, tposes, tcam = load_blender_dataset(data, "test")
+        H, W = timgs.shape[1:3]
+        K = torch.as_tensor(tcam.camera_matrix, device=dev)
+        pose = torch.as_tensor(tposes[0], device=dev)
+        pcfg = NeRFPipelineConfig(model=mcfg, render=RenderConfig(
+            n_sample=256, near=2.0, far=6.0, perturb=False, use_fused_kernel=True))
+        fr.reset_launch_counts()
+        img = make_sharded_render_image(pcfg, mesh)(net, K, pose, H, W)
+        torch.cuda.synchronize()
+        rec["frame"] = {"launches": dict(fr.LAUNCHES), "shape": list(img.shape)}
+        if rank == 0:
+            one = make_render_image(pcfg)(net, K, pose, H, W)
+            gt = torch.as_tensor(timgs[0], device=dev)
+            rec["frame"].update(max_abs=(img - one).abs().max().item(), psnr_vs_one_device=psnr(img, one),
+                                bit_equal=bool(torch.equal(img, one)),
+                                psnr_vs_ground_truth=psnr(img, gt))
+            if rec["frame"]["max_abs"] > RGB_TOL or rec["frame"]["psnr_vs_one_device"] < PSNR_PLAIN:
+                raise AssertionError(f"sharded frame: {rec['frame']}")
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+
+
+def run_parallel_phases(phase, data, train_flags, state):
+    """dp_train and dp2_one_card (see the module docstring)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from sfm_nerf_tpu_torch.cli import nerf as cli
+    from sfm_nerf_tpu_torch.kernels import fused_train as ft
+    from sfm_nerf_tpu_torch.train import checkpoint as ckpt
+
+    def leaves(tree, prefix=""):
+        for k in sorted(tree):
+            if isinstance(tree[k], dict):
+                yield from leaves(tree[k], f"{prefix}{k}/")
+            else:
+                yield f"{prefix}{k}", tree[k]
+
+    def dp_train():
+        out = {}
+        for tag, extra, steps, per_step in (
+                ("flat", [], DP_STEPS, {"fused_mse_loss": 1}),
+                ("hier", ["--n_importance", str(N_IMPORTANCE)], DP_HIER_STEPS,
+                 {"fused_mse_loss_weights": 1, "fused_mse_loss": 1})):
+            runs = {}
+            for side in ("one_device", "dp"):
+                ck = os.path.join(OUT, f"dp_train_{tag}_{side}")
+                shutil.rmtree(ck, ignore_errors=True)
+                env = {} if side == "one_device" else {
+                    "WORLD_SIZE": "1", "RANK": "0", "LOCAL_RANK": "0", "LOCAL_WORLD_SIZE": "1",
+                    "MASTER_ADDR": "localhost", "MASTER_PORT": str(_free_port())}
+                os.environ.update(env)
+                try:
+                    ft.reset_launch_counts()
+                    stats = cli.main([*train_flags, *extra, "--checkpoint_path", ck,
+                                      "--max_iters", str(steps), "--log_every", "1",
+                                      "--val_every", "0", "--save_ckpt_iter", "0"])
+                    launches = dict(ft.LAUNCHES)
+                    backend = dist.get_backend() if dist.is_initialized() else None
+                finally:
+                    if dist.is_initialized():
+                        dist.destroy_process_group()
+                    for k in env:
+                        os.environ.pop(k)
+                want = {k: per_step.get(k, 0) * steps for k in launches}
+                mesh_want = None if side == "one_device" else {"data": 1, "model": 1}
+                if (launches != want or stats["steps"] != steps or stats["mesh"] != mesh_want
+                        or backend != (None if side == "one_device" else "nccl")):
+                    raise AssertionError(f"dp_train {tag} {side}: launches {launches}, "
+                                         f"mesh {stats['mesh']}, backend {backend}")
+                params, _ = ckpt.load_params_untyped(
+                    os.path.join(ck, "synth800", "final_model.ckpt.npz"))
+                runs[side] = dict(leaves(params))
+                out[f"{tag}_{side}"] = {"ms_per_step": stats["ms_per_step"],
+                                        "final_loss": stats["final_loss"],
+                                        "launches": launches, "backend": backend}
+            diff = max(float(np.abs(runs["dp"][k] - runs["one_device"][k]).max())
+                       for k in runs["dp"])
+            equal = all(np.array_equal(runs["dp"][k], runs["one_device"][k])
+                        for k in runs["one_device"])
+            out[f"{tag}_params_bit_equal"] = equal
+            out[f"{tag}_params_max_abs_diff"] = diff
+            if not equal or set(runs["dp"]) != set(runs["one_device"]):
+                raise AssertionError(f"dp_train {tag}: parameters differ by {diff}")
+        flat_dp, flat_one = out["flat_dp"]["ms_per_step"], out["flat_one_device"]["ms_per_step"]
+        emit("dp_train", steps=[DP_STEPS, DP_HIER_STEPS], **out,
+             dp_over_one_device_ms=flat_dp / flat_one,
+             train_phase_ms_per_step=state.get("train_ms_per_step"))
+
+    def dp2_one_card():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        out_dir = os.path.join(OUT, "dp2_one_card")
+        shutil.rmtree(out_dir, ignore_errors=True)
+        os.makedirs(out_dir)
+        t0 = time.time()
+        ctx = mp.start_processes(_dp2_rank, args=(_free_port(), out_dir, data), nprocs=2,
+                                 join=False, start_method="spawn")
+        while not ctx.join(timeout=5):
+            if time.time() - t0 > DP2_TIMEOUT:
+                for p in ctx.processes:
+                    p.kill()
+                raise AssertionError(f"dp2_one_card: a rank outlived {DP2_TIMEOUT} s")
+        recs = []
+        for r in range(2):
+            with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+                recs.append(json.load(f))
+        for r, rec in enumerate(recs):
+            if (rec["backend"] != "gloo" or rec["dp"]["launches"]["fused_mse_loss"] != 1
+                    or rec["spmd"]["launches"]["fused_mse_loss"] != 1
+                    or rec["frame"]["launches"]["fused_render_rays"] != 1
+                    or rec["dp"]["draw_index"] != r or rec["spmd"]["draw_index"] != r):
+                raise AssertionError(f"dp2_one_card rank {r}: {rec}")
+        if recs[0]["dp"]["loss"] != recs[1]["dp"]["loss"]:
+            raise AssertionError("dp2_one_card: the ranks' averaged losses differ")
+        emit("dp2_one_card", wall_s=round(time.time() - t0, 1), rank0=recs[0],
+             rank1_launches={k: recs[1][k]["launches"] for k in ("dp", "spmd", "frame")})
+
+    phase(dp_train)
+    phase(dp2_one_card)
 
 
 def main():
@@ -740,6 +1095,7 @@ def main():
         launches, record = train_run("train", train_ckpt, [], {"fused_mse_loss": 1},
                                      {"fused_render_rays": 1})
         state["K2_launches"] = launches["fused_mse_loss"]
+        state["train_ms_per_step"] = record["ms_per_step"]
         emit("train", **record)
 
     # ---- 6. train through the two-kernel route (K3) ------------------------
@@ -1224,6 +1580,7 @@ def main():
 
     if not failed:
         phase(kernel_line)
+    run_parallel_phases(phase, data, train_flags, state)
     run_sfm_phases(phase, OUT)
     emit("timing", elapsed_s=round(time.time() - t_start, 1))
     if failed:

@@ -34,8 +34,17 @@ renders it coarse pass -> N importance samples -> fine pass over the union;
 the checkpoint and the flag must agree.  Gif mode has no such flag, as in
 the JAX package: given a pair checkpoint it renders the fine network flat.
 
+Several GPUs: ``torchrun --nproc_per_node N -m sfm_nerf_tpu_torch.cli.nerf
+--mode train --dp N ...`` trains data parallel, one rank per card (NCCL;
+gloo with ``--device cpu``), each rank drawing n_rays_batch / N rays; rank
+0 logs, validates and writes the checkpoints.  ``--dp`` (Phase2/train.py's
+flag, default 0 = every rank) larger than the launched world exits
+non-zero, as does a world whose process group cannot start.  Tensor
+parallelism is reached through ``ParallelConfig.tp`` only, as in the JAX
+package.
+
 Not ported yet: ``figure_{i}.png`` (matplotlib), ``--plot_rays``, ``.pth``
-checkpoints, ``--steps_per_call``, ``--ckpt_backend orbax``, ``--dp``.
+checkpoints, ``--steps_per_call``, ``--ckpt_backend orbax``.
 """
 
 from __future__ import annotations
@@ -129,6 +138,8 @@ def config_parser(mode: str = "test") -> argparse.ArgumentParser:
         p.add_argument('--lrate_decay_steps', default=50000, type=int, help="learning rate decay steps")
         p.add_argument('--density_bias_init', default=0.0, type=float,
                        help="initial density-head bias")
+        p.add_argument('--dp', default=0, type=int,
+                       help="data-parallel ranks (0 = every rank torchrun started)")
         # additions of the port
         p.add_argument('--log_every', default=100, type=int,
                        help="read the loss back every this many steps")
@@ -148,7 +159,7 @@ def _model_name(data_path: str) -> str:
 
 def build_config(args):
     from sfm_nerf_tpu_torch.config import (
-        NeRFModelConfig, NeRFPipelineConfig, RenderConfig,
+        NeRFModelConfig, NeRFPipelineConfig, ParallelConfig, RenderConfig,
     )
 
     return NeRFPipelineConfig(
@@ -167,6 +178,7 @@ def build_config(args):
             fused_merged_step=not getattr(args, "two_kernel_step", False),
         ),
         train=_train_config(args),
+        parallel=ParallelConfig(dp=int(getattr(args, "dp", 0))),
         data_path=args.data_path, mode=args.mode,
         logs_path=getattr(args, "logs_path", "./logs/"),
         log_id=getattr(args, "log_id", ""),
@@ -240,10 +252,17 @@ def _resolve_bounds(args, cam, split: str) -> None:
 def run_train(args) -> dict:
     """Train mode.  Returns the trainer's stats with the logged losses and
     validation errors."""
+    import torch.distributed as dist
+
     from sfm_nerf_tpu_torch.io.blender import load_blender_dataset
+    from sfm_nerf_tpu_torch.parallel.mesh import init_from_env
     from sfm_nerf_tpu_torch.train.nerf_trainer import NeRFTrainer
 
-    device = _device(args.device)
+    device = init_from_env(_device(args.device).type)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if args.dp > world:
+        raise SystemExit(f"--dp {args.dp} but {world} rank(s) started: launch with "
+                         f"torchrun --nproc_per_node {args.dp}")
     print("Loading data...")
     images, poses, cam = load_blender_dataset(
         args.data_path, "train", downscale=int(args.downscale))
@@ -253,8 +272,10 @@ def run_train(args) -> dict:
     trainer = NeRFTrainer(cfg, images, poses, cam.camera_matrix, device=device)
     stats = trainer.fit()
     print(f"Training done: {stats}")
+    mesh = None if trainer.mesh is None else dict(zip(trainer.mesh.mesh_dim_names,
+                                                       trainer.mesh.shape))
     return {**stats, "start_iter": trainer.start_iter, "losses": trainer.loss_log,
-            "val": trainer.val_log}
+            "val": trainer.val_log, "mesh": mesh}
 
 
 def run_test(args) -> List[dict]:

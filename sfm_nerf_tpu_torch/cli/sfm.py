@@ -14,8 +14,12 @@ on.  The flags keep Wrapper.py's names and defaults for what is ported; the
 figures, ``--platform``, ``--runs``, ``--bucket_floor``, ``--float64`` (the
 port is always float64) and the options of the unported modules
 (``--global_init``, ``--global_rotation_init``, ``--essential_method 5pt``,
-``--ransac_confidence``, ``--ransac_devices``, ``--ba_devices``,
-``--pnp_f64_rescue on``) are not here.
+``--ransac_confidence``, ``--pnp_f64_rescue on``) are not here.
+
+``--ransac_devices N`` shards each pair's F-RANSAC hypotheses, and
+``--ba_devices N`` the global BA's points, over N devices: N distinct
+visible cards on ``cuda`` (fewer raise before any data is read), the CPU N
+times with ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -44,6 +48,10 @@ def config_parser() -> argparse.ArgumentParser:
                    action="store_false", default=True,
                    help="F-RANSAC one pair at a time instead of every pair "
                         "in batched launches")
+    p.add_argument("--ransac_devices", type=int, default=1,
+                   help="shard RANSAC hypotheses over this many devices "
+                        "(the single-device draws when it divides the chunk "
+                        "count ceil(ransac_iters / 1024))")
     p.add_argument("--pnp_iters", type=int, default=10000)
     p.add_argument("--pnp_threshold", type=float, default=10.0)
     p.add_argument("--ba_max_iters", type=int, default=50)
@@ -53,6 +61,10 @@ def config_parser() -> argparse.ArgumentParser:
     p.add_argument("--ba_interval_iters", type=int, default=10)
     p.add_argument("--registration_retries", type=int, default=2)
     p.add_argument("--tri_reproj_gate_px", type=float, default=10.0)
+    p.add_argument("--ba_devices", type=int, default=1,
+                   help="shard global BA's point axis over this many devices "
+                        "(the single-device result up to reduction-order "
+                        "rounding)")
     p.add_argument("--ba_refine_intrinsics", default="",
                    help="comma-set of {f,fx,fy,pp,cx,cy,k1,k2} freed in the "
                         "global BA ('' keeps K fixed)")
@@ -110,7 +122,8 @@ def main(argv: Optional[List[str]] = None):
         data_path=args.data_path, num_images=args.num_images,
         ransac_iters=args.ransac_iters, ransac_threshold=args.ransac_threshold,
         ransac_scoring=args.ransac_scoring,
-        ransac_batch_pairs=args.ransac_batch_pairs,
+        ransac_batch_pairs=args.ransac_batch_pairs, ransac_devices=args.ransac_devices,
+        ba_devices=args.ba_devices,
         pnp_iters=args.pnp_iters, pnp_threshold=args.pnp_threshold,
         ba_max_iters=args.ba_max_iters, ba_interval=args.ba_interval,
         ba_interval_iters=args.ba_interval_iters,

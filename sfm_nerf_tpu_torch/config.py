@@ -3,9 +3,10 @@
 A copy of the JAX package's dataclasses (sfm_nerf_tpu/config.py) with the
 same field names and defaults, minus the TPU tile knobs (fused_ray_tile,
 fused_sample_chunk, fused_tiles_per_program, fused_vmem_mb,
-fused_interpret): the CUDA kernel picks its own blocking.  ``SfMConfig`` is
-the JAX package's Phase 1 configuration minus ``bucket_floor``, which only
-served XLA compile reuse.
+fused_interpret): the CUDA kernel picks its own blocking.
+``ParallelConfig`` keeps the JAX fields.  ``SfMConfig`` is the JAX
+package's Phase 1 configuration minus ``bucket_floor``, which only served
+XLA compile reuse.
 """
 
 from __future__ import annotations
@@ -85,10 +86,23 @@ class TrainConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class ParallelConfig:
+    """Device-mesh layout of training over ``torch.distributed`` ranks
+    (parallel/).  ``dp`` ranks carry rays (0: every rank the model axis
+    leaves); ``tp`` ranks split each MLP layer's hidden channels."""
+
+    data_axis: str = "data"       # rays sharded here; grads averaged over it
+    model_axis: str = "model"     # MLP hidden channels sharded here (tp)
+    dp: int = 0
+    tp: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
 class NeRFPipelineConfig:
     model: NeRFModelConfig = NeRFModelConfig()
     render: RenderConfig = RenderConfig()
     train: TrainConfig = TrainConfig()
+    parallel: ParallelConfig = ParallelConfig()
     data_path: str = "./Phase2/nerf_synthetic/lego/"
     mode: str = "train"
     logs_path: str = "./logs/"
@@ -106,9 +120,14 @@ class SfMConfig:
     The port computes in float64 on every device, so ``pnp_f64_rescue='auto'``
     resolves to off.  Options whose modules are not ported yet
     (``global_rotation_init``, ``global_init``, ``essential_method='5pt'``,
-    ``ransac_confidence > 0``, ``ransac_devices > 1``, ``ba_devices > 1``,
-    ``pnp_f64_rescue='on'``) are refused by name when a pipeline is built
-    (sfm/pipeline.py:unported_options).
+    ``ransac_confidence > 0``, ``pnp_f64_rescue='on'``) are refused by name
+    when a pipeline is built (sfm/pipeline.py:unported_options).
+    ``ransac_devices`` and ``ba_devices`` shard F-RANSAC's hypotheses and
+    the global BA's points over that many devices (parallel/ransac.py,
+    parallel/ba.py): distinct visible GPUs on ``cuda``, the CPU repeated on
+    ``cpu``.  Sharded RANSAC draws exactly the single-device samples when
+    the device count divides the chunk count ceil(ransac_iters / 1024); else
+    the count rounds up to a device multiple.
     """
 
     data_path: str = "Phase1/Data"

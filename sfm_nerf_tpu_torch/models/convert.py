@@ -6,7 +6,10 @@ transposes.  optax's Adam state (``mu``, ``nu`` shaped like the params, one
 ``count``) maps to ``torch.optim.Adam``'s per-parameter ``exp_avg``,
 ``exp_avg_sq`` and ``step``, transposed like the weights.  A hierarchical
 run's ``{'coarse': ..., 'fine': ...}`` tree (params, ``mu`` and ``nu`` alike)
-maps to a ``NeRFPair``; every function here takes either.  Conversion of
+maps to a ``NeRFPair``; every function here takes either.  A model whose
+parameters are DTensors (the dp x tp step, parallel/train_step.py) is read
+whole (a gather: every rank of its mesh must call) and written shard by
+shard (each rank keeps its slice of the same values).  Conversion of
 reference ``.pth`` files waits for a slice that needs it: no ``.pth`` file
 is in the repository.
 """
@@ -39,6 +42,26 @@ def _check_kind(model: Model, tree: dict, what: str) -> None:
                          f"{kind[isinstance(model, NeRFPair)]}")
 
 
+def _host(t: torch.Tensor) -> np.ndarray:
+    """float32 numpy of ``t``; a DTensor is gathered whole first."""
+    if hasattr(t, "device_mesh"):
+        from sfm_nerf_tpu_torch.parallel.train_step import gather_whole
+
+        t = gather_whole([t])[0]
+    return t.detach().float().cpu().numpy()
+
+
+def _laid_out_as(p: torch.Tensor, a: np.ndarray) -> torch.Tensor:
+    """``a`` as a tensor on ``p``'s device, sharded as ``p`` when ``p`` is a
+    DTensor."""
+    if hasattr(p, "device_mesh"):
+        from torch.distributed.tensor import distribute_tensor
+
+        t = torch.tensor(a, device=p.to_local().device)
+        return distribute_tensor(t, p.device_mesh, p.placements, src_data_rank=None)
+    return torch.tensor(a, device=p.device)
+
+
 def load_params_from_jax(model: Model, params: JaxParams) -> Model:
     """Copy the JAX-layout ``params`` into ``model`` in place (an optimizer
     built on its parameters keeps pointing at them)."""
@@ -60,8 +83,9 @@ def load_params_from_jax(model: Model, params: JaxParams) -> Model:
                 raise ValueError(
                     f"{name}: got w{w.shape} b{b.shape}, expected "
                     f"w{(fan_in, fan_out)} b{(fan_out,)}")
-            model.layers[name].weight.copy_(torch.tensor(w.T))
-            model.layers[name].bias.copy_(torch.tensor(b))
+            layer = model.layers[name]
+            layer.weight.copy_(_laid_out_as(layer.weight, w.T))
+            layer.bias.copy_(_laid_out_as(layer.bias, b))
     return model
 
 
@@ -78,8 +102,8 @@ def params_to_jax(model: Model) -> JaxParams:
         return {side: params_to_jax(getattr(model, side)) for side in SIDES}
     return {
         name: {
-            "w": layer.weight.detach().float().cpu().numpy().T.copy(),
-            "b": layer.bias.detach().float().cpu().numpy(),
+            "w": _host(layer.weight).T.copy(),
+            "b": _host(layer.bias),
         }
         for name, layer in model.layers.items()
     }
@@ -104,7 +128,7 @@ def optimizer_state_to_jax(model: Model, optimizer: torch.optim.Adam) -> dict:
             st = optimizer.state.get(p, {})
             for tree, field in ((mu, "exp_avg"), (nu, "exp_avg_sq")):
                 t = st[field] if field in st else torch.zeros_like(p)
-                a = t.detach().float().cpu().numpy()
+                a = _host(t)
                 tree[name][key] = a.T.copy() if key == "w" else a
             if "step" in st:
                 count = max(count, int(st["step"]))
@@ -130,6 +154,6 @@ def optimizer_state_from_jax(model: Model, optimizer: torch.optim.Adam, state: d
                 if a.shape != tuple(p.shape):
                     raise ValueError(f"{tree}/{name}/{key}: got {a.shape}, expected "
                                      f"{tuple(p.shape)}")
-                st[field] = torch.tensor(a, device=p.device).contiguous()
+                st[field] = _laid_out_as(p, np.ascontiguousarray(a))
             # torch.optim.Adam keeps ``step`` as a float32 tensor on the CPU
             st["step"] = torch.tensor(float(state["count"]), dtype=torch.float32)

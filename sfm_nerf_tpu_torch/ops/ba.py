@@ -16,7 +16,10 @@ Same solver as sfm_nerf_tpu/ops/ba.py, in float64:
   6-wide block of the Schur system (``refine_intrinsics``).
 
 cam = [rvec (Rodrigues, world->cam), tvec]; the cost is scipy's
-0.5 * sum(r²).  The point-sharded form (``axis_name``) is not ported.
+0.5 * sum(r²).  ``bundle_adjust_blocks`` holds the points in blocks, one
+per device, and completes every point-axis sum across them
+(``_point_sum``, the JAX package's ``axis_name`` psum): the point-sharded
+BA of parallel/ba.py.
 """
 
 from __future__ import annotations
@@ -139,24 +142,64 @@ def bundle_adjust(
     (sfm_nerf_tpu/ops/ba.py:172).  ``refine_intrinsics``: comma-set of
     {f, fx, fy, pp, cx, cy, k1, k2} freed as one shared 6-wide block
     ('' keeps K fixed); frozen coordinates move by exactly 0."""
+    return bundle_adjust_blocks(
+        K, camera_params, [(points, observations, visibility)], n_iters=n_iters,
+        lambda0=lambda0, loss=loss, huber_delta=huber_delta,
+        refine_intrinsics=refine_intrinsics)
+
+
+def _point_sum(parts, home):
+    """A sum over the point axis completed across point blocks: the blocks'
+    partial sums added onto ``home`` in block order (one block: itself).
+    The counterpart of the JAX package's ``psum`` over the point axis."""
+    total = parts[0]
+    for part in parts[1:]:
+        total = total + part.to(home)
+    return total
+
+
+def bundle_adjust_blocks(K, camera_params, blocks, n_iters: int = 50,
+                         lambda0: float = 1e-3, loss: str = "linear",
+                         huber_delta: float = 3.0, refine_intrinsics: str = "") -> BAResult:
+    """``bundle_adjust`` over points held in blocks ``[(points (M_b, 3),
+    observations (N, M_b, 2), visibility (N, M_b)), ...]``, each block on a
+    device of its own (parallel/ba.py).  Everything per point stays on its
+    block's device; the point-axis sums (U, g_cam, the Schur product and
+    right-hand side, the intrinsics' blocks, the cost) are completed onto
+    ``K``'s device by ``_point_sum``, where the small camera system is
+    solved once and its step sent back.  The returned points are the
+    blocks' in order, on ``K``'s device.  One block is ``bundle_adjust``."""
     if loss not in ("linear", "huber"):
         raise ValueError(f"unknown loss {loss!r}")
     n_cam = camera_params.shape[0]
     dt, dev = K.dtype, K.device
-    vis = visibility.to(dt)
     free = intrinsics_free_mask(refine_intrinsics)
     refining = any(free)
     theta0 = theta_from_K(K)
     free_v = torch.tensor(free, dtype=dt, device=dev)
-
-    # cheirality mask frozen at the initial geometry (ops/ba.py:82-92)
-    z0 = _lanes(lambda cam, X, _: _depth(cam, X), camera_params, points, K)
-    mask0 = vis * (z0 > 1e-8).to(dt)
     one = _observe_theta if refining else _observe
+    jac_cam = jacfwd(one, argnums=0)
+    jac_pt = jacfwd(one, argnums=1)
+    jac_th = jacfwd(_observe_theta, argnums=2)
+    I6 = torch.eye(6, dtype=dt, device=dev)
+    diag = torch.arange(n_cam, device=dev)
 
-    def residual(cams, pts, theta):
-        proj = _lanes(one, cams, pts, theta if refining else K)
-        return (proj - observations) * mask0[..., None]
+    class Block:
+        """One block's points and data on its device, with the cheirality
+        mask frozen at the initial geometry (ops/ba.py:82-92)."""
+
+        def __init__(self, pts, obs, vis):
+            self.dev = pts.device
+            self.pts, self.obs = pts, obs
+            z0 = _lanes(lambda cam, X, _: _depth(cam, X), camera_params.to(self.dev), pts,
+                        K.to(self.dev))
+            self.mask0 = vis.to(dt) * (z0 > 1e-8).to(dt)
+
+    blks = [Block(*b) for b in blocks]
+
+    def residual(b, cams, pts, theta):
+        proj = _lanes(one, cams.to(b.dev), pts, (theta if refining else K).to(b.dev))
+        return (proj - b.obs) * b.mask0[..., None]
 
     def irls_weights(r):
         if loss == "linear":
@@ -164,65 +207,74 @@ def bundle_adjust(
         norm = torch.linalg.norm(r, dim=-1)
         return torch.sqrt(torch.clamp(huber_delta / (norm + 1e-12), max=1.0))
 
-    def cost_of(cams, pts, theta):
-        r = residual(cams, pts, theta)
+    def block_cost(b, cams, pts, theta):
+        r = residual(b, cams, pts, theta)
         if loss == "linear":
             return 0.5 * torch.sum(r * r)
-        norm = torch.linalg.norm(r, dim=-1) * (mask0 > 0)
+        norm = torch.linalg.norm(r, dim=-1) * (b.mask0 > 0)
         return torch.sum(torch.where(norm <= huber_delta, 0.5 * norm ** 2,
                                      huber_delta * (norm - 0.5 * huber_delta)))
 
-    jac_cam = jacfwd(one, argnums=0)
-    jac_pt = jacfwd(one, argnums=1)
-    jac_th = jacfwd(_observe_theta, argnums=2)
-    I6 = torch.eye(6, dtype=dt, device=dev)
-    diag = torch.arange(n_cam, device=dev)
+    def cost_of(cams, pts_list, theta):
+        return _point_sum([block_cost(b, cams, pts, theta)
+                           for b, pts in zip(blks, pts_list)], dev)
 
-    def blocks(jac, cams, pts, k, wmask):
+    def jac_blocks(b, jac, cams, pts, k, wmask):
         # (N, M, 2, c) -> (2, N, c, M): the point axis minor, as ops/ba.py
-        return _lanes(jac, cams, pts, k).permute(2, 0, 3, 1) * wmask[None, :, None, :]
+        return _lanes(jac, cams.to(b.dev), pts, k.to(b.dev)).permute(2, 0, 3, 1) \
+            * wmask[None, :, None, :]
 
-    cams, pts, theta = camera_params, points, theta0
-    lam = torch.tensor(lambda0, dtype=dt, device=dev)
-    cost = c0 = cost_of(cams, pts, theta)
-    n_accepted = torch.zeros((), dtype=torch.long, device=dev)
-    for _ in range(n_iters):
+    def normal_blocks(b, cams, pts, theta, lam):
+        """The block's per-point terms and its partial point-axis sums."""
         kparam = theta if refining else K
-        r = residual(cams, pts, theta)                       # (N, M, 2)
+        r = residual(b, cams, pts, theta)                    # (N, M, 2)
         w = irls_weights(r)
         rt = (r * w[..., None]).permute(2, 0, 1)             # (2, N, M)
-        wmask = mask0 * w
-        A = blocks(jac_cam, cams, pts, kparam, wmask)        # (2, N, 6, M)
-        B = blocks(jac_pt, cams, pts, kparam, wmask)         # (2, N, 3, M)
-
-        U = (A[:, :, :, None] * A[:, :, None]).sum((0, 4))   # (N, 6, 6)
-        W = (B[:, :, :, None] * B[:, :, None]).sum((0, 1))   # (3, 3, M)
-        Y = (A[:, :, :, None] * B[:, :, None]).sum(0)        # (N, 6, 3, M)
-        g_cam = (A * rt[:, :, None]).sum((0, 3))             # (N, 6)
-        g_pt = (B * rt[:, :, None]).sum((0, 1))              # (3, M)
+        wmask = b.mask0 * w
+        A = jac_blocks(b, jac_cam, cams, pts, kparam, wmask)  # (2, N, 6, M)
+        B = jac_blocks(b, jac_pt, cams, pts, kparam, wmask)   # (2, N, 3, M)
+        loc = {"W": (B[:, :, :, None] * B[:, :, None]).sum((0, 1)),   # (3, 3, M)
+               "Y": (A[:, :, :, None] * B[:, :, None]).sum(0),        # (N, 6, 3, M)
+               "g_pt": (B * rt[:, :, None]).sum((0, 1))}              # (3, M)
+        part = {"U": (A[:, :, :, None] * A[:, :, None]).sum((0, 4)),  # (N, 6, 6)
+                "g_cam": (A * rt[:, :, None]).sum((0, 3))}            # (N, 6)
         if refining:
-            D = blocks(jac_th, cams, pts, theta, wmask) * free_v[:, None]  # (2, N, 6, M)
-            Z = (D[:, :, :, None] * B[:, :, None]).sum((0, 1))   # (6, 3, M)
-            Q = (D[:, :, :, None] * D[:, :, None]).sum((0, 1, 4))  # (6, 6)
-            Yc = (A[:, :, :, None] * D[:, :, None]).sum((0, 4))  # (N, 6, 6)
-            g_th = (D * rt[:, :, None]).sum((0, 1, 3))           # (6,)
-
-        W_inv = _inv3x3_lanes(W, lam)                        # (3, 3, M)
-        YWi = (Y[:, :, :, None] * W_inv[None, None]).sum(2)  # (N, 6, 3, M)
-        Y_r = Y.reshape(6 * n_cam, -1)
+            D = jac_blocks(b, jac_th, cams, pts, theta, wmask) * free_v.to(b.dev)[:, None]
+            loc["Z"] = (D[:, :, :, None] * B[:, :, None]).sum((0, 1))      # (6, 3, M)
+            part["Q"] = (D[:, :, :, None] * D[:, :, None]).sum((0, 1, 4))  # (6, 6)
+            part["Yc"] = (A[:, :, :, None] * D[:, :, None]).sum((0, 4))    # (N, 6, 6)
+            part["g_th"] = (D * rt[:, :, None]).sum((0, 1, 3))             # (6,)
+        W_inv = _inv3x3_lanes(loc["W"], lam.to(b.dev))       # (3, 3, M)
+        YWi = (loc["Y"][:, :, :, None] * W_inv[None, None]).sum(2)  # (N, 6, 3, M)
+        loc["W_inv"] = W_inv
+        loc["Y_r"] = loc["Y"].reshape(6 * n_cam, -1)
         YWi_r = YWi.reshape(6 * n_cam, -1)
-        S_off = (YWi_r @ Y_r.T).reshape(n_cam, 6, n_cam, 6).permute(0, 2, 1, 3)
-        rhs2 = (YWi_r @ g_pt.reshape(-1)).reshape(n_cam, 6)
-        S = -S_off
-        S[diag, diag] = S[diag, diag] + (U + lam * I6)
-        rhs = g_cam - rhs2
+        part["S_off"] = (YWi_r @ loc["Y_r"].T).reshape(n_cam, 6, n_cam, 6).permute(0, 2, 1, 3)
+        part["rhs2"] = (YWi_r @ loc["g_pt"].reshape(-1)).reshape(n_cam, 6)
+        if refining:
+            Z_r = loc["Z"].reshape(6, -1)
+            ZWi = (loc["Z"][:, :, None] * W_inv[None]).sum(1).reshape(6, -1)   # (6, 3M)
+            part["YWiZ"] = (YWi_r @ Z_r.T).reshape(n_cam, 6, 6)
+            part["ZWiZ"] = ZWi @ Z_r.T
+            part["ZWig"] = ZWi @ loc["g_pt"].reshape(-1)
+        return loc, part
+
+    cams, theta = camera_params, theta0
+    pts_list = [b.pts for b in blks]
+    lam = torch.tensor(lambda0, dtype=dt, device=dev)
+    cost = c0 = cost_of(cams, pts_list, theta)
+    n_accepted = torch.zeros((), dtype=torch.long, device=dev)
+    for _ in range(n_iters):
+        per = [normal_blocks(b, cams, pts, theta, lam) for b, pts in zip(blks, pts_list)]
+        tot = {k: _point_sum([part[k] for _, part in per], dev) for k in per[0][1]}
+        S = -tot["S_off"]
+        S[diag, diag] = S[diag, diag] + (tot["U"] + lam * I6)
+        rhs = tot["g_cam"] - tot["rhs2"]
         S_flat = S.permute(0, 2, 1, 3).reshape(6 * n_cam, 6 * n_cam)
         if refining:
-            ZWi = (Z[:, :, None] * W_inv[None]).sum(1)       # (6, 3, M)
-            S_cth = (Yc - (YWi_r @ Z.reshape(6, -1).T).reshape(n_cam, 6, 6)
-                     ).reshape(6 * n_cam, 6)
-            S_thth = Q - ZWi.reshape(6, -1) @ Z.reshape(6, -1).T
-            rhs_th = g_th - ZWi.reshape(6, -1) @ g_pt.reshape(-1)
+            S_cth = (tot["Yc"] - tot["YWiZ"]).reshape(6 * n_cam, 6)
+            S_thth = tot["Q"] - tot["ZWiZ"]
+            rhs_th = tot["g_th"] - tot["ZWig"]
             S_aug = torch.cat([torch.cat([S_flat, S_cth], 1),
                                torch.cat([S_cth.T, S_thth + lam * I6], 1)], 0)
             d = -torch.linalg.solve_ex(S_aug, torch.cat([rhs.reshape(-1), rhs_th]))[0]
@@ -231,21 +283,25 @@ def bundle_adjust(
         else:
             d_cam = -torch.linalg.solve_ex(S_flat, rhs.reshape(-1))[0].reshape(n_cam, 6)
             d_th = torch.zeros_like(theta)
-        rhs_pt = g_pt + (Y_r.T @ d_cam.reshape(-1)).reshape(3, -1)   # (3, M)
-        if refining:
-            rhs_pt = rhs_pt + (Z * d_th[:, None, None]).sum(0)
-        d_pt = -(W_inv * rhs_pt[None]).sum(1).T              # (M, 3)
-
-        cams_new, pts_new, theta_new = cams + d_cam, pts + d_pt, theta + d_th
+        pts_new = []
+        for b, pts, (loc, _) in zip(blks, pts_list, per):
+            rhs_pt = loc["g_pt"] + (loc["Y_r"].T @ d_cam.to(b.dev).reshape(-1)).reshape(3, -1)
+            if refining:
+                rhs_pt = rhs_pt + (loc["Z"] * d_th.to(b.dev)[:, None, None]).sum(0)
+            pts_new.append(pts - (loc["W_inv"] * rhs_pt[None]).sum(1).T)   # (M, 3)
+        cams_new, theta_new = cams + d_cam, theta + d_th
         cost_new = cost_of(cams_new, pts_new, theta_new)
         ok = torch.isfinite(cost_new) & (cost_new < cost)
         cams = torch.where(ok, cams_new, cams)
-        pts = torch.where(ok, pts_new, pts)
+        pts_list = [torch.where(ok.to(b.dev), pn, p)
+                    for b, pn, p in zip(blks, pts_new, pts_list)]
         theta = torch.where(ok, theta_new, theta)
         cost = torch.where(ok, cost_new, cost)
         lam = torch.clamp(torch.where(ok, lam * 0.3, lam * 5.0), 1e-10, 1e10)
         n_accepted = n_accepted + ok.long()
-    return BAResult(cams, pts, cost, c0, n_accepted, torch.sum(mask0), theta)
+    points = torch.cat([p.to(dev) for p in pts_list])
+    n_res = _point_sum([torch.sum(b.mask0) for b in blks], dev)
+    return BAResult(cams, points, cost, c0, n_accepted, n_res, theta)
 
 
 def fix_gauge_to_first_camera(camera_params, points):

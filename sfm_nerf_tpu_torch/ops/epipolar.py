@@ -247,6 +247,20 @@ def ransac_fundamental_pairs(
     if n_valid is not None:
         valid = torch.arange(N, device=pts1.device)[None, :] < n_valid[:, None]
     T1, T2, p1, p2, h1, h2 = _ransac_prep(pts1, pts2, normalize, valid)
+    scores = score_hypotheses(p1, p2, h1, h2, valid, samples, threshold, chunk, scoring)
+    best = torch.argmax(scores, dim=1)                          # (P,)
+    idx_best = torch.gather(samples, 1, best[:, None, None].expand(P, 1, 8))[:, 0]
+    F, inliers = _ransac_winner(idx_best, T1, T2, p1, p2, h1, h2, threshold,
+                                normalize, valid)
+    return RansacResult(F, inliers, inliers.sum(-1), best)
+
+
+def score_hypotheses(p1, p2, h1, h2, valid, samples: torch.Tensor, threshold: float,
+                     chunk: int, scoring: str) -> torch.Tensor:
+    """(P, n_hyp) scores of the minimal samples ``samples`` (P, n_hyp, 8),
+    n_hyp whole chunks, on the prepared rows of ``_ransac_prep``: solved in
+    blocks of ``solve_block(chunk)``, scored chunk by chunk; a non-finite F
+    scores -inf.  parallel/ransac.py calls it on each device's share."""
     total = samples.shape[1]
     if total % chunk:
         raise ValueError(f"{total} samples are not whole chunks of {chunk}")
@@ -264,11 +278,7 @@ def ransac_fundamental_pairs(
             # non-finite F
             ok = torch.all(torch.isfinite(F.flatten(-2)), dim=-1)
             scores.append(torch.where(ok, score, -torch.inf))
-    best = torch.argmax(torch.cat(scores, dim=1), dim=1)       # (P,)
-    idx_best = torch.gather(samples, 1, best[:, None, None].expand(P, 1, 8))[:, 0]
-    F, inliers = _ransac_winner(idx_best, T1, T2, p1, p2, h1, h2, threshold,
-                                normalize, valid)
-    return RansacResult(F, inliers, inliers.sum(-1), best)
+    return torch.cat(scores, dim=1)
 
 
 def _ransac_winner(idx_best, T1, T2, p1, p2, h1, h2, threshold, normalize,

@@ -12,12 +12,16 @@ reads one result per stage step (a RANSAC launch, a triangulation, a PnP
 solve, a BA round) and keeps the bookkeeping in numpy.  Random draws come
 from one ``torch.Generator`` on the device, seeded from ``SfMConfig.seed``:
 the F-RANSAC draws pair by pair in sorted pair order, then one PnP draw per
-registration attempt.  The figures of the JAX package are not written.
+registration attempt.  ``ransac_devices > 1`` runs each pair's F-RANSAC
+with its hypotheses sharded over that many devices, ``ba_devices > 1`` the
+global BA with its points sharded (parallel/), as the JAX pipeline routes
+them.  The figures of the JAX package are not written.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 import time
@@ -43,6 +47,8 @@ from sfm_nerf_tpu_torch.ops.ba import (
     _lanes,
 )
 from sfm_nerf_tpu_torch.ops.epipolar import (
+    RansacResult,
+    _host_result,
     cleanup_essential,
     decompose_essential,
     essential_from_fundamental,
@@ -56,6 +62,8 @@ from sfm_nerf_tpu_torch.ops.triangulation import (
     triangulate_nonlinear,
     triangulate_pair_bucketed,
 )
+from sfm_nerf_tpu_torch.parallel.ba import bundle_adjust_sharded
+from sfm_nerf_tpu_torch.parallel.ransac import ransac_fundamental_sharded
 from sfm_nerf_tpu_torch.sfm.tracks import merge_tracks
 
 
@@ -67,11 +75,22 @@ def unported_options(cfg: SfMConfig):
         ("global_init", cfg.global_init),
         ("essential_method='5pt'", cfg.essential_method == "5pt"),
         ("ransac_confidence > 0", cfg.ransac_confidence > 0.0),
-        ("ransac_devices > 1", cfg.ransac_devices > 1),
-        ("ba_devices > 1", cfg.ba_devices > 1),
         ("pnp_f64_rescue='on'", cfg.pnp_f64_rescue == "on"),
     )
     return [name for name, hit in checks if hit]
+
+
+def shard_devices(device, n: int, flag: str):
+    """The ``n`` devices a sharded stage runs on: ``cuda:0`` .. ``cuda:n-1``
+    (distinct visible cards) on a card, the CPU ``n`` times on the CPU, as
+    the JAX package's virtual CPU devices are."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return [device] * n
+    avail = torch.cuda.device_count()
+    if avail < n:
+        raise ValueError(f"{flag} {n} but only {avail} CUDA device(s) visible")
+    return [torch.device("cuda", i) for i in range(n)]
 
 
 def _reproj_err_px(K, R, C, X, uv):
@@ -127,6 +146,13 @@ class SfMPipeline:
                 "not ported to sfm_nerf_tpu_torch yet: " + ", ".join(missing))
         self.cfg = cfg
         self.device = torch.device(device)
+        # hypothesis-sharded F-RANSAC and point-sharded global BA
+        # (parallel/ransac.py, parallel/ba.py) over this many devices
+        self.ransac_devices = shard_devices(self.device, cfg.ransac_devices,
+                                            "--ransac_devices") \
+            if cfg.ransac_devices > 1 else None
+        self.ba_devices = shard_devices(self.device, cfg.ba_devices, "--ba_devices") \
+            if cfg.ba_devices > 1 else None
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
         self.stats: Dict = {}
 
@@ -143,7 +169,17 @@ class SfMPipeline:
         kw = dict(n_iters=cfg.ransac_iters, threshold=cfg.ransac_threshold,
                   normalize=cfg.normalize, scoring=cfg.ransac_scoring,
                   generator=self.generator, device=self.device)
-        if cfg.ransac_batch_pairs:
+        if self.ransac_devices is not None:
+            # per pair, the hypotheses over the devices: the single-device
+            # draws whenever the device count divides the chunk count
+            del kw["device"]
+            results = []
+            for _, arr in pairs:
+                res = ransac_fundamental_sharded(self._t(arr[:, 0:2]), self._t(arr[:, 2:4]),
+                                                 self.ransac_devices, **kw)
+                results.append(_host_result(RansacResult(*(t[None] for t in res)),
+                                            [len(arr)])[0])
+        elif cfg.ransac_batch_pairs:
             results = ransac_fundamental_pairs_bucketed(
                 [(arr[:, 0:2], arr[:, 2:4]) for _, arr in pairs], **kw)
         else:
@@ -474,8 +510,10 @@ class SfMPipeline:
 
         obs_t = self._t(obs)
         rms_before = None
+        ba_fn = bundle_adjust if self.ba_devices is None else functools.partial(
+            bundle_adjust_sharded, devices=self.ba_devices)
         for ba_round in range(max(1, cfg.ba_rounds)):
-            res = bundle_adjust(
+            res = ba_fn(
                 Kt, cams0, pts0, obs_t, self._t(vis_work),
                 n_iters=cfg.ba_max_iters, loss=cfg.ba_loss,
                 huber_delta=cfg.ba_huber_delta,

@@ -26,10 +26,20 @@ reads the loss only every ``log_every`` steps; checkpoints (.npz, the JAX
 package's key layout) and validation renders follow their own cadences, and
 a KeyboardInterrupt saves a checkpoint stamped with the last finished step.
 
+Several ranks (a process group is initialised: torchrun, or an in-process
+start): the step is parallel/train_step.py's, routed from
+``ParallelConfig`` as the JAX trainer routes it: ``tp > 1`` the dp x tp
+step, else the data-parallel step over every rank (at one rank it equals
+the single-device step bit for bit).  Every rank starts from the same
+seeded init (rank 0's is broadcast), resumes from the same checkpoint and
+draws from its own generator (``draw_seed``); rank 0 alone logs, validates
+and writes checkpoints while the others wait at a barrier.  Checkpoints
+hold whole tensors, so either package and one device resume them.
+
 Not ported: ``steps_per_call`` (a ``lax.scan`` that amortises XLA dispatch:
 the torch loop enqueues each step's launches without waiting for the
 device, so there is no per-step round trip to amortise), the orbax backend,
-the ``.pth`` fine-tune resume, dp/tp.
+the ``.pth`` fine-tune resume.
 
 Renderers.  Route, decided from the config alone:
 
@@ -59,6 +69,7 @@ from typing import Any, Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from sfm_nerf_tpu_torch.config import NeRFPipelineConfig
 from sfm_nerf_tpu_torch.kernels.fused_render import (
@@ -68,7 +79,8 @@ from sfm_nerf_tpu_torch.kernels.fused_train import (
     fused_mse_loss, fused_mse_loss_weights, fused_render_train,
 )
 from sfm_nerf_tpu_torch.models.convert import (
-    load_params_from_jax, optimizer_state_from_jax, optimizer_state_to_jax, params_to_jax,
+    load_params_from_jax, optimizer_state_from_jax, optimizer_state_to_jax, params_from_jax,
+    params_to_jax,
 )
 from sfm_nerf_tpu_torch.models.nerf import NeRF, NeRFPair
 from sfm_nerf_tpu_torch.ops.rays import image_rays, sample_ray_batch
@@ -143,32 +155,43 @@ def _check_model(cfg: NeRFPipelineConfig, model) -> bool:
     return hier
 
 
-def make_render_image(cfg: NeRFPipelineConfig):
-    """Renderer ``(model, K, pose, H, W, generator=None) -> (H, W, 3)`` on
-    ``pose``'s device.  Without a generator the samples are the
-    deterministic bin midpoints.  With ``render.n_importance > 0`` the
-    model is a NeRFPair and the fine image is returned."""
+def make_render_rays(cfg: NeRFPipelineConfig):
+    """Ray renderer ``(model, o, d, generator=None) -> rgb (N, 3)`` through
+    the route of ``make_render_image``; parallel/render.py runs it on each
+    rank's slice of a frame."""
     rcfg = cfg.render
     fused = use_fused_route(cfg)
     packed, packed_c = _packer(cfg), _packer(cfg)
 
     @torch.no_grad()
+    def render_rays_of(model, o: torch.Tensor, d: torch.Tensor,
+                       generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        hier = _check_model(cfg, model)
+        if fused and hier:
+            return _fused_hierarchical_render(
+                packed_c(model.coarse), packed(model.fine), o, d, rcfg, generator, False)[0]
+        if fused:
+            z = stratified_samples(o.shape[0], rcfg, generator, o.device)
+            return fused_render_rays(packed(model), o, d, z, rcfg)
+        if hier:
+            return render_rays_hierarchical_chunked(
+                model.coarse, model.fine, o, d, rcfg, rcfg.n_importance, generator)
+        return render_rays_chunked(model, o, d, rcfg, generator)
+
+    return render_rays_of
+
+
+def make_render_image(cfg: NeRFPipelineConfig):
+    """Renderer ``(model, K, pose, H, W, generator=None) -> (H, W, 3)`` on
+    ``pose``'s device.  Without a generator the samples are the
+    deterministic bin midpoints.  With ``render.n_importance > 0`` the
+    model is a NeRFPair and the fine image is returned."""
+    render_rays_of = make_render_rays(cfg)
+
     def render_image(model, K, pose: torch.Tensor, height: int, width: int,
                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        hier = _check_model(cfg, model)
         o, d = image_rays(K, pose, height, width)
-        if fused and hier:
-            rgb, _, _ = _fused_hierarchical_render(
-                packed_c(model.coarse), packed(model.fine), o, d, rcfg, generator, False)
-        elif fused:
-            z = stratified_samples(height * width, rcfg, generator, o.device)
-            rgb = fused_render_rays(packed(model), o, d, z, rcfg)
-        elif hier:
-            rgb = render_rays_hierarchical_chunked(
-                model.coarse, model.fine, o, d, rcfg, rcfg.n_importance, generator)
-        else:
-            rgb = render_rays_chunked(model, o, d, rcfg, generator)
-        return rgb.reshape(height, width, 3)
+        return render_rays_of(model, o, d, generator).reshape(height, width, 3)
 
     return render_image
 
@@ -354,13 +377,62 @@ class NeRFTrainer:
         # hierarchical sampling trains a coarse/fine pair under one Adam
         net = NeRFPair if cfg.render.n_importance > 0 else NeRF
         self.model = net(cfg.model, device=self.device, seed=cfg.train.seed)
+        self.world = dist.get_world_size() if dist.is_initialized() else 1
+        self.rank0 = not dist.is_initialized() or dist.get_rank() == 0
+        self.mesh, self.sharded = self._parallel_layout(cfg) if train_step is None \
+            else (None, False)
         self.optimizer, self.scheduler = make_optimizer(cfg, self.model)
         self._schedule = make_schedule(cfg)
-        self.train_step = train_step or make_train_step(cfg, self.optimizer, self.scheduler)
+        self.train_step = train_step or self._make_step(cfg)
         self.start_iter = 0
         self.writer = writer
         self.loss_log: List[Tuple[int, float]] = []   # (iteration, loss) at log_every
         self.val_log: List[Tuple[int, int, float]] = []   # (iteration, view, mse)
+
+    def _parallel_layout(self, cfg: NeRFPipelineConfig):
+        """(mesh, parameters stored sharded): None and False on one device;
+        with a process group, the mesh of ``ParallelConfig`` over every
+        rank, rank 0's init broadcast, and under tp > 1 the parameters laid
+        out as DTensors."""
+        par = cfg.parallel
+        if not dist.is_initialized():
+            if par.dp > 1 or par.tp > 1:
+                raise ValueError(
+                    f"dp={par.dp}, tp={par.tp} need a process group of that many ranks: "
+                    f"launch with torchrun --nproc_per_node {max(par.dp, 1) * par.tp}")
+            return None, False
+        from sfm_nerf_tpu_torch.parallel import mesh as pmesh
+        from sfm_nerf_tpu_torch.parallel import train_step as pstep
+
+        mesh = pmesh.make_mesh(par.dp, par.tp, self.device.type,
+                               par.data_axis, par.model_axis)
+        if mesh.size() != self.world:
+            raise ValueError(f"dp*tp={mesh.size()} ranks of {self.world}: every rank must "
+                             "be in the mesh")
+        pstep.broadcast_(list(self.model.parameters()))
+        if par.tp > 1:
+            pstep.distribute_params(self.model, mesh, pstep.mlp_param_placements(
+                self.model, mesh, par.model_axis))
+        return mesh, par.tp > 1
+
+    def _make_step(self, cfg: NeRFPipelineConfig) -> Callable:
+        if self.mesh is None:
+            return make_train_step(cfg, self.optimizer, self.scheduler)
+        from sfm_nerf_tpu_torch.parallel import train_step as pstep
+
+        if self.sharded:
+            step = pstep.make_spmd_train_step(cfg, self.optimizer, self.scheduler,
+                                              self.mesh, self.model)
+        else:
+            step = pstep.make_dp_train_step(cfg, self.optimizer, self.scheduler, self.mesh)
+        if self.rank0:
+            print(f"{'dp x tp' if self.sharded else 'data-parallel'} over "
+                  f"{dict(zip(self.mesh.mesh_dim_names, self.mesh.shape))} ranks")
+        return step
+
+    def _barrier(self) -> None:
+        if self.world > 1:
+            dist.barrier()
 
     # -- checkpointing -----------------------------------------------------
     def try_resume(self) -> bool:
@@ -383,11 +455,17 @@ class NeRFTrainer:
         self.start_iter = step + 1
         return True
 
-    def save(self, step: int, loss: float, final: bool = False) -> str:
-        return ckpt_lib.save_checkpoint(
-            self.cfg.checkpoint_path, step, params_to_jax(self.model),
-            optimizer_state_to_jax(self.model, self.optimizer),
-            extra={"loss": loss}, final=final)
+    def save(self, step: int, loss: float, final: bool = False) -> Optional[str]:
+        """Write a checkpoint of whole tensors from rank 0 (the path; None
+        on the other ranks).  With several ranks every rank must call: the
+        sharded parameters are gathered, and all wait for the file."""
+        params = params_to_jax(self.model)
+        opt_state = optimizer_state_to_jax(self.model, self.optimizer)
+        path = ckpt_lib.save_checkpoint(
+            self.cfg.checkpoint_path, step, params, opt_state,
+            extra={"loss": loss}, final=final) if self.rank0 else None
+        self._barrier()
+        return path
 
     # -- main loop ---------------------------------------------------------
     def fit(self, max_iters: Optional[int] = None,
@@ -400,8 +478,12 @@ class NeRFTrainer:
             rng = np.random.default_rng(cfg.train.seed)
             n_val = min(cfg.train.n_val_images, len(self.images))
             val_indices = rng.choice(len(self.images), n_val, replace=False)
+        from sfm_nerf_tpu_torch.parallel.train_step import draw_seed
+
+        # each rank its own stream; one device (index 0) draws from seed + 1
         self._generator = torch.Generator(device=self.device)
-        self._generator.manual_seed(cfg.train.seed + 1)
+        self._generator.manual_seed(draw_seed(
+            cfg.train.seed, getattr(self.train_step, "draw_index", 0)))
         self._loss = torch.zeros((), device=self.device)
         self._steps_done = 0
         self._marks: list = []     # (iteration, CUDA event or host time) at log_every
@@ -422,11 +504,18 @@ class NeRFTrainer:
             # interrupt -> checkpoint -> exit.  An interrupt that lands
             # inside optimizer.step() may have applied part of that update;
             # the stamp is still the last finished step, which resume re-runs
-            if self._done_through >= 0:
-                print("KeyboardInterrupt: saving checkpoint before exit")
-                self.save(self._done_through, float(self._loss))
-            else:
+            # no collective here: the other ranks may be anywhere.  Rank 0
+            # holds whole parameters unless they are sharded (tp > 1)
+            if self._done_through < 0:
                 print("KeyboardInterrupt before any completed step; nothing to checkpoint")
+            elif self.sharded:
+                print("KeyboardInterrupt: parameters sharded over tp ranks; not saved")
+            elif self.rank0:
+                print("KeyboardInterrupt: saving checkpoint before exit")
+                ckpt_lib.save_checkpoint(
+                    self.cfg.checkpoint_path, self._done_through, params_to_jax(self.model),
+                    optimizer_state_to_jax(self.model, self.optimizer),
+                    extra={"loss": float(self._loss)})
             raise
         final_loss = float(self._loss)      # waits for the device
         if self._steps_done > 0:
@@ -459,7 +548,7 @@ class NeRFTrainer:
             self._done_through = it
             # the loss reaches the host only here: a read per step would
             # stall the stream
-            if t.log_every and it % t.log_every == 0:
+            if t.log_every and it % t.log_every == 0 and self.rank0:
                 loss_f = float(loss)
                 self.loss_log.append((it, loss_f))
                 if self.device.type == "cuda":
@@ -482,12 +571,22 @@ class NeRFTrainer:
                 self._validate(it, val_indices)
 
     def _validate(self, it: int, val_indices) -> None:
+        """Rank 0 renders the validation views; the other ranks wait (and
+        first help gather sharded parameters)."""
+        model = self.model
+        if self.sharded:
+            model = params_from_jax(params_to_jax(self.model), self.cfg.model, self.device)
+        if self.rank0:
+            self._validate_views(model, it, val_indices)
+        self._barrier()
+
+    def _validate_views(self, model, it: int, val_indices) -> None:
         height, width = int(self.images.shape[1]), int(self.images.shape[2])
         # a renderer packs the weights it first sees: a new one per validation
         render_image = make_render_image(self.cfg)
-        self.model.eval()
+        model.eval()
         for i, idx in enumerate(val_indices):
-            pred = render_image(self.model, self.K, self.poses[int(idx)], height, width)
+            pred = render_image(model, self.K, self.poses[int(idx)], height, width)
             gt = self.images[int(idx)]
             val_mse = host_mse(pred, gt)
             self.val_log.append((it, int(idx), val_mse))
@@ -495,4 +594,4 @@ class NeRFTrainer:
                 self.writer.add_scalar(f"Loss/val_{i}", val_mse, it)
                 side = torch.cat([gt, pred], dim=1).permute(2, 0, 1).clamp(0, 1)
                 self.writer.add_image(f"Val_Image_{i}", side.cpu().numpy(), it)
-        self.model.train()
+        model.train()

@@ -181,11 +181,11 @@ def test_unported_options_are_refused_by_name():
                      (dict(global_rotation_init=True), "global_rotation_init"),
                      (dict(essential_method="5pt"), "essential_method='5pt'"),
                      (dict(ransac_confidence=0.99), "ransac_confidence > 0"),
-                     (dict(ransac_devices=2), "ransac_devices > 1"),
-                     (dict(ba_devices=2), "ba_devices > 1"),
                      (dict(pnp_f64_rescue="on"), "pnp_f64_rescue='on'")):
         with pytest.raises(ValueError, match=name.replace("'", ".").replace(">", ".")):
             SfMPipeline(SfMConfig(**kw), device="cpu")
+    # the sharded stages are ported (parallel/): accepted on the CPU
+    SfMPipeline(SfMConfig(ransac_devices=2, ba_devices=2), device="cpu")
     with pytest.raises(ValueError, match="mutually exclusive"):
         SfMConfig(ransac_confidence=0.99, ransac_devices=2)
     with pytest.raises(ValueError, match="unknown intrinsics token"):
