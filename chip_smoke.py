@@ -84,7 +84,20 @@ training step; hierarchical: 256 coarse + 128 importance samples):
 17. sfm_sharded: hypothesis-sharded F-RANSAC over [cuda:0] x 2 against the
    one-device call (bit for bit), point-sharded BA over 2 shards against
    the one-device BA (cost within 1e-9), and the pipeline's refusal of
-   --ransac_devices / --ba_devices larger than the visible card count.
+   --ransac_devices / --ba_devices larger than the visible card count;
+18. sfm_global: sfm_scale's scene and flags plus ``--global_init
+   --essential_method 5pt --ransac_confidence 0.999 --pnp_f64_rescue on``:
+   rotation and translation averaging before the global BA, the 5-point
+   two-view init, adaptive F- and PnP RANSAC; the hypotheses scored per
+   pair, the averaging residuals, pose errors beside sfm_scale's;
+19. sfm_global_ops: on the card against the CPU on the same inputs:
+   rotation and translation averaging on a 200-camera window-7 ring (the
+   200-camera protocol's pose graph), relative_pose_pairs over every pair
+   of sfm, the 5-point RANSAC on pair (1, 2) (and torch.linalg.eig's time
+   on its action matrices' shape), adaptive F-RANSAC over sfm's pairs
+   through the host and the device driver (bit for bit, beside the fixed
+   run; each driver timed twice, in the order host, device, device, host),
+   adaptive PnP (timed the same way) and the rescue on camera 3.
 
 Each kernel path runs with the launch counters set to 0 just before it and
 read just after; a path that did not launch its kernel fails the run.  Every
@@ -153,6 +166,15 @@ SPMD_RTOL, SPMD_ATOL = 1e-4, 1e-6     # the dp x tp step vs its replay (tests' r
 SHARDED_F_ITERS = 16384               # 16 chunks: 8 a shard, one solve block each
 SHARDED_BA_ITERS = 20
 BA_COST_REL_TOL = 1e-9                # point-sharded BA vs one device
+
+# ---- global initialisation, 5-point, adaptive RANSAC, PnP rescue -----------
+GLOBAL_FLAGS = ["--global_init", "--essential_method", "5pt", "--ransac_confidence",
+                "0.999", "--pnp_f64_rescue", "on"]
+ROT_RES_DEG, TRANS_RES_DEG = 3.0, 5.0 # mean rotation / median direction residual
+AVG_TOL = 1e-9                        # averagers and relative poses, card vs CPU
+E5_TOL = 1e-8                         # 5-point E, card vs CPU, up to sign
+RING_CAMS, RING_WINDOW = 200, 7       # the 200-camera protocol's pose graph
+ADAPTIVE_CONF = 0.999
 
 
 def write_sfm_dataset(out_dir, n_cams, n_points, window, noise_px=SFM_NOISE_PX,
@@ -273,12 +295,15 @@ def run_sfm_phases(phase, out_root):
     dev = torch.device("cuda")
     state = {}
 
-    def reconstruct(tag, n_cams, n_points, window, extra):
-        data = os.path.join(out_root, f"{tag}_data")
+    def reconstruct(tag, n_cams, n_points, window, extra, data_of=None):
+        """cli.sfm on a ring written for ``tag`` (or on ``data_of``'s)."""
+        data = os.path.join(out_root, f"{data_of or tag}_data")
         out = os.path.join(out_root, f"{tag}_out")
-        shutil.rmtree(data, ignore_errors=True)
         t0 = time.time()
-        gt = write_sfm_dataset(data, n_cams, n_points, window)
+        if data_of is None:
+            shutil.rmtree(data, ignore_errors=True)
+            state[f"{tag}_gt"] = write_sfm_dataset(data, n_cams, n_points, window)
+        gt = state[f"{data_of or tag}_gt"]
         write_s = time.time() - t0
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -417,7 +442,237 @@ def run_sfm_phases(phase, out_root):
         _, _, _, rec = reconstruct(
             "sfm_scale", SCALE_CAMS, SCALE_POINTS, SCALE_WINDOW,
             ["--ransac_iters", str(SCALE_F_ITERS), "--ba_interval", "12"])
+        state["sfm_scale_rec"] = rec
         emit("sfm_scale", **rec)
+
+    def sfm_global():
+        """sfm_scale's scene and flags plus the global initialisation, the
+        5-point two-view init, adaptive RANSAC and the PnP rescue."""
+        if "sfm_scale_gt" not in state:
+            state["sfm_scale_gt"] = write_sfm_dataset(
+                os.path.join(out_root, "sfm_scale_data"), SCALE_CAMS, SCALE_POINTS,
+                SCALE_WINDOW)
+        _, _, res, rec = reconstruct(
+            "sfm_global", SCALE_CAMS, SCALE_POINTS, SCALE_WINDOW,
+            ["--ransac_iters", str(SCALE_F_ITERS), "--ba_interval", "12", *GLOBAL_FLAGS],
+            data_of="sfm_scale")
+        st = res["stats"]
+        used = np.asarray(st["ransac_iters_scored"])
+        rec.update(
+            rotation_avg=st.get("rotation_avg"), translation_avg=st.get("translation_avg"),
+            hypotheses_per_pair={"pairs": len(used), "cap": -(-SCALE_F_ITERS // 1024) * 1024,
+                                 "min": int(used.min()), "median": float(np.median(used)),
+                                 "max": int(used.max()), "total": int(used.sum())},
+            pnp_rescues=st.get("pnp_rescues", {}), two_view=st.get("two_view"))
+        scale = state.get("sfm_scale_rec")
+        if scale is not None:
+            rec["sfm_scale_beside"] = {k: scale[k] for k in (
+                "wall_s", "stage_seconds", "ba_mean_px", "rot_err_deg_median",
+                "rot_err_deg_max", "centre_err_median", "centre_err_max")}
+        ok = (st.get("rotation_avg") and st.get("translation_avg")
+              and st["rotation_avg"]["mean_residual_deg"] < ROT_RES_DEG
+              and st["translation_avg"]["median_residual_deg"] < TRANS_RES_DEG
+              and "global_init" in st["stage_seconds"])
+        if not ok:
+            raise AssertionError(f"sfm_global: {rec}")
+        emit("sfm_global", **rec)
+
+    def sfm_global_ops():
+        """The new Phase 1 ops on the card against the CPU on the same
+        inputs."""
+        from sfm_nerf_tpu_torch.io.sfm_data import parse_matching_files
+        from sfm_nerf_tpu_torch.ops import essential5 as e5
+        from sfm_nerf_tpu_torch.ops import rotation_avg as ra
+        from sfm_nerf_tpu_torch.ops import translation_avg as ta
+        from sfm_nerf_tpu_torch.ops import triangulation as tri
+
+        cpu = torch.device("cpu")
+        sides = (("cuda", dev), ("cpu", cpu))
+
+        def timed(fn):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            r = fn()
+            torch.cuda.synchronize()
+            return r, round((time.time() - t0) * 1e3, 3)
+
+        rec = {}
+        # rotation + translation averaging on the 200-camera window-7 ring
+        rng = np.random.default_rng(11)
+        n = RING_CAMS
+        th = 2 * np.pi * np.arange(n) / n
+        C = np.stack([6 * np.cos(th), 0.4 * np.sin(3 * th), 6 * np.sin(th)], -1)
+        C -= C[0]
+        Rs = []
+        for _ in range(n):
+            Q = np.linalg.qr(rng.normal(size=(3, 3)))[0]
+            Rs.append(Q * np.sign(np.linalg.det(Q)))
+        Rs = np.stack(Rs)
+        Rs = np.einsum("nij,jk->nik", Rs, Rs[0].T)
+        pairs = sorted({(min(i, (i + d) % n), max(i, (i + d) % n))
+                        for i in range(n) for d in range(1, RING_WINDOW + 1)})
+
+        def small_rotation(v):
+            from sfm_nerf_tpu_torch.ops.linalg import rodrigues
+            return rodrigues(torch.as_tensor(v)).numpy()
+
+        R_rel = np.stack([small_rotation(rng.normal(0, np.radians(0.3), 3))
+                          @ Rs[j] @ Rs[i].T for i, j in pairs])
+        c_rel = np.stack([Rs[i] @ (C[j] - C[i]) / np.linalg.norm(C[j] - C[i]) for i, j in pairs])
+        c_rel = c_rel + rng.normal(0, 0.005, c_rel.shape)
+        avg, ms = {}, {}
+        for name, d in sides:
+            t = lambda a: torch.as_tensor(a, device=d)
+            (R_avg, ms[f"rotation_{name}_ms"]) = timed(
+                lambda: ra.rotation_averaging(pairs, t(R_rel), n))
+            u = ta.pair_direction_world(R_avg[[i for i, _ in pairs]], t(c_rel))
+            (C_avg, ms[f"translation_{name}_ms"]) = timed(
+                lambda: ta.translation_averaging(pairs, u, n))
+            avg[name] = (R_avg.cpu().numpy(), C_avg.cpu().numpy())
+        rot_diff = float(np.abs(avg["cuda"][0] - avg["cpu"][0]).max())
+        scale = np.linalg.norm(avg["cpu"][1], axis=-1).max()
+        cen_diff = float(np.abs(avg["cuda"][1] - avg["cpu"][1]).max() / scale)
+        cos = (np.einsum("nij,nij->n", avg["cuda"][0], Rs) - 1) / 2
+        rot_err = np.degrees(np.arccos(np.clip(cos, -1, 1)))
+        C_al = avg["cuda"][1] * (np.linalg.norm(C) / np.linalg.norm(avg["cuda"][1]))
+        rec["averaging"] = {
+            "cams": n, "edges": len(pairs), "rotation_max_diff": rot_diff,
+            "centre_max_diff_rel": cen_diff, "rot_err_deg_mean": float(rot_err.mean()),
+            "centre_err_mean_rel": float(np.linalg.norm(C_al - C, axis=-1).mean()
+                                         / np.linalg.norm(C, axis=-1).max()), **ms}
+
+        # relative_pose_pairs over every pair of sfm
+        data = os.path.join(out_root, "sfm_data")
+        if "sfm_gt" not in state:
+            state["sfm_gt"] = write_sfm_dataset(data, SFM_CAMS, SFM_POINTS, SFM_WINDOW)
+        gt = state["sfm_gt"]
+        matches, _, _ = parse_matching_files(data, SFM_CAMS)
+        keys = sorted(matches)
+        items = [(matches[k][:, 0:2], matches[k][:, 2:4]) for k in keys]
+        g = torch.Generator(device=dev).manual_seed(5)
+        fixed = ep.ransac_fundamental_pairs_bucketed(items, n_iters=1024, generator=g,
+                                                     device=dev)
+        inl = [matches[k][r.inliers] for k, r in zip(keys, fixed)]
+        width = max(len(m) for m in inl)
+        p1 = np.zeros((len(keys), width, 2))
+        p2 = np.zeros((len(keys), width, 2))
+        for r, m in enumerate(inl):
+            p1[r, :len(m)], p2[r, :len(m)] = m[:, 0:2], m[:, 2:4]
+        poses = {}
+        for name, d in sides:
+            t = lambda a: torch.as_tensor(np.asarray(a, np.float64), device=d)
+            (out, ms_) = timed(lambda: tri.relative_pose_pairs(
+                t(gt["K"]), t(np.stack([r.F for r in fixed])), t(p1), t(p2),
+                torch.as_tensor([len(m) for m in inl], device=d)))
+            poses[name] = ([o.cpu().numpy() for o in out], ms_)
+        rp_diff = max(float(np.abs(a - b).max())
+                      for a, b in zip(poses["cuda"][0], poses["cpu"][0]))
+        rec["relative_pose_pairs"] = {"pairs": len(keys), "max_diff": rp_diff,
+                                      "cuda_ms": poses["cuda"][1], "cpu_ms": poses["cpu"][1]}
+
+        # the 5-point RANSAC on pair (1, 2); torch.linalg.eig timed inside it
+        m12 = inl[keys.index((1, 2))]
+        e5out, eig_ms = {}, {}
+        eig = torch.linalg.eig
+
+        def timed_eig(A):
+            r, ms_ = timed(lambda: eig(A))
+            eig_ms[A.device.type] = eig_ms.get(A.device.type, 0.0) + ms_
+            return r
+
+        torch.linalg.eig = timed_eig
+        try:
+            for name, d in sides:
+                (out, ms_) = timed(lambda: e5.ransac_essential_5pt(
+                    m12[:, 0:2], m12[:, 2:4], gt["K"], n_iters=1000, seed=0, device=d))
+                e5out[name] = ([o.cpu().numpy() for o in out], ms_)
+        finally:
+            torch.linalg.eig = eig
+        (Ec, ic), (Eh, ih) = e5out["cuda"][0], e5out["cpu"][0]
+        e_diff = min(float(np.abs(Ec - Eh).max()), float(np.abs(Ec + Eh).max()))
+        rec["essential_5pt"] = {"matches": len(m12), "samples": 1000,
+                                "same_inliers": bool(np.array_equal(ic, ih)),
+                                "n_inliers": int(ic.sum()), "E_max_diff": e_diff,
+                                "cuda_ms": e5out["cuda"][1], "cpu_ms": e5out["cpu"][1],
+                                "eig_cuda_ms": eig_ms.get("cuda"),
+                                "eig_cpu_ms": eig_ms.get("cpu")}
+
+        # adaptive F-RANSAC over every pair: host vs device driver, vs fixed
+        total = -(-50000 // 1024) * 1024
+        g = torch.Generator(device=dev).manual_seed(9)
+        samples = [ep.draw_minimal_samples(total, 8, len(a), g, dev) for a, _ in items]
+        # the two drivers in the order host, device, device, host, so that
+        # neither pays alone for what the first call after another warms
+        runs, ms_runs = {}, {"host": [], "device": []}
+        for tag, kw in (("fixed", {}),
+                        *((t_, dict(confidence=ADAPTIVE_CONF, adaptive_device=t_ == "device"))
+                          for t_ in ("host", "device", "device", "host"))):
+            iters = []
+            (out, ms_) = timed(lambda: ep.ransac_fundamental_pairs_bucketed(
+                items, n_iters=50000, samples=samples, device=dev, iters_out=iters, **kw))
+            if tag in runs and tag != "fixed":
+                assert all(np.array_equal(a.F, b.F) for a, b in zip(out, runs[tag][0]))
+            runs[tag] = (out, iters, ms_)
+            ms_runs.get(tag, []).append(ms_)
+        same = all(np.array_equal(a.F, b.F) and np.array_equal(a.inliers, b.inliers)
+                   and int(a.best_iter) == int(b.best_iter)
+                   for a, b in zip(runs["host"][0], runs["device"][0]))
+        same = same and runs["host"][1] == runs["device"][1]
+        rec["adaptive_f"] = {"pairs": len(items), "cap": total,
+                             "host_equals_device": same,
+                             "iters_scored": sorted(set(runs["host"][1])),
+                             "fixed_ms": runs["fixed"][2],
+                             "host_ms": sum(ms_runs["host"]) / 2,
+                             "device_ms": sum(ms_runs["device"]) / 2,
+                             "host_ms_runs": ms_runs["host"],
+                             "device_ms_runs": ms_runs["device"]}
+
+        # adaptive PnP, host vs device driver, and the rescue card vs CPU, camera 3
+        cam = 2
+        vis = np.flatnonzero(gt["ok"][cam])
+        X3, x2 = gt["points"][vis], gt["obs"][cam, vis].copy()
+        bad = rng.random(len(vis)) < 0.3
+        x2[bad] = rng.uniform([0, 0], [800, 600], (int(bad.sum()), 2))
+        g = torch.Generator(device=dev).manual_seed(4)
+        psamp = ep.draw_minimal_samples(-(-10000 // 512) * 512, 6, len(vis), g, dev)
+        t = lambda a: torch.as_tensor(np.asarray(a, np.float64), device=dev)
+        pn, pn_ms = {}, {"host": [], "device": []}
+        for tag in ("host", "device", "device", "host"):
+            (out, ms_) = timed(lambda: pnp_ops.pnp_ransac_adaptive(
+                t(X3), t(x2), t(gt["K"]), confidence=ADAPTIVE_CONF, max_iters=10000,
+                samples=psamp, device_loop=tag == "device"))
+            if tag in pn:
+                assert torch.equal(out[0].R, pn[tag][0][0].R) and out[1] == pn[tag][0][1]
+            pn[tag] = (out, ms_)
+            pn_ms[tag].append(ms_)
+        pnp_same = (pn["host"][0][1] == pn["device"][0][1]
+                    and torch.equal(pn["host"][0][0].R, pn["device"][0][0].R)
+                    and torch.equal(pn["host"][0][0].inliers, pn["device"][0][0].inliers))
+        rs = {}
+        rescue_seed = 3 * 31      # the pipeline's seed for camera 3 at --seed 0
+        for name, d in sides:
+            (out, ms_) = timed(lambda: pnp_ops.pnp_ransac_f64_host(
+                rescue_seed, X3, x2, gt["K"], device=d))
+            rs[name] = (out, ms_)
+        rescue_same = bool(np.array_equal(rs["cuda"][0].inliers, rs["cpu"][0].inliers))
+        rescue_diff = max(float(np.abs(rs["cuda"][0].R - rs["cpu"][0].R).max()),
+                          float(np.abs(rs["cuda"][0].C - rs["cpu"][0].C).max()))
+        rec["pnp"] = {"points": len(vis), "adaptive_host_equals_device": bool(pnp_same),
+                      "adaptive_iters_scored": pn["host"][0][1],
+                      "adaptive_n_inliers": int(pn["host"][0][0].n_inliers),
+                      "adaptive_host_ms": sum(pn_ms["host"]) / 2,
+                      "adaptive_device_ms": sum(pn_ms["device"]) / 2,
+                      "adaptive_host_ms_runs": pn_ms["host"],
+                      "adaptive_device_ms_runs": pn_ms["device"],
+                      "rescue_same_inliers": rescue_same, "rescue_max_diff": rescue_diff,
+                      "rescue_n_inliers": int(rs["cuda"][0].n_inliers),
+                      "rescue_cuda_ms": rs["cuda"][1], "rescue_cpu_ms": rs["cpu"][1]}
+        ok = (rot_diff <= AVG_TOL and cen_diff <= AVG_TOL and rp_diff <= AVG_TOL
+              and rec["essential_5pt"]["same_inliers"] and e_diff <= E5_TOL
+              and same and pnp_same and rescue_same and rescue_diff <= AVG_TOL)
+        if not ok:
+            raise AssertionError(f"sfm_global_ops: {rec}")
+        emit("sfm_global_ops", **rec)
 
     def sfm_sharded():
         """Hypothesis-sharded F-RANSAC and point-sharded BA over two shards
@@ -490,6 +745,8 @@ def run_sfm_phases(phase, out_root):
     phase(sfm_ops)
     phase(sfm_sharded)
     phase(sfm_scale)
+    phase(sfm_global)
+    phase(sfm_global_ops)
 
 
 def _free_port():

@@ -10,11 +10,9 @@ RANSAC + LM, re-triangulates and runs the pruned global BA, all in float64
 on ``--device`` (default cuda).  Writes ``reconstruction.ply`` and
 ``sfm_stats.json`` to ``--output_dir``; with ``--export_nerf E`` also a
 NeRF dataset that ``cli.nerf --data_path E/ --near auto --far auto`` trains
-on.  The flags keep Wrapper.py's names and defaults for what is ported; the
-figures, ``--platform``, ``--runs``, ``--bucket_floor``, ``--float64`` (the
-port is always float64) and the options of the unported modules
-(``--global_init``, ``--global_rotation_init``, ``--essential_method 5pt``,
-``--ransac_confidence``, ``--pnp_f64_rescue on``) are not here.
+on.  The flags keep Wrapper.py's names, defaults and choices; the
+figures, ``--platform``, ``--runs``, ``--bucket_floor`` (XLA compile reuse)
+and ``--float64`` (the port is always float64) are not here.
 
 ``--ransac_devices N`` shards each pair's F-RANSAC hypotheses, and
 ``--ba_devices N`` the global BA's points, over N devices: N distinct
@@ -52,8 +50,33 @@ def config_parser() -> argparse.ArgumentParser:
                    help="shard RANSAC hypotheses over this many devices "
                         "(the single-device draws when it divides the chunk "
                         "count ceil(ransac_iters / 1024))")
+    p.add_argument("--ransac_confidence", type=float, default=0.0,
+                   help="> 0 (e.g. 0.999): adaptive early exit of F- and PnP "
+                        "RANSAC at this confidence, the iteration flags as "
+                        "caps; 0 keeps the fixed counts")
+    p.add_argument("--ransac_adaptive_device", default="auto",
+                   choices=["auto", "host", "device"],
+                   help="with --ransac_confidence > 0: 'host' reads each "
+                        "chunk's result before launching the next, 'device' "
+                        "keeps the stop rule on the device, 'auto' is "
+                        "host (same winners either way)")
     p.add_argument("--pnp_iters", type=int, default=10000)
     p.add_argument("--pnp_threshold", type=float, default=10.0)
+    p.add_argument("--pnp_f64_rescue", default="auto", choices=["auto", "on", "off"],
+                   help="'on': re-run a camera whose PnP RANSAC fails its "
+                        "inlier gate on numpy draws of its own seed "
+                        "('auto' is off: the port is float64)")
+    p.add_argument("--essential_method", default="from_f", choices=["from_f", "5pt"],
+                   help="two-view E: conjugate the 8-point F or the 5-point "
+                        "minimal solver's RANSAC")
+    p.add_argument("--global_init", action="store_true",
+                   help="rotation + translation averaging of the registered "
+                        "cameras -> re-triangulation -> BA")
+    p.add_argument("--global_rotation_init", action="store_true",
+                   help="rotation averaging of the registered cameras before BA")
+    p.add_argument("--global_init_batch_pairs", type=int, default=256,
+                   help="pairs per batched relative-pose launch of the pose "
+                        "graph (0 = one pair at a time)")
     p.add_argument("--ba_max_iters", type=int, default=50)
     p.add_argument("--ba_interval", type=int, default=0,
                    help="a light global BA after every this many "
@@ -123,6 +146,12 @@ def main(argv: Optional[List[str]] = None):
         ransac_iters=args.ransac_iters, ransac_threshold=args.ransac_threshold,
         ransac_scoring=args.ransac_scoring,
         ransac_batch_pairs=args.ransac_batch_pairs, ransac_devices=args.ransac_devices,
+        ransac_confidence=args.ransac_confidence,
+        ransac_adaptive_device={"auto": None, "host": False,
+                                "device": True}[args.ransac_adaptive_device],
+        pnp_f64_rescue=args.pnp_f64_rescue, essential_method=args.essential_method,
+        global_init=args.global_init, global_rotation_init=args.global_rotation_init,
+        global_init_batch_pairs=args.global_init_batch_pairs,
         ba_devices=args.ba_devices,
         pnp_iters=args.pnp_iters, pnp_threshold=args.pnp_threshold,
         ba_max_iters=args.ba_max_iters, ba_interval=args.ba_interval,

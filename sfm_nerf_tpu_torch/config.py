@@ -118,10 +118,15 @@ class SfMConfig:
     """Phase 1 pipeline knobs: the JAX package's field names and defaults.
 
     The port computes in float64 on every device, so ``pnp_f64_rescue='auto'``
-    resolves to off.  Options whose modules are not ported yet
-    (``global_rotation_init``, ``global_init``, ``essential_method='5pt'``,
-    ``ransac_confidence > 0``, ``pnp_f64_rescue='on'``) are refused by name
-    when a pipeline is built (sfm/pipeline.py:unported_options).
+    resolves to off and ``'on'`` re-runs a failed camera's PnP RANSAC on
+    numpy draws of its own seed (ops/pnp.py:pnp_ransac_f64_host).
+    ``ransac_confidence > 0`` stops F- and PnP RANSAC on their confidence
+    bound, ``ransac_adaptive_device`` picks the host-driven (False) or
+    device-predicated (True) driver; None ('auto') the host one on every
+    device, since on an H100 the device driver measured no faster.
+    ``global_rotation_init`` / ``global_init`` re-initialize the registered
+    cameras by rotation (and translation) averaging before the global BA,
+    ``essential_method='5pt'`` takes the two-view E from the 5-point RANSAC.
     ``ransac_devices`` and ``ba_devices`` shard F-RANSAC's hypotheses and
     the global BA's points over that many devices (parallel/ransac.py,
     parallel/ba.py): distinct visible GPUs on ``cuda``, the CPU repeated on

@@ -14,9 +14,11 @@ Phase1/Fundamental.py reshaped for an accelerator), in float64:
 - ties go to the first maximum (``torch.argmax``);
 - every pair of a launch is scored together: pairs are padded to the
   launch's largest match count and a valid mask stands for each pair's
-  count (``ransac_fundamental_pairs``).
-
-The adaptive (confidence-driven) drivers of the JAX package are not ported.
+  count (``ransac_fundamental_pairs``);
+- the adaptive drivers (``confidence > 0``) score the fixed run's
+  hypotheses chunk by chunk and stop on the Hartley-Zisserman bound of the
+  slowest pair (``adaptive_drive``), so an adaptive run is a prefix of the
+  fixed run on the same samples.
 """
 
 from __future__ import annotations
@@ -269,16 +271,168 @@ def score_hypotheses(p1, p2, h1, h2, valid, samples: torch.Tensor, threshold: fl
         idx = samples[:, b:b + solve_block(chunk)]              # (P, block, 8)
         F_block = eight_point_fast(_take_rows(p1, idx), _take_rows(p2, idx))
         for c in range(0, idx.shape[1], chunk):
-            F = F_block[:, c:c + chunk]
-            d = sampson_distance(F, h1, h2)                     # (P, chunk, N)
-            if valid is not None:
-                d = torch.where(valid[:, None, :], d, torch.inf)
-            score = _ransac_score(d, threshold, scoring)
-            # draws are duplicate-free; other degeneracies can still give a
-            # non-finite F
-            ok = torch.all(torch.isfinite(F.flatten(-2)), dim=-1)
-            scores.append(torch.where(ok, score, -torch.inf))
+            scores.append(_score_F(F_block[:, c:c + chunk], h1, h2, valid,
+                                   threshold, scoring)[0])
     return torch.cat(scores, dim=1)
+
+
+def _score_F(F, h1, h2, valid, threshold, scoring):
+    """Scores (P, H) and gated Sampson distances (P, H, N) of hypotheses
+    F (P, H, 3, 3); a non-finite F scores -inf (draws are duplicate-free,
+    other degeneracies can still give one)."""
+    d = sampson_distance(F, h1, h2)
+    if valid is not None:
+        d = torch.where(valid[:, None, :], d, torch.inf)
+    score = _ransac_score(d, threshold, scoring)
+    ok = torch.all(torch.isfinite(F.flatten(-2)), dim=-1)
+    return torch.where(ok, score, -torch.inf), d
+
+
+def _chunk_best(score, d, threshold):
+    """Per pair of one chunk: (best score, its index in the chunk, the
+    inlier count of that hypothesis) from scores (P, H), residuals
+    (P, H, N)."""
+    b = torch.argmax(score, dim=1)
+    s = torch.gather(score, 1, b[:, None])[:, 0]
+    db = torch.gather(d, 1, b[:, None, None].expand(-1, 1, d.shape[-1]))[:, 0]
+    return s, b, torch.sum(db < threshold, dim=-1)
+
+
+# ---- adaptive (confidence-driven) RANSAC -----------------------------------
+
+def adaptive_trials_needed(n_inliers: int, n_points: int, sample_size: int,
+                           confidence: float) -> float:
+    """Hartley & Zisserman's adaptive stopping bound (Alg. 4.5): the draws
+    needed for a ``confidence`` chance that one minimal sample is all
+    inliers at the inlier ratio ``n_inliers / n_points``; +inf when the
+    ratio rounds to 0 (sfm_nerf_tpu/ops/epipolar.py:406)."""
+    import math
+
+    w = min(max(n_inliers / max(n_points, 1), 0.0), 0.999999)
+    p_all_inlier = w ** sample_size
+    if p_all_inlier <= 0.0:
+        return float("inf")
+    if p_all_inlier >= 1.0:
+        return 0.0
+    return math.log(max(1.0 - confidence, 1e-300)) / math.log1p(-p_all_inlier)
+
+
+def _adaptive_trials_needed_device(cnt: torch.Tensor, nv: torch.Tensor,
+                                   confidence: float,
+                                   sample_size: int = 8) -> torch.Tensor:
+    """``adaptive_trials_needed`` elementwise in float64 on the device of
+    ``cnt``: counts (P,) and valid rows (P,) -> bounds (P,)."""
+    w = torch.clamp(cnt.to(F64) / torch.clamp(nv.to(F64), min=1.0), 0.0, 0.999999)
+    p = w ** sample_size
+    log1mc = float(np.log(max(1.0 - confidence, np.finfo(np.float64).tiny)))
+    bound = log1mc / torch.log1p(-p)
+    return torch.where(p <= 0.0, torch.inf, torch.where(p >= 1.0, 0.0, bound))
+
+
+def block_solver(solve, samples: torch.Tensor, chunk: int, device, dim: int = 0):
+    """Chunk c's hypotheses for an adaptive driver: ``solve`` of the
+    samples' rows (along ``dim``) ``[c * chunk, (c + 1) * chunk)``.  On a
+    card the rows are solved a block of ``solve_block(chunk)`` at a time
+    and kept, as the fixed drivers solve them: the solve is a few thousand
+    launches whatever its width, so a chunk's own solve would cost as much
+    as the block's.  On the CPU each chunk is solved alone."""
+    block = solve_block(chunk) if torch.device(device).type == "cuda" else chunk
+    cache = {}
+
+    def chunk_hyps(c):
+        b0 = c * chunk // block * block
+        if b0 not in cache:
+            cache.clear()
+            cache[b0] = solve(samples.narrow(dim, b0, min(block, samples.shape[dim] - b0)))
+        out = cache[b0]
+        if isinstance(out, tuple):
+            return tuple(o.narrow(dim, c * chunk - b0, chunk) for o in out)
+        return out.narrow(dim, c * chunk - b0, chunk)
+
+    return chunk_hyps
+
+
+def adaptive_drive(score_chunk, n_chunks: int, chunk: int, n_valid: torch.Tensor,
+                   confidence: float, sample_size: int, max_iters: int,
+                   min_iters: Optional[int] = None, device_loop: bool = False):
+    """The confidence exit over the chunks of a fixed run, for P problems
+    scored together (sfm_nerf_tpu/ops/epipolar.py:521/446, :740/804).
+
+    ``score_chunk(c)`` scores chunk c of every problem on the device and
+    returns (best score (P,), its index in the chunk (P,), that
+    hypothesis' inlier count (P,)).  A problem's running best moves only to
+    a strictly higher score, and moving sets its bound
+    ``_adaptive_trials_needed_device(count, n_valid)``.  The run stops once
+    ``done >= max(max(bound), min_iters)``: on the slowest problem.
+    ``min_iters`` defaults to two chunks.
+
+    - host driver (``device_loop=False``): each chunk's score, index and
+      bound come back to the host before the next chunk is launched, as
+      JAX's host drivers read theirs;
+    - device driver: the running best, its index and the bounds stay on
+      the device, and each chunk's update is predicated on
+      ``done < max(max(bound), min_iters)`` computed there from the state
+      before it, so a chunk launched past the stop changes nothing.  The
+      host reads that flag through a pinned buffer two chunks behind and
+      stops launching; the device never waits on the host.
+
+    Both compute the same values in the same order: the same winners and
+    count, bit for bit.  Returns (best hypothesis index (P,) long on the
+    device, hypotheses scored, at most ``max_iters``)."""
+    dev = n_valid.device
+    P = n_valid.shape[0]
+    if min_iters is None:
+        min_iters = min(2 * chunk, n_chunks * chunk)
+    floor = float(min_iters)
+    if not device_loop:
+        best = np.full(P, -np.inf)
+        best_iter = np.zeros(P, np.int64)
+        needed = np.full(P, float(max_iters))
+        done = 0
+        for c in range(n_chunks):
+            s, b, cnt = score_chunk(c)
+            bound = _adaptive_trials_needed_device(cnt, n_valid, confidence, sample_size)
+            s, b, bound = torch.stack([s, b.to(F64), bound]).cpu().numpy()
+            done += chunk
+            improved = s > best
+            best = np.where(improved, s, best)
+            best_iter = np.where(improved, c * chunk + b.astype(np.int64), best_iter)
+            needed = np.where(improved, bound, needed)
+            if done >= max(float(needed.max()), floor):
+                break
+        return torch.as_tensor(best_iter, device=dev), min(done, max_iters)
+
+    bs = torch.full((P,), -torch.inf, dtype=F64, device=dev)
+    bi = torch.zeros(P, dtype=torch.long, device=dev)
+    nd = torch.full((P,), float(max_iters), dtype=F64, device=dev)
+    applied = torch.zeros((), dtype=torch.long, device=dev)
+    floor_t = torch.tensor(floor, dtype=F64, device=dev)
+    on_card = dev.type == "cuda"
+    flags = torch.ones(n_chunks, dtype=torch.bool, pin_memory=on_card)
+    events = []
+    for c in range(n_chunks):
+        if c >= 2:
+            # the flag written after chunk c - 2: chunk c - 1 is still queued
+            if on_card:
+                events[c - 2].synchronize()
+            if not bool(flags[c - 2]):
+                break
+        go = (applied * chunk).to(F64) < torch.maximum(nd.max(), floor_t)
+        s, b, cnt = score_chunk(c)
+        improved = (s > bs) & go
+        bs = torch.where(improved, s, bs)
+        bi = torch.where(improved, c * chunk + b, bi)
+        nd = torch.where(improved,
+                         _adaptive_trials_needed_device(cnt, n_valid, confidence,
+                                                        sample_size), nd)
+        applied = applied + go.long()
+        flags[c].copy_((applied * chunk).to(F64) < torch.maximum(nd.max(), floor_t),
+                       non_blocking=on_card)
+        if on_card:
+            ev = torch.cuda.Event()
+            ev.record()
+            events.append(ev)
+    return bi, min(int(applied) * chunk, max_iters)
 
 
 def _ransac_winner(idx_best, T1, T2, p1, p2, h1, h2, threshold, normalize,
@@ -330,6 +484,92 @@ def ransac_fundamental(
                         res.best_iter[0])
 
 
+def ransac_fundamental_pairs_adaptive(
+    pts1: torch.Tensor,        # (P, N, 2) pixel coords, padded per pair
+    pts2: torch.Tensor,
+    samples: torch.Tensor,     # (P, >= n_chunks * chunk, 8): the fixed run's
+    n_valid: Optional[torch.Tensor] = None,
+    confidence: float = 0.999,
+    max_iters: int = 50000,
+    threshold: float = 5e-4,
+    normalize: bool = True,
+    chunk: int = 1024,
+    scoring: str = "msac",
+    min_iters: Optional[int] = None,
+    device_loop: bool = False,
+) -> Tuple[RansacResult, int]:
+    """Adaptive F-RANSAC over a pair axis (sfm_nerf_tpu/ops/epipolar.py:740;
+    ``device_loop=True`` is its ``_device`` twin, :804): chunk c scores
+    rows ``[c * chunk, (c + 1) * chunk)`` of every pair's ``samples``, one
+    chunk's solve and scores per launch sequence, until the slowest pair's
+    confidence bound is met (``adaptive_drive``).  Each pair's winner is
+    the fixed run's on the same samples cut at the count scored.  Returns
+    (result, hypotheses scored per pair, at most ``max_iters``)."""
+    P, N = pts1.shape[:2]
+    n_chunks = max(1, -(-max_iters // chunk))
+    if samples.shape[1] < n_chunks * chunk:
+        raise ValueError(f"{samples.shape[1]} samples for {n_chunks} chunks of {chunk}")
+    valid = None
+    if n_valid is None:
+        nv = torch.full((P,), N, dtype=torch.long, device=pts1.device)
+    else:
+        nv = n_valid.to(pts1.device)
+        valid = torch.arange(N, device=pts1.device)[None, :] < nv[:, None]
+    T1, T2, p1, p2, h1, h2 = _ransac_prep(pts1, pts2, normalize, valid)
+    solve = block_solver(lambda idx: eight_point_fast(_take_rows(p1, idx),
+                                                      _take_rows(p2, idx)),
+                         samples[:, :n_chunks * chunk], chunk, pts1.device, dim=1)
+
+    def score_chunk(c):
+        F = solve(c)
+        return _chunk_best(*_score_F(F, h1, h2, valid, threshold, scoring), threshold)
+
+    best, used = adaptive_drive(score_chunk, n_chunks, chunk, nv, confidence, 8,
+                                max_iters, min_iters, device_loop)
+    idx_best = torch.gather(samples, 1, best[:, None, None].expand(P, 1, 8))[:, 0]
+    F, inliers = _ransac_winner(idx_best, T1, T2, p1, p2, h1, h2, threshold,
+                                normalize, valid)
+    return RansacResult(F, inliers, inliers.sum(-1), best), used
+
+
+def ransac_fundamental_adaptive(
+    pts1: torch.Tensor,        # (N, 2)
+    pts2: torch.Tensor,
+    confidence: float = 0.999,
+    max_iters: int = 50000,
+    threshold: float = 5e-4,
+    normalize: bool = True,
+    chunk: int = 1024,
+    n_valid: Optional[int] = None,
+    scoring: str = "msac",
+    min_iters: Optional[int] = None,
+    generator: Optional[torch.Generator] = None,
+    samples: Optional[torch.Tensor] = None,
+    device_loop: bool = False,
+) -> Tuple[RansacResult, int]:
+    """Adaptive F-RANSAC of one pair (sfm_nerf_tpu/ops/epipolar.py:521;
+    ``device_loop=True``: :446): the fixed run's draws (``generator``, or
+    ``samples``, ``ceil(max_iters / chunk) * chunk`` rows of 8) scored
+    until the confidence bound is met.  Returns (result, hypotheses
+    scored)."""
+    n_pts = pts1.shape[0]
+    nv = n_pts if n_valid is None else int(n_valid)
+    if n_pts < 8:
+        pts1, pts2 = pad_rows(pts1, 8), pad_rows(pts2, 8)
+        n_valid = nv
+    if samples is None:
+        total = -(-max_iters // chunk) * chunk
+        samples = draw_minimal_samples(total, 8, nv, generator, pts1.device)
+    res, used = ransac_fundamental_pairs_adaptive(
+        pts1[None], pts2[None], samples[None].to(pts1.device),
+        None if n_valid is None else torch.tensor([nv], device=pts1.device),
+        confidence=confidence, max_iters=max_iters, threshold=threshold,
+        normalize=normalize, chunk=chunk, scoring=scoring, min_iters=min_iters,
+        device_loop=device_loop)
+    return RansacResult(res.F[0], res.inliers[0, :n_pts], res.n_inliers[0],
+                        res.best_iter[0]), used
+
+
 def pad_rows(t: torch.Tensor, n: int) -> torch.Tensor:
     """``t`` with zero rows appended up to ``n`` rows."""
     return torch.cat([t, t.new_zeros(n - t.shape[0], *t.shape[1:])]) \
@@ -357,14 +597,29 @@ def ransac_fundamental_bucketed(
     scoring: str = "msac",
     generator: Optional[torch.Generator] = None,
     device=None,
+    confidence: float = 0.0,
+    iters_out: Optional[list] = None,
+    adaptive_device: Optional[bool] = None,
 ) -> RansacResult:
     """Host wrapper of ``ransac_fundamental`` (the JAX name; there is no
-    shape bucket here): numpy in, numpy out, one copy back."""
+    shape bucket here): numpy in, numpy out, one copy back.
+    ``confidence > 0`` routes to ``ransac_fundamental_adaptive`` with
+    ``n_iters`` as the cap, its driver picked by ``adaptive_device``
+    (True the device-predicated one; False or None, 'auto', the host one:
+    on an H100 the device driver measured no faster, PERF.md);
+    ``iters_out`` gets the count scored."""
     p1 = torch.as_tensor(np.asarray(pts1_np, np.float64), device=device)
     p2 = torch.as_tensor(np.asarray(pts2_np, np.float64), device=device)
-    res = ransac_fundamental(p1, p2, n_iters=n_iters, threshold=threshold,
-                             normalize=normalize, chunk=chunk,
-                             scoring=scoring, generator=generator)
+    kw = dict(threshold=threshold, normalize=normalize, chunk=chunk,
+              scoring=scoring, generator=generator)
+    if confidence > 0.0:
+        res, used = ransac_fundamental_adaptive(
+            p1, p2, confidence=confidence, max_iters=n_iters,
+            device_loop=bool(adaptive_device), **kw)
+        if iters_out is not None:
+            iters_out.append(used)
+    else:
+        res = ransac_fundamental(p1, p2, n_iters=n_iters, **kw)
     return _host_result(RansacResult(*(t[None] for t in res)), [len(pts1_np)])[0]
 
 
@@ -398,18 +653,25 @@ def ransac_fundamental_pairs_bucketed(
     generator: Optional[torch.Generator] = None,
     device=None,
     samples: Optional[Sequence[torch.Tensor]] = None,
+    confidence: float = 0.0,
+    iters_out: Optional[list] = None,
+    adaptive_device: Optional[bool] = None,
 ):
     """Host wrapper for the whole refine stage (epipolar.py:883): every
     pair's samples drawn in input order, pairs grouped into launches by
     ``launch_groups``, one copy back per launch; per-item numpy
     ``RansacResult``s in input order.  ``samples`` (one index tensor per
-    item) replaces the draws."""
+    item) replaces the draws.  ``confidence > 0`` runs each launch group
+    through ``ransac_fundamental_pairs_adaptive`` (the group stops on its
+    slowest pair; ``n_iters`` is the cap) on the same draws, and
+    ``iters_out`` gets each item's count scored, in input order."""
     items = list(items)
     total = -(-n_iters // chunk) * chunk
     if samples is None:
         samples = [draw_minimal_samples(total, 8, len(a), generator, device)
                    for a, _ in items]
     out = [None] * len(items)
+    used = [0] * len(items)
     for group in launch_groups([len(a) for a, _ in items], max_pairs_per_launch):
         n = [len(items[m][0]) for m in group]
         width = max(max(n), 8)          # draws reach rows [0, 8)
@@ -418,13 +680,20 @@ def ransac_fundamental_pairs_bucketed(
         for r, m in enumerate(group):
             p1[r, :n[r]] = np.asarray(items[m][0], np.float64)
             p2[r, :n[r]] = np.asarray(items[m][1], np.float64)
-        res = ransac_fundamental_pairs(
-            torch.as_tensor(p1, device=device), torch.as_tensor(p2, device=device),
-            torch.stack([samples[m].to(device) for m in group]),
-            torch.as_tensor(n, device=device), threshold=threshold,
-            normalize=normalize, chunk=chunk, scoring=scoring)
+        args = (torch.as_tensor(p1, device=device), torch.as_tensor(p2, device=device),
+                torch.stack([samples[m].to(device) for m in group]),
+                torch.as_tensor(n, device=device))
+        kw = dict(threshold=threshold, normalize=normalize, chunk=chunk, scoring=scoring)
+        if confidence > 0.0:
+            res, u = ransac_fundamental_pairs_adaptive(
+                *args, confidence=confidence, max_iters=n_iters,
+                device_loop=bool(adaptive_device), **kw)
+        else:
+            res, u = ransac_fundamental_pairs(*args, **kw), n_iters
         for m, r in zip(group, _host_result(res, n)):
-            out[m] = r
+            out[m], used[m] = r, u
+    if iters_out is not None and confidence > 0.0:
+        iters_out.extend(used)
     return out
 
 
@@ -447,20 +716,20 @@ def decompose_essential(
     reference's order [(C,+W), (-C,+W), (C,+Wᵀ), (-C,+Wᵀ)], each with
     det(R) > 0 (C and R negated together).  ``'reference'`` takes U[:,2]
     as the centre (the reference's quirk); ``'hz'`` gives C = -Rᵀ(±U[:,2]).
-    Returns (Cs (4, 3), Rs (4, 3, 3))."""
+    E (..., 3, 3) -> (Cs (..., 4, 3), Rs (..., 4, 3, 3))."""
     if center_convention not in ("hz", "reference"):
         raise ValueError(f"unknown center convention {center_convention!r}")
     U, _, Vh = torch.linalg.svd(E)
     W = torch.tensor([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]],
                      dtype=E.dtype, device=E.device)
-    C = U[:, 2]
+    C = U[..., :, 2]
     R_a = U @ W @ Vh
     R_b = U @ W.T @ Vh
-    Cs = torch.stack([C, -C, C, -C])
-    Rs = torch.stack([R_a, R_a, R_b, R_b])
+    Cs = torch.stack([C, -C, C, -C], dim=-2)
+    Rs = torch.stack([R_a, R_a, R_b, R_b], dim=-3)
     neg = torch.linalg.det(Rs) < 0
-    Cs = torch.where(neg[:, None], -Cs, Cs)
-    Rs = torch.where(neg[:, None, None], -Rs, Rs)
+    Cs = torch.where(neg[..., None], -Cs, Cs)
+    Rs = torch.where(neg[..., None, None], -Rs, Rs)
     if center_convention == "hz":
-        Cs = -torch.einsum("nji,nj->ni", Rs, Cs)
+        Cs = -torch.einsum("...ji,...j->...i", Rs, Cs)
     return Cs, Rs

@@ -1,5 +1,6 @@
 """Incremental SfM: outlier refinement -> two-view init -> PnP registration
--> re-triangulation -> global bundle adjustment.
+-> optional global rotation / translation averaging -> re-triangulation ->
+global bundle adjustment.
 
 Host orchestration of the device ops, stage by stage as
 sfm_nerf_tpu/sfm/pipeline.py (the reference's Phase1/Wrapper.py:624-889),
@@ -12,7 +13,10 @@ reads one result per stage step (a RANSAC launch, a triangulation, a PnP
 solve, a BA round) and keeps the bookkeeping in numpy.  Random draws come
 from one ``torch.Generator`` on the device, seeded from ``SfMConfig.seed``:
 the F-RANSAC draws pair by pair in sorted pair order, then one PnP draw per
-registration attempt.  ``ransac_devices > 1`` runs each pair's F-RANSAC
+registration attempt; the 5-point RANSAC and the PnP rescue draw from
+numpy seed streams, as the JAX pipeline's do.  ``ransac_confidence > 0``
+stops each RANSAC on its confidence bound (an adaptive run scores a prefix
+of the fixed run's draws).  ``ransac_devices > 1`` runs each pair's F-RANSAC
 with its hypotheses sharded over that many devices, ``ba_devices > 1`` the
 global BA with its points sharded (parallel/), as the JAX pipeline routes
 them.  The figures of the JAX package are not written.
@@ -52,12 +56,29 @@ from sfm_nerf_tpu_torch.ops.epipolar import (
     cleanup_essential,
     decompose_essential,
     essential_from_fundamental,
+    launch_groups,
     ransac_fundamental_bucketed,
     ransac_fundamental_pairs_bucketed,
 )
-from sfm_nerf_tpu_torch.ops.pnp import nonlinear_pnp_bucketed, pnp_ransac_bucketed
+from sfm_nerf_tpu_torch.ops.essential5 import ransac_essential_5pt
+from sfm_nerf_tpu_torch.ops.graph import spans
+from sfm_nerf_tpu_torch.ops.pnp import (
+    nonlinear_pnp_bucketed,
+    pnp_ransac_bucketed,
+    pnp_ransac_f64_host,
+)
+from sfm_nerf_tpu_torch.ops.rotation_avg import (
+    relative_rotation_residuals,
+    rotation_averaging,
+)
+from sfm_nerf_tpu_torch.ops.translation_avg import (
+    direction_residuals_deg,
+    pair_direction_world,
+    translation_averaging,
+)
 from sfm_nerf_tpu_torch.ops.triangulation import (
     disambiguate_pose,
+    relative_pose_pairs,
     reprojection_errors,
     triangulate_nonlinear,
     triangulate_pair_bucketed,
@@ -65,19 +86,6 @@ from sfm_nerf_tpu_torch.ops.triangulation import (
 from sfm_nerf_tpu_torch.parallel.ba import bundle_adjust_sharded
 from sfm_nerf_tpu_torch.parallel.ransac import ransac_fundamental_sharded
 from sfm_nerf_tpu_torch.sfm.tracks import merge_tracks
-
-
-def unported_options(cfg: SfMConfig):
-    """The options of ``cfg`` that need a module this port does not have
-    yet, by name."""
-    checks = (
-        ("global_rotation_init", cfg.global_rotation_init),
-        ("global_init", cfg.global_init),
-        ("essential_method='5pt'", cfg.essential_method == "5pt"),
-        ("ransac_confidence > 0", cfg.ransac_confidence > 0.0),
-        ("pnp_f64_rescue='on'", cfg.pnp_f64_rescue == "on"),
-    )
-    return [name for name, hit in checks if hit]
 
 
 def shard_devices(device, n: int, flag: str):
@@ -94,12 +102,14 @@ def shard_devices(device, n: int, flag: str):
 
 
 def _reproj_err_px(K, R, C, X, uv):
-    """Per-point |proj(X) - uv| in px on the host; points at or behind the
-    camera plane and non-finite projections map to +inf."""
+    """Per-point |proj(X) - uv| in px on the host, one camera for every
+    point (R (3, 3), C (3,)) or one per point (R (n, 3, 3), C (n, 3));
+    points at or behind the camera plane and non-finite projections map
+    to +inf."""
     K = np.asarray(K)
     R = np.asarray(R)
-    C = np.asarray(C).reshape(3)
-    xc = (np.asarray(X) - C) @ R.T
+    C = np.asarray(C).reshape(R.shape[:-2] + (3,))
+    xc = np.einsum("...ij,...j->...i", R, np.asarray(X) - C)
     z = xc[:, 2]
     with np.errstate(divide="ignore", invalid="ignore"):
         u = K[0, 0] * xc[:, 0] / z + K[0, 2]
@@ -140,10 +150,6 @@ class SfMPipeline:
     for the CPU)."""
 
     def __init__(self, cfg: SfMConfig, device=DEFAULT_DEVICE):
-        missing = unported_options(cfg)
-        if missing:
-            raise ValueError(
-                "not ported to sfm_nerf_tpu_torch yet: " + ", ".join(missing))
         self.cfg = cfg
         self.device = torch.device(device)
         # hypothesis-sharded F-RANSAC and point-sharded global BA
@@ -169,6 +175,10 @@ class SfMPipeline:
         kw = dict(n_iters=cfg.ransac_iters, threshold=cfg.ransac_threshold,
                   normalize=cfg.normalize, scoring=cfg.ransac_scoring,
                   generator=self.generator, device=self.device)
+        # adaptive RANSAC: each pair's count scored, in sorted pair order
+        adaptive_iters: list = []
+        adaptive = dict(confidence=cfg.ransac_confidence, iters_out=adaptive_iters,
+                        adaptive_device=cfg.ransac_adaptive_device)
         if self.ransac_devices is not None:
             # per pair, the hypotheses over the devices: the single-device
             # draws whenever the device count divides the chunk count
@@ -181,14 +191,19 @@ class SfMPipeline:
                                             [len(arr)])[0])
         elif cfg.ransac_batch_pairs:
             results = ransac_fundamental_pairs_bucketed(
-                [(arr[:, 0:2], arr[:, 2:4]) for _, arr in pairs], **kw)
+                [(arr[:, 0:2], arr[:, 2:4]) for _, arr in pairs], **kw, **adaptive)
         else:
-            results = [ransac_fundamental_bucketed(arr[:, 0:2], arr[:, 2:4], **kw)
+            results = [ransac_fundamental_bucketed(arr[:, 0:2], arr[:, 2:4], **kw,
+                                                   **adaptive)
                        for _, arr in pairs]
-        for ((i, j), arr), res in zip(pairs, results):
+        if adaptive_iters:
+            self.stats["ransac_iters_scored"] = adaptive_iters
+        for n, (((i, j), arr), res) in enumerate(zip(pairs, results)):
             inliers = np.asarray(res.inliers)
+            used = (f" ({adaptive_iters[n]}/{cfg.ransac_iters} iters)"
+                    if adaptive_iters else "")
             print(f"RANSAC: Found {int(res.n_inliers)} inliers out of "
-                  f"{len(arr)} matches.")
+                  f"{len(arr)} matches.{used}")
             refined[(i, j)] = (np.asarray(res.F), arr[inliers])
             for row in arr[~inliers]:
                 f_idx = int(row[-1])
@@ -207,7 +222,12 @@ class SfMPipeline:
         Kt = self._t(K)
         R1t, C1t = self._t(R1), self._t(np.asarray(C1).reshape(3))
         p1t, p2t = self._t(pts1), self._t(pts2)
-        E = essential_from_fundamental(Kt, self._t(F))
+        if cfg.essential_method == "5pt":
+            # the minimal solver on the refined matches, on its own seed
+            E, _ = ransac_essential_5pt(p1t, p2t, Kt, n_iters=cfg.e5_ransac_iters,
+                                        threshold_px=cfg.e5_threshold_px, seed=cfg.seed)
+        else:
+            E = essential_from_fundamental(Kt, self._t(F))
         if cfg.essential_cleanup:
             E = cleanup_essential(E)
         Cs, Rs = decompose_essential(E, cfg.center_convention)
@@ -331,7 +351,22 @@ class SfMPipeline:
         res = pnp_ransac_bucketed(
             obj_points, img_points, K, n_iters=cfg.pnp_iters,
             threshold=cfg.pnp_threshold, scoring=cfg.ransac_scoring,
-            generator=self.generator, device=self.device)
+            generator=self.generator, device=self.device,
+            confidence=cfg.ransac_confidence,
+            adaptive_device=cfg.ransac_adaptive_device)
+        # 'auto' is off: the port's main path is float64 already
+        if int(res.n_inliers) < 6 and cfg.pnp_f64_rescue == "on":
+            # re-run this camera's RANSAC on numpy draws of its own seed,
+            # every hypothesis LAPACK-grade, before giving up
+            n_prior = self.stats.get("pnp_failures", {}).get(i, 0)
+            res_r = pnp_ransac_f64_host(
+                cfg.seed * 1000003 + i * 31 + n_prior, obj_points, img_points, K,
+                n_iters=cfg.pnp_iters, threshold=cfg.pnp_threshold,
+                scoring=cfg.ransac_scoring, device=self.device)
+            if int(res_r.n_inliers) >= 6:
+                print(f"PnP f64 host rescue for image {i}: {int(res_r.n_inliers)} inliers")
+                self.stats.setdefault("pnp_rescues", {})[i] = int(res_r.n_inliers)
+                res = res_r
         if int(res.n_inliers) < 6:
             print(f"Not enough inliers for reliable PnP with image {i}")
             fails = self.stats.setdefault("pnp_failures", {})
@@ -352,15 +387,17 @@ class SfMPipeline:
     def _triangulate_gated(self, K, Ri, Ci, Rj, Cj, p_i, p_j):
         """Triangulate from two posed views; return (X (n, 3), ok (n,)):
         finite, in front of both cameras and, with ``tri_reproj_gate_px``,
-        reprojecting within the gate in both source views."""
+        reprojecting within the gate in both source views.  The views are
+        shared by every point or given per point (R (n, 3, 3), C (n, 3))."""
         cfg = self.cfg
         Ri, Rj = np.asarray(Ri), np.asarray(Rj)
-        Ci, Cj = np.asarray(Ci).reshape(3), np.asarray(Cj).reshape(3)
+        Ci = np.asarray(Ci).reshape(Ri.shape[:-2] + (3,))
+        Cj = np.asarray(Cj).reshape(Rj.shape[:-2] + (3,))
         _, X = triangulate_pair_bucketed(K, Ri, Ci, Rj, Cj, p_i, p_j,
                                          n_iters=cfg.tri_refine_iters,
                                          device=self.device)
-        ok = (np.isfinite(X).all(axis=1) & ((X - Ci) @ Ri[2] > 1e-8)
-              & ((X - Cj) @ Rj[2] > 1e-8))
+        depth = lambda R, C: np.einsum("...j,...j->...", R[..., 2, :], X - C)
+        ok = np.isfinite(X).all(axis=1) & (depth(Ri, Ci) > 1e-8) & (depth(Rj, Cj) > 1e-8)
         if cfg.tri_reproj_gate_px > 0:
             for Rv, Cv, pv in ((Ri, Ci, p_i), (Rj, Cj, p_j)):
                 ok &= _reproj_err_px(K, Rv, Cv, X, pv) <= cfg.tri_reproj_gate_px
@@ -369,22 +406,28 @@ class SfMPipeline:
     def _triangulate_feature_groups(self, K, camera_info, tracks, groups,
                                     fidx_to_3d, on_new=None) -> int:
         """Triangulate each ``(i, j) -> [feature]`` group from views i and j
-        under the current poses and write the gated results into
-        ``fidx_to_3d``.  Returns the number of newly mapped features."""
+        under the current poses, every group in one batch, and write the
+        gated results into ``fidx_to_3d``.  Returns the number of newly
+        mapped features."""
+        rows = [(i, j, f) for (i, j), fs in groups.items() for f in fs]
+        if not rows:
+            return 0
+        cam = lambda c, key: np.asarray(camera_info[c][key], np.float64).reshape(-1)
+        Ri = np.stack([cam(i, "R") for i, _, _ in rows]).reshape(-1, 3, 3)
+        Rj = np.stack([cam(j, "R") for _, j, _ in rows]).reshape(-1, 3, 3)
+        Ci = np.stack([cam(i, "C") for i, _, _ in rows])
+        Cj = np.stack([cam(j, "C") for _, j, _ in rows])
+        p1 = np.asarray([tracks[f][i][:2] for i, _, f in rows])
+        p2 = np.asarray([tracks[f][j][:2] for _, j, f in rows])
+        Xn, ok = self._triangulate_gated(K, Ri, Ci, Rj, Cj, p1, p2)
         added = 0
-        for (i, j), fs in groups.items():
-            p1 = np.asarray([tracks[f][i][:2] for f in fs])
-            p2 = np.asarray([tracks[f][j][:2] for f in fs])
-            Xn, ok = self._triangulate_gated(
-                K, camera_info[i]["R"], camera_info[i]["C"],
-                camera_info[j]["R"], camera_info[j]["C"], p1, p2)
-            for f, x, good in zip(fs, Xn, ok):
-                if good:
-                    if f not in fidx_to_3d:
-                        added += 1
-                        if on_new is not None:
-                            on_new(f)
-                    fidx_to_3d[f] = x
+        for (_, _, f), x, good in zip(rows, Xn, ok):
+            if good:
+                if f not in fidx_to_3d:
+                    added += 1
+                    if on_new is not None:
+                        on_new(f)
+                fidx_to_3d[f] = x
         return added
 
     def _map_unmapped_from_tracks(self, K, camera_info, tracks, fidx_to_3d,
@@ -573,6 +616,104 @@ class SfMPipeline:
                   f"median {np.median(e):.4f} px")
 
     # ------------------------------------------------------------------
+    def _relative_poses(self, K, items):
+        """(C_rel (M, 3), R_rel (M, 3, 3)) on the device of every pose-graph
+        edge ``(pair, F, matches)``, always in the 'hz' centre convention
+        (the edge direction needs camera j's true centre in camera i's
+        frame): ``global_init_batch_pairs`` pairs a launch
+        (``launch_groups``), or one pair a launch when it is 0."""
+        cfg = self.cfg
+        Kt = self._t(K)
+        C_rel = torch.zeros(len(items), 3, dtype=torch.float64, device=self.device)
+        R_rel = torch.zeros(len(items), 3, 3, dtype=torch.float64, device=self.device)
+        sizes = [len(m) for _, _, m in items]
+        groups = (launch_groups(sizes, cfg.global_init_batch_pairs)
+                  if cfg.global_init_batch_pairs > 0 else [[g] for g in range(len(items))])
+        for group in groups:
+            width = max(sizes[g] for g in group)
+            p1 = np.zeros((len(group), width, 2))
+            p2 = np.zeros((len(group), width, 2))
+            for r, g in enumerate(group):
+                p1[r, :sizes[g]] = items[g][2][:, 0:2]
+                p2[r, :sizes[g]] = items[g][2][:, 2:4]
+            C_b, R_b = relative_pose_pairs(
+                Kt, self._t(np.stack([items[g][1] for g in group])), self._t(p1),
+                self._t(p2), torch.as_tensor([sizes[g] for g in group], device=self.device),
+                cleanup=cfg.essential_cleanup, convention="hz")
+            gi = torch.as_tensor(group, device=self.device)
+            C_rel[gi], R_rel[gi] = C_b, R_b
+        return C_rel, R_rel
+
+    def _global_init(self, K, refined, tracks, camera_info, fidx_to_3d):
+        """Global re-initialization of the registered cameras
+        (sfm_nerf_tpu/sfm/pipeline.py:927-1110): rotation averaging over
+        the refined pairs' relative rotations, with ``global_init`` also
+        translation averaging of their directions (inlier-weighted, the
+        first camera's centre kept, scaled to the incremental baseline of
+        the first two cameras), then every mapped point re-triangulated."""
+        cfg = self.cfg
+        cam_ids = sorted(camera_info)
+        col = {c: n for n, c in enumerate(cam_ids)}
+        items = [((i, j), F, m) for (i, j), (F, m) in sorted(refined.items())
+                 if i in col and j in col and len(m) >= 8]
+        pairs = [(col[i], col[j]) for (i, j), _, _ in items]
+        C_rel, R_rel = self._relative_poses(K, items) if items else (None, None)
+        if not spans(pairs, len(cam_ids)):
+            # a disconnected component's eigenvector blocks are independent
+            print("Rotation averaging skipped: pose graph disconnected")
+            return
+        if len(pairs) < len(cam_ids) - 1:
+            return
+        R_avg = rotation_averaging(pairs, R_rel, len(cam_ids), anchor=0)
+        res = torch.rad2deg(relative_rotation_residuals(pairs, R_rel, R_avg))
+        # the anchor keeps its global rotation: the averaged ones are
+        # relative to it
+        R_anchor = self._t(camera_info[cam_ids[0]]["R"])
+        R_new = (R_avg @ R_anchor).cpu().numpy()
+        mean_res = float(res.mean())
+        print(f"Rotation averaging over {len(pairs)} pairs: "
+              f"mean pairwise residual {mean_res:.2f} deg")
+        for n, c in enumerate(cam_ids):
+            camera_info[c]["R"] = R_new[n]
+        self.stats["rotation_avg"] = {"n_pairs": len(pairs), "mean_residual_deg": mean_res}
+        if cfg.global_init:
+            first = torch.as_tensor([a for a, _ in pairs], device=self.device)
+            u_world = pair_direction_world(self._t(R_new)[first], C_rel)
+            C_glob = translation_averaging(
+                pairs, u_world, len(cam_ids), anchor=0,
+                weights=self._t([len(m) for _, _, m in items]))
+            # gauge: the anchor keeps its centre; the scale is the
+            # incremental solution's baseline of the first two cameras
+            C_glob = C_glob - C_glob[0]
+            ref_base = np.linalg.norm(np.asarray(camera_info[cam_ids[1]]["C"]).reshape(3)
+                                      - np.asarray(camera_info[cam_ids[0]]["C"]).reshape(3))
+            new_base = float(torch.linalg.norm(C_glob[1] - C_glob[0]))
+            if new_base > 1e-12 and ref_base > 1e-12:
+                C_glob = C_glob * (ref_base / new_base)
+            C0 = np.asarray(camera_info[cam_ids[0]]["C"]).reshape(3)
+            med = float(np.median(direction_residuals_deg(pairs, u_world, C_glob).cpu().numpy()))
+            print(f"Translation averaging over {len(pairs)} pairs: "
+                  f"median direction residual {med:.2f} deg")
+            C_new = C_glob.cpu().numpy()
+            for n, c in enumerate(cam_ids):
+                camera_info[c]["C"] = C_new[n] + C0
+            self.stats["translation_avg"] = {"n_pairs": len(pairs),
+                                             "median_residual_deg": med}
+        # the points were triangulated under the old poses
+        self._retriangulate_all(K, camera_info, tracks, fidx_to_3d, cam_ids)
+
+    def _retriangulate_all(self, K, camera_info, tracks, fidx_to_3d, cam_ids):
+        """Re-triangulate every mapped feature from its first and last
+        registered views under the current poses, in place (gated as
+        ``_triangulate_feature_groups``)."""
+        groups: Dict[Tuple[int, int], list] = {}
+        for f in list(fidx_to_3d):
+            views = [c for c in cam_ids if c in tracks[f]]
+            if len(views) >= 2:
+                groups.setdefault((views[0], views[-1]), []).append(f)
+        self._triangulate_feature_groups(K, camera_info, tracks, groups, fidx_to_3d)
+
+    # ------------------------------------------------------------------
     def _register_all(self, K, refined, tracks, camera_info, fidx_to_3d):
         """Incremental registration: PnP for each unregistered image in
         index (or greedy) order, new points against every registered
@@ -722,6 +863,9 @@ class SfMPipeline:
 
         self._register_all(K, refined, tracks, camera_info, fidx_to_3d)
         stage("registration")
+        if (cfg.global_rotation_init or cfg.global_init) and len(camera_info) >= 3:
+            self._global_init(K, refined, tracks, camera_info, fidx_to_3d)
+        stage("global_init")
 
         print("Bundle adjustment...")
         self._global_ba(K, camera_info, fidx_to_3d, tracks)

@@ -24,27 +24,7 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 
-
-class _UnionFind:
-    def __init__(self, n: int):
-        self.parent = list(range(n))
-
-    def find(self, x: int) -> int:
-        root = x
-        while self.parent[root] != root:
-            root = self.parent[root]
-        while self.parent[x] != root:        # path compression
-            self.parent[x], x = root, self.parent[x]
-        return root
-
-    def union(self, a: int, b: int) -> None:
-        ra, rb = self.find(a), self.find(b)
-        if ra != rb:
-            # keep the smaller index as root so merged tracks inherit the
-            # FIRST (file-order) feature's identity deterministically
-            if rb < ra:
-                ra, rb = rb, ra
-            self.parent[rb] = ra
+from sfm_nerf_tpu_torch.ops.graph import UnionFind
 
 
 def merge_tracks(
@@ -62,7 +42,7 @@ def merge_tracks(
     refused, so every emitted track is self-consistent within ``tol``.
     """
     n = len(tracks)
-    uf = _UnionFind(n)
+    uf = UnionFind(n)
     # Conflict-aware union: the raw matching files contain wrong matches,
     # so transitively chaining features through shared pixels can unite
     # DISTINCT 3D points (measured: 27% of naive merges on the bundled

@@ -25,7 +25,8 @@ for sub in ("io", "models", "ops", "kernels", "train", "utils", "cli", "sfm",
             "io.sfm_data", "io.artifacts", "ops.linalg", "ops.lm", "ops.epipolar",
             "ops.triangulation", "ops.pnp", "ops.ba", "sfm.tracks", "sfm.pipeline",
             "sfm.to_nerf", "cli.sfm", "parallel", "parallel.mesh", "parallel.train_step",
-            "parallel.render", "parallel.ransac", "parallel.ba"):
+            "parallel.render", "parallel.ransac", "parallel.ba", "ops.essential5",
+            "ops.rotation_avg", "ops.translation_avg"):
     assert "sfm_nerf_tpu_torch." + sub in sys.modules, sub
 # nothing of native/: no module from that directory, no library it builds
 import os
@@ -66,7 +67,7 @@ def test_port_imports_no_jax():
     out = _run(_PROBE)
     assert out.returncode == 0, out.stdout + out.stderr
     n_mods = int(out.stdout.split()[0])
-    assert n_mods >= 34, out.stdout
+    assert n_mods >= 37, out.stdout
 
 
 def test_chip_smoke_imports_no_jax():

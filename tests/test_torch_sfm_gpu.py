@@ -102,3 +102,101 @@ def test_cli_sfm_on_the_card(tmp_path):
     assert pose_errors(res["camera_info"], gt)["rot_err_deg_median"] < 0.1
     images, _, _ = load_blender_dataset(str(tmp_path / "nerf"), "train")
     assert len(images) == 8
+
+
+@pytest.mark.gpu
+def test_global_init_ops_on_the_card_match_the_cpu():
+    """Rotation and translation averaging on a 40-camera window-5 ring and
+    relative_pose_pairs on padded pairs: the card within 1e-9 of the CPU."""
+    _need_card()
+    from sfm_nerf_tpu_torch.ops import rotation_avg as ra
+    from sfm_nerf_tpu_torch.ops import translation_avg as ta
+    from sfm_nerf_tpu_torch.ops import triangulation as tri
+    from sfm_nerf_tpu_torch.ops.epipolar import ransac_fundamental
+
+    rng = np.random.default_rng(3)
+    n = 40
+    th = 2 * np.pi * np.arange(n) / n
+    C = np.stack([6 * np.cos(th), 0.4 * np.sin(3 * th), 6 * np.sin(th)], -1)
+    Rs = np.stack([np.linalg.qr(rng.normal(size=(3, 3)))[0] for _ in range(n)])
+    Rs *= np.sign(np.linalg.det(Rs))[:, None, None]
+    pairs = sorted({(min(i, (i + d) % n), max(i, (i + d) % n))
+                    for i in range(n) for d in range(1, 6)})
+    R_rel = np.stack([Rs[j] @ Rs[i].T for i, j in pairs])
+    R_rel += rng.normal(0, 1e-3, R_rel.shape)
+    c_rel = np.stack([Rs[i] @ (C[j] - C[i]) for i, j in pairs]) + rng.normal(0, 0.01, (len(pairs), 3))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        t = lambda a: torch.as_tensor(a, device=dev)
+        R = ra.project_to_so3(t(R_rel))
+        R_avg = ra.rotation_averaging(pairs, R, n)
+        u = ta.pair_direction_world(R_avg[[i for i, _ in pairs]], t(c_rel))
+        out[dev] = (R_avg.cpu().numpy(), ta.translation_averaging(pairs, u, n).cpu().numpy())
+    assert np.abs(out["cuda"][0] - out["cpu"][0]).max() < 1e-9
+    assert np.abs(out["cuda"][1] - out["cpu"][1]).max() < 1e-9 * np.abs(out["cpu"][1]).max()
+
+    K, X, x1, x2, R2, C2 = _two_view(n=200, outlier_frac=0.0)
+    F = ransac_fundamental(torch.as_tensor(x1), torch.as_tensor(x2), n_iters=1024,
+                           generator=torch.Generator().manual_seed(0)).F.numpy()
+    p1 = np.zeros((3, 256, 2))
+    p2 = np.zeros((3, 256, 2))
+    nv = [200, 150, 90]
+    for m, k in enumerate(nv):
+        p1[m, :k], p2[m, :k] = x1[:k], x2[:k]
+    poses = {}
+    for dev in ("cuda", "cpu"):
+        t = lambda a: torch.as_tensor(a, device=dev)
+        poses[dev] = [o.cpu().numpy() for o in tri.relative_pose_pairs(
+            t(K), t(np.stack([F] * 3)), t(p1), t(p2), torch.as_tensor(nv, device=dev))]
+    for a, b in zip(poses["cuda"], poses["cpu"]):
+        assert np.abs(a - b).max() < 1e-9
+    np.testing.assert_allclose(poses["cuda"][1][0], R2, atol=1e-2)
+
+
+@pytest.mark.gpu
+def test_5pt_adaptive_and_rescue_on_the_card_match_the_cpu():
+    """The 5-point RANSAC (same inliers, E within 1e-8 up to sign), the
+    adaptive F and PnP drivers (host and device drivers bit-equal on the
+    card, the card's winner the CPU's) and the PnP rescue (same inliers,
+    R and C within 1e-9)."""
+    _need_card()
+    from sfm_nerf_tpu_torch.ops import epipolar as ep
+    from sfm_nerf_tpu_torch.ops import essential5 as e5
+    from sfm_nerf_tpu_torch.ops import pnp
+
+    K, X, x1, x2, R2, C2 = _two_view(n=300, outlier_frac=0.3)
+    e = {dev: [o.cpu().numpy() for o in e5.ransac_essential_5pt(
+        x1, x2, K, n_iters=300, seed=2, device=dev)] for dev in ("cuda", "cpu")}
+    np.testing.assert_array_equal(e["cuda"][1], e["cpu"][1])
+    assert min(np.abs(e["cuda"][0] - e["cpu"][0]).max(),
+               np.abs(e["cuda"][0] + e["cpu"][0]).max()) < 1e-8
+
+    rng = np.random.default_rng(4)
+    samples = np.stack([rng.choice(300, 8, replace=False) for _ in range(8192)])
+    res = {}
+    for dev, dl in (("cuda", False), ("cuda", True), ("cpu", False)):
+        t = lambda a: torch.as_tensor(a, device=dev)
+        r, used = ep.ransac_fundamental_adaptive(t(x1), t(x2), confidence=0.999,
+                                                 max_iters=8192, samples=t(samples),
+                                                 device_loop=dl)
+        res[dev, dl] = ([v.cpu().numpy() for v in r], used)
+    (a, ua), (b, ub) = res["cuda", False], res["cuda", True]
+    assert ua == ub and all(np.array_equal(p, q) for p, q in zip(a, b))
+    c, uc = res["cpu", False]
+    assert ua == uc and int(a[3]) == int(c[3]) and np.array_equal(a[1], c[1])
+
+    psamp = np.stack([rng.choice(300, 6, replace=False) for _ in range(4096)])
+    pres = {}
+    for dl in (False, True):
+        t = lambda v: torch.as_tensor(v, device="cuda")
+        r, used = pnp.pnp_ransac_adaptive(t(X), t(x2), t(K), confidence=0.999,
+                                          max_iters=4096, samples=t(psamp), device_loop=dl)
+        pres[dl] = ([v.cpu().numpy() for v in r], used)
+    assert pres[False][1] == pres[True][1]
+    assert all(np.array_equal(p, q) for p, q in zip(pres[False][0], pres[True][0]))
+
+    rs = {dev: pnp.pnp_ransac_f64_host(7, X, x2, K, n_iters=2048, device=dev)
+          for dev in ("cuda", "cpu")}
+    np.testing.assert_array_equal(rs["cuda"].inliers, rs["cpu"].inliers)
+    assert np.abs(rs["cuda"].R - rs["cpu"].R).max() < 1e-9
+    assert np.abs(rs["cuda"].C - rs["cpu"].C).max() < 1e-9

@@ -124,7 +124,8 @@ def test_artifacts_written(ring, torch_run):
         stats = json.load(f)
     assert stats["n_registered"] == N_CAMS and stats["device"] == "cpu"
     assert set(stats["stage_seconds"]) == {
-        "load+parse", "ransac_refine", "two_view_init", "registration", "ba+artifacts"}
+        "load+parse", "ransac_refine", "two_view_init", "registration", "global_init",
+        "ba+artifacts"}
     head = open(out / "reconstruction.ply", "rb").read(200).decode(errors="replace")
     assert f"element vertex {stats['n_points_total']}" in head
 
@@ -173,23 +174,147 @@ def test_export_trains_with_auto_bounds(ring, torch_run):
     assert (args.near, args.far) == (cam.near, cam.far)
 
 
-def test_unported_options_are_refused_by_name():
+def test_sharded_options_and_config_validation():
     from sfm_nerf_tpu_torch.config import SfMConfig
     from sfm_nerf_tpu_torch.sfm.pipeline import SfMPipeline
 
-    for kw, name in ((dict(global_init=True), "global_init"),
-                     (dict(global_rotation_init=True), "global_rotation_init"),
-                     (dict(essential_method="5pt"), "essential_method='5pt'"),
-                     (dict(ransac_confidence=0.99), "ransac_confidence > 0"),
-                     (dict(pnp_f64_rescue="on"), "pnp_f64_rescue='on'")):
-        with pytest.raises(ValueError, match=name.replace("'", ".").replace(">", ".")):
-            SfMPipeline(SfMConfig(**kw), device="cpu")
     # the sharded stages are ported (parallel/): accepted on the CPU
     SfMPipeline(SfMConfig(ransac_devices=2, ba_devices=2), device="cpu")
     with pytest.raises(ValueError, match="mutually exclusive"):
         SfMConfig(ransac_confidence=0.99, ransac_devices=2)
     with pytest.raises(ValueError, match="unknown intrinsics token"):
         SfMConfig(ba_refine_intrinsics="f,zz")
+
+
+# ---- each Phase 1 option reaches its code ----------------------------------
+
+ADAPTIVE_CAP = 3072        # three chunks; the ring's bound stops at the floor, two
+
+
+@pytest.fixture(scope="module")
+def refined_adaptive(ring):
+    """The ring's refine stage under ``ransac_confidence`` 0.99, its stats
+    and printed lines."""
+    import contextlib
+    import io
+
+    from sfm_nerf_tpu_torch.config import SfMConfig
+    from sfm_nerf_tpu_torch.io.sfm_data import parse_matching_files
+    from sfm_nerf_tpu_torch.sfm.pipeline import SfMPipeline
+
+    _, data, _ = ring
+    pipe = SfMPipeline(SfMConfig(data_path=data, num_images=N_CAMS,
+                                 ransac_iters=ADAPTIVE_CAP, ransac_confidence=0.99),
+                       device="cpu")
+    m, t, v = parse_matching_files(data, N_CAMS)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        refined, tracks, _ = pipe.refine_all_matches(m, t, v)
+    return refined, tracks, pipe.stats, out.getvalue()
+
+
+def test_ransac_confidence_reaches_the_adaptive_driver(refined_adaptive):
+    refined, _, stats, printed = refined_adaptive
+    used = stats["ransac_iters_scored"]
+    assert len(used) == len(refined) == 15 and set(used) == {2048}
+    assert printed.count(f"(2048/{ADAPTIVE_CAP} iters)") == 15
+
+
+def _global_init(ring, refined_adaptive, **kw):
+    """``_global_init`` on the ring's refined pairs, the cameras at the
+    ground truth (in camera 1's frame, at its scale), no points."""
+    from sfm_nerf_tpu_torch.config import SfMConfig
+    from sfm_nerf_tpu_torch.sfm.pipeline import SfMPipeline
+
+    _, data, gt = ring
+    refined, tracks, _, _ = refined_adaptive
+    R1, C1 = gt["Rs"][0], gt["Cs"][0]
+    cams = {c: {"R": gt["Rs"][c - 1] @ R1.T, "C": R1 @ (gt["Cs"][c - 1] - C1)}
+            for c in range(1, N_CAMS + 1)}
+    pipe = SfMPipeline(SfMConfig(data_path=data, num_images=N_CAMS, **kw), device="cpu")
+    pipe._global_init(gt["K"], refined, tracks, cams, {})
+    for c, v in cams.items():
+        R_gt = gt["Rs"][c - 1] @ R1.T
+        deg = np.degrees(np.arccos(np.clip((np.trace(v["R"].T @ R_gt) - 1) / 2, -1, 1)))
+        assert deg < 0.5, (c, deg)          # pairwise F at 0.5 px noise
+    return pipe.stats, cams
+
+
+def test_global_rotation_init_reaches_rotation_averaging(ring, refined_adaptive):
+    stats, _ = _global_init(ring, refined_adaptive, global_rotation_init=True)
+    assert stats["rotation_avg"]["n_pairs"] == 15
+    assert stats["rotation_avg"]["mean_residual_deg"] < 0.5
+    assert "translation_avg" not in stats
+
+
+def test_global_init_reaches_translation_averaging(ring, refined_adaptive):
+    _check_global_init(ring, refined_adaptive, batch_pairs=4)
+
+
+def test_global_init_one_pair_a_launch(ring, refined_adaptive):
+    """``global_init_batch_pairs=0``: the relative poses one pair a launch."""
+    _check_global_init(ring, refined_adaptive, batch_pairs=0)
+
+
+def _check_global_init(ring, refined_adaptive, batch_pairs):
+    _, _, gt = ring
+    stats, cams = _global_init(ring, refined_adaptive, global_init=True,
+                               global_init_batch_pairs=batch_pairs)
+    assert stats["translation_avg"]["n_pairs"] == 15
+    assert stats["translation_avg"]["median_residual_deg"] < 1.0
+    # the first camera's centre kept, the scale of its baseline to camera 2
+    R1, C1 = gt["Rs"][0], gt["Cs"][0]
+    for c, v in cams.items():
+        assert np.linalg.norm(v["C"] - R1 @ (gt["Cs"][c - 1] - C1)) < 0.05 * 6
+
+
+def test_essential_method_5pt_reaches_the_five_point_ransac(ring, refined_adaptive,
+                                                            monkeypatch):
+    from sfm_nerf_tpu_torch.config import SfMConfig
+    from sfm_nerf_tpu_torch.sfm import pipeline as pl
+
+    _, data, gt = ring
+    refined, _, _, _ = refined_adaptive
+    calls = []
+
+    def spy(*a, **kw):
+        calls.append(kw)
+        return pl.ransac_essential_5pt.__wrapped__(*a, **kw)
+
+    spy.__wrapped__ = pl.ransac_essential_5pt
+    monkeypatch.setattr(pl, "ransac_essential_5pt", spy)
+    pipe = pl.SfMPipeline(SfMConfig(data_path=data, num_images=N_CAMS,
+                                    essential_method="5pt", e5_ransac_iters=200),
+                          device="cpu")
+    F12, m12 = refined[(1, 2)]
+    tv = pipe.two_view_reconstruct(gt["K"], F12, np.eye(3), np.zeros(3),
+                                   m12[:, 0:2], m12[:, 2:4])
+    assert len(calls) == 1 and calls[0]["n_iters"] == 200 and calls[0]["seed"] == 0
+    assert tv.mean_error_nonlinear < 1.0
+
+
+@pytest.mark.parametrize("rescue", ["on", "off"])
+def test_pnp_f64_rescue_reaches_the_rescue(rescue, monkeypatch):
+    """A forced PnP RANSAC failure: rescued under 'on' (the pose at the
+    truth, ``stats['pnp_rescues']``), a failure under 'off'."""
+    from util_synthetic import make_sfm_scene
+
+    from sfm_nerf_tpu_torch.config import SfMConfig
+    from sfm_nerf_tpu_torch.ops.pnp import PnPRansacResult
+    from sfm_nerf_tpu_torch.sfm import pipeline as pl
+
+    sc = make_sfm_scene(n_cams=3, n_points=80, noise_px=0.3, seed=3)
+    n = len(sc["points"])
+    monkeypatch.setattr(pl, "pnp_ransac_bucketed", lambda *a, **kw: PnPRansacResult(
+        np.eye(3), np.zeros(3), np.zeros(n, bool), np.int64(0)))
+    pipe = pl.SfMPipeline(SfMConfig(pnp_iters=1024, pnp_f64_rescue=rescue), device="cpu")
+    C, R = pipe.register_camera(3, sc["points"], sc["obs"][2], sc["K"])
+    if rescue == "off":
+        assert C is None and pipe.stats["pnp_failures"] == {3: 1}
+        return
+    assert pipe.stats["pnp_rescues"][3] >= 75 and "pnp_failures" not in pipe.stats
+    assert np.abs(R - sc["Rs"][2]).max() < 1e-2
+    assert np.abs(C - sc["Cs"][2]).max() < 5e-2
 
 
 def test_per_pair_ransac_matches_batched(ring):
