@@ -97,7 +97,31 @@ training step; hierarchical: 256 coarse + 128 importance samples):
    on its action matrices' shape), adaptive F-RANSAC over sfm's pairs
    through the host and the device driver (bit for bit, beside the fixed
    run; each driver timed twice, in the order host, device, device, host),
-   adaptive PnP (timed the same way) and the rescue on camera 3.
+   adaptive PnP (timed the same way) and the rescue on camera 3;
+20. profile (after the kernels line, like 21-25): utils/profiling.trace over
+   20 steady K2 training steps at 8,192 x 256 (after 5 warm-up steps) and
+   over one 800x800x256 synth800 test view through K1: the device's busy
+   and idle share of the window, the top kernels by time, host ms per step
+   and per view, StepTimer's summary, device_memory_stats; K2's and K1's
+   kernels must show device time;
+21. async_ckpt: ``cli.nerf --mode train --ckpt_backend orbax`` for 40 steps
+   with a save every 10, beside the same run with npz: ms per step of each,
+   every file read back through train/checkpoint.py, the last one bit-equal
+   to the trained model, a resume at 40;
+22. interrupt: a child ``cli.nerf --mode train`` on the card, under each
+   backend, gets SIGINT once its step-15 checkpoint exists: the file it
+   saves must be stamped Adam's count - 1, and a resume starts one later;
+23. wrapper: ``cli.wrapper --mode train`` on synth800 (20 full-width steps of
+   the legacy loop: nn.Module, legacy compositor, StepLR(1000, 0.1)), then
+   ``--mode test`` on 2 views through K1 with the legacy compositor;
+24. gif_writer: ``cli.gif`` stitches the gif phase's frames; read back with
+   io/gif.py: frame count, delay, each frame's mean error against its PNG;
+25. synth_scene: the port's tracer in float32 on the card regenerates
+   synth800 train r_0-r_3 and chair800 r_0 at 800x800 (poses from
+   ``camera_rig(100, 16, 0)`` once the json is confirmed to hold them), each
+   held against the committed PNG by tests/test_synth_scene.py's rule, ms
+   per view; then a 4 + 2 view dataset through ``cli.synth_scene``, read
+   back by io/blender.py.
 
 Each kernel path runs with the launch counters set to 0 just before it and
 read just after; a path that did not launch its kernel fails the run.  Every
@@ -1011,6 +1035,364 @@ def run_parallel_phases(phase, data, train_flags, state):
     phase(dp2_one_card)
 
 
+# ---- profiling, async checkpoints, interrupts, Wrapper, gif, scene ---------
+PROFILE_WARMUP, PROFILE_STEPS = 5, 20
+ASYNC_STEPS, ASYNC_EVERY = 40, 10
+INTERRUPT_AFTER = 15                  # SIGINT once this step's checkpoint exists
+INTERRUPT_TIMEOUT = 300               # s for a child to reach it
+WRAPPER_STEPS, WRAPPER_VIEWS = 20, 2
+# depth cut for time: these phases train on the first TOOL_VIEWS of
+# synth800's 100 training views (a full split takes ~25 s to decode, and
+# they load it seven times); rays, samples and the model are full width
+TOOL_VIEWS = 10
+GIF_MEAN_ERR = 2.0                    # mean abs levels of 255, GIF frame vs its PNG
+SYNTH_OFF, SYNTH_FRAC = 0.05, 0.01    # tests/test_synth_scene.py's rule: under 1% of
+SYNTH_MEDIAN = 1 / 255 + 1e-3         # pixels more than 0.05 off, the median at most this
+# the kernels' names in a trace: K1 is the render kernel; a K2 step the
+# render kernel's STASH sweep, the reverse walk, the weight GEMM, the sums
+K1_KERNELS = ("fused_render_kernel",)
+K2_KERNELS = ("fused_render_kernel", "reverse_walk_kernel", "grad_gemm_kernel",
+              "reduce_add_kernel")
+
+
+def _views(data, split, n):
+    """A dataset of ``data``'s first ``n`` frames of ``split``: a directory
+    named as ``data`` (checkpoints go under the same scene name) holding
+    the cut json and a link to the images.  Returns its path with a
+    trailing slash."""
+    scene = os.path.basename(data.rstrip("/"))
+    root = os.path.join(OUT, f"views_{split}{n}", scene)
+    shutil.rmtree(os.path.dirname(root), ignore_errors=True)
+    os.makedirs(root)
+    os.symlink(os.path.join(data, split), os.path.join(root, split))
+    with open(os.path.join(data, f"transforms_{split}.json")) as f:
+        meta = json.load(f)
+    meta["frames"] = meta["frames"][:n]
+    with open(os.path.join(root, f"transforms_{split}.json"), "w") as f:
+        json.dump(meta, f)
+    return root + "/"
+
+
+def _named_ms(summary, names):
+    """Device ms of the summary's kernels whose names hold one of ``names``
+    (top_kernels holds every name when ``top`` is large)."""
+    return sum(k["ms"] for k in summary["top_kernels"] if any(n in k["name"] for n in names))
+
+
+def run_tool_phases(phase, data, train_flags, state):
+    """profile, async_ckpt, interrupt, wrapper, gif_writer and synth_scene
+    (see the module docstring)."""
+    import signal
+
+    import numpy as np
+    import torch
+
+    from sfm_nerf_tpu_torch.cli import gif as cli_gif
+    from sfm_nerf_tpu_torch.cli import nerf as cli
+    from sfm_nerf_tpu_torch.cli import synth_scene as ss
+    from sfm_nerf_tpu_torch.cli import wrapper as cli_wrapper
+    from sfm_nerf_tpu_torch.config import (
+        NeRFModelConfig, NeRFPipelineConfig, RenderConfig, TrainConfig,
+    )
+    from sfm_nerf_tpu_torch.io.blender import load_blender_dataset, load_camera_info
+    from sfm_nerf_tpu_torch.io.gif import read_gif
+    from sfm_nerf_tpu_torch.io.png import read_png
+    from sfm_nerf_tpu_torch.kernels import fused_render as fr
+    from sfm_nerf_tpu_torch.kernels import fused_train as ft
+    from sfm_nerf_tpu_torch.models.convert import params_from_jax, params_to_jax
+    from sfm_nerf_tpu_torch.train import checkpoint as ckpt
+    from sfm_nerf_tpu_torch.train.nerf_trainer import (
+        NeRFTrainer, make_render_image, make_schedule,
+    )
+    from sfm_nerf_tpu_torch.utils import profiling as prof
+
+    dev = torch.device("cuda")
+    full_data = data
+    data = _views(full_data, "train", TOOL_VIEWS)
+    train_flags = [data if f == full_data else f for f in train_flags]
+
+    def profile():
+        images, poses, cam = load_blender_dataset(data, "train")
+        cfg = NeRFPipelineConfig(
+            model=NeRFModelConfig(),
+            render=RenderConfig(n_sample=256, near=2.0, far=6.0, use_fused_kernel=True),
+            train=TrainConfig(n_rays_batch=8192, log_every=0, val_every=0, save_ckpt_iter=0),
+            checkpoint_path=os.path.join(OUT, "profile_ckpt"), load_checkpoint=False)
+        tr = NeRFTrainer(cfg, images, poses, cam.camera_matrix, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        timer = prof.StepTimer("cuda")
+
+        def step():
+            with timer:
+                tr.train_step(tr.model, gen, tr.images, tr.poses, tr.K)
+
+        for _ in range(PROFILE_WARMUP):
+            step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ft.reset_launch_counts()
+        with prof.trace(os.path.join(OUT, "profile_train")) as p:
+            t0 = time.perf_counter()
+            for _ in range(PROFILE_STEPS):
+                step()
+            torch.cuda.synchronize()
+            host_ms = (time.perf_counter() - t0) * 1e3 / PROFILE_STEPS
+        launches = dict(ft.LAUNCHES)
+        if launches != {k: (PROFILE_STEPS if k == "fused_mse_loss" else 0) for k in launches}:
+            raise AssertionError(f"profile: train launches {launches}")
+        train = prof.profile_summary(p, top=50)
+        k2_ms = _named_ms(train, K2_KERNELS)
+        if k2_ms <= 0:
+            raise AssertionError(f"profile: no device time for K2's kernels: {train}")
+        memory = prof.device_memory_stats()
+        # one 800x800x256 synth800 test view through K1
+        params, _ = ckpt.load_params_untyped(
+            os.path.join(REPO, "Phase2", "checkpoints", "synth800", "final_model.ckpt.npz"))
+        mcfg = ckpt.infer_model_config(params)
+        model = params_from_jax(params, mcfg, dev).eval()
+        vcfg = NeRFPipelineConfig(model=mcfg, render=RenderConfig(
+            n_sample=256, near=2.0, far=6.0, perturb=False, use_fused_kernel=True))
+        t_cam = load_camera_info(full_data, "test")
+        with open(os.path.join(full_data, "transforms_test.json")) as f:
+            c2w = json.load(f)["frames"][0]["transform_matrix"]
+        H, W = t_cam.height, t_cam.width
+        K = torch.as_tensor(t_cam.camera_matrix, device=dev)
+        pose = torch.as_tensor(c2w, dtype=torch.float32, device=dev)
+        render = make_render_image(vcfg)
+        render(model, K, pose, 64, 64)                 # packs the weights, warms up
+        torch.cuda.synchronize()
+        fr.reset_launch_counts()
+        with prof.trace(os.path.join(OUT, "profile_view")) as p:
+            t0 = time.perf_counter()
+            frame = render(model, K, pose, H, W).cpu()
+            view_host_ms = (time.perf_counter() - t0) * 1e3
+        if dict(fr.LAUNCHES) != {"fused_render_rays": 1, "fused_render_rays_weights": 0}:
+            raise AssertionError(f"profile: view launches {fr.LAUNCHES}")
+        view = prof.profile_summary(p, top=20)
+        k1_ms = _named_ms(view, K1_KERNELS)
+        if k1_ms <= 0 or not bool(torch.isfinite(frame).all()):
+            raise AssertionError(f"profile: no device time for K1: {view}")
+        steady = timer.summary()
+        state["profile"] = dict(idle=train["idle_share"], host_ms=host_ms,
+                                view_host_ms=view_host_ms, k1_ms=k1_ms)
+        emit("profile",
+             train={"steps": PROFILE_STEPS, "warmup": PROFILE_WARMUP, "launches": launches,
+                    "train_views": TOOL_VIEWS,
+                    "host_ms_per_step": host_ms, "K2_kernels_ms_per_step": k2_ms / PROFILE_STEPS,
+                    **{k: v for k, v in train.items() if k != "top_kernels"},
+                    "top_kernels": train["top_kernels"][:10], "step_timer": steady,
+                    "peak_mem_gib": round(torch.cuda.max_memory_allocated() / 2**30, 3),
+                    "device_memory": memory},
+             view={"rays": H * W, "samples": 256, "launches": dict(fr.LAUNCHES),
+                   "host_ms": view_host_ms, "K1_kernel_ms": k1_ms,
+                   **{k: v for k, v in view.items() if k != "top_kernels"},
+                   "top_kernels": view["top_kernels"][:10]})
+
+    def async_ckpt():
+        out, final = {}, {}
+        for backend in ("npz", "orbax"):
+            ck = os.path.join(OUT, f"async_{backend}")
+            shutil.rmtree(ck, ignore_errors=True)
+            ft.reset_launch_counts()
+            stats = cli.main([*train_flags, "--checkpoint_path", ck, "--ckpt_backend", backend,
+                              "--max_iters", str(ASYNC_STEPS), "--save_ckpt_iter",
+                              str(ASYNC_EVERY), "--log_every", "5", "--val_every", "0"])
+            d = os.path.join(ck, "synth800")
+            files = sorted(os.listdir(d))
+            want = [f"model_{s:06d}.ckpt.npz" for s in range(ASYNC_EVERY, ASYNC_STEPS, ASYNC_EVERY)]
+            want += ["final_model.ckpt.npz"] if backend == "npz" else \
+                [f"model_{ASYNC_STEPS - 1:06d}.ckpt.npz"]
+            if files != sorted(want) or ft.LAUNCHES["fused_mse_loss"] != ASYNC_STEPS:
+                raise AssertionError(f"async_ckpt {backend}: files {files}, launches {ft.LAUNCHES}")
+            steps = []
+            for name in files:
+                _, opt_state, step = ckpt.load_checkpoint(os.path.join(d, name))
+                if opt_state["count"] != step + 1:
+                    raise AssertionError(f"async_ckpt {backend}: {name} count "
+                                         f"{opt_state['count']}, step {step}")
+                steps.append(step)
+            last = files[int(np.argmax(steps))]
+            params, _ = ckpt.load_params_untyped(os.path.join(d, last))
+            held = params_to_jax(stats["model"])
+            equal = all(np.array_equal(params[k][w], held[k][w]) for k in held for w in ("w", "b"))
+            if not equal:
+                raise AssertionError(f"async_ckpt {backend}: {last} differs from the trainer's")
+            final[backend] = params
+            out[backend] = {"ms_per_step": stats["ms_per_step"], "files": files,
+                            "last_file_bit_equal_to_trainer": equal,
+                            "elapsed_s": stats["elapsed_s"], "final_loss": stats["final_loss"]}
+        resumed = cli.main([*train_flags, "--checkpoint_path", os.path.join(OUT, "async_orbax"),
+                            "--ckpt_backend", "orbax", "--max_iters", str(ASYNC_STEPS + 2),
+                            "--save_ckpt_iter", "0", "--log_every", "1", "--val_every", "0"])
+        if resumed["start_iter"] != ASYNC_STEPS or resumed["steps"] != 2:
+            raise AssertionError(f"async_ckpt resume: {resumed['start_iter']}, "
+                                 f"{resumed['steps']} steps")
+        same_run = all(np.array_equal(final["npz"][k][w], final["orbax"][k][w])
+                       for k in final["npz"] for w in ("w", "b"))
+        emit("async_ckpt", steps=ASYNC_STEPS, save_every=ASYNC_EVERY, train_views=TOOL_VIEWS,
+             **out,
+             orbax_over_npz_ms=out["orbax"]["ms_per_step"] / out["npz"]["ms_per_step"],
+             npz_and_orbax_runs_bit_equal=same_run,
+             resume={"start_iter": resumed["start_iter"], "steps": resumed["steps"]})
+
+    def interrupt():
+        out = {}
+        for backend in ("npz", "orbax"):
+            ck = os.path.join(OUT, f"interrupt_{backend}")
+            shutil.rmtree(ck, ignore_errors=True)
+            d = os.path.join(ck, "synth800")
+            log_path = os.path.join(OUT, f"interrupt_{backend}.log")
+            t0 = time.time()
+            with open(log_path, "w") as log:
+                # a SIGINT ignored by this process's starter must reach the child
+                child = subprocess.Popen(
+                    [sys.executable, "-m", "sfm_nerf_tpu_torch.cli.nerf", *train_flags,
+                     "--checkpoint_path", ck, "--ckpt_backend", backend, "--max_iters", "100000",
+                     "--save_ckpt_iter", str(INTERRUPT_AFTER), "--log_every", "100000",
+                     "--val_every", "0"], cwd=REPO, stdout=log, stderr=subprocess.STDOUT,
+                    preexec_fn=lambda: signal.signal(signal.SIGINT, signal.SIG_DFL))
+                try:
+                    mark = os.path.join(d, f"model_{INTERRUPT_AFTER:06d}.ckpt.npz")
+                    while not os.path.exists(mark):
+                        if child.poll() is not None or time.time() - t0 > INTERRUPT_TIMEOUT:
+                            raise AssertionError(f"interrupt {backend}: no step "
+                                                 f"{INTERRUPT_AFTER} checkpoint")
+                        time.sleep(0.05)
+                    child.send_signal(signal.SIGINT)
+                    rc = child.wait(timeout=120)
+                finally:
+                    if child.poll() is None:
+                        child.kill()
+                        child.wait()
+            with open(log_path) as f:
+                text = f.read()
+            path = ckpt.latest_checkpoint(d)
+            _, opt_state, stamp = ckpt.load_checkpoint(path)
+            if ("KeyboardInterrupt: saving checkpoint" not in text or rc == 0
+                    or stamp != opt_state["count"] - 1 or stamp < INTERRUPT_AFTER):
+                raise AssertionError(f"interrupt {backend}: rc {rc}, {path} stamp {stamp}, "
+                                     f"count {opt_state['count']}:\n{text[-2000:]}")
+            files, child_s = sorted(os.listdir(d)), round(time.time() - t0, 1)
+            resumed = cli.main([*train_flags, "--checkpoint_path", ck, "--ckpt_backend", backend,
+                                "--max_iters", str(stamp + 3), "--save_ckpt_iter", "0",
+                                "--log_every", "1", "--val_every", "0"])
+            if resumed["start_iter"] != stamp + 1 or resumed["steps"] != 2:
+                raise AssertionError(f"interrupt {backend} resume: {resumed['start_iter']}")
+            out[backend] = {"returncode": rc, "stamp": stamp, "adam_count": opt_state["count"],
+                            "files_at_exit": files, "child_s": child_s,
+                            "resume_start_iter": resumed["start_iter"]}
+        emit("interrupt", after_step=INTERRUPT_AFTER, train_views=TOOL_VIEWS, **out)
+
+    def wrapper():
+        ck = os.path.join(OUT, "wrapper_ckpt")
+        shutil.rmtree(ck, ignore_errors=True)
+        argv = ["--data_path", data, "--checkpoint_path", ck]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ft.reset_launch_counts()
+        stats = cli_wrapper.main(["--mode", "train", *argv, "--max_iters", str(WRAPPER_STEPS),
+                              "--save_ckpt_iter", "0"])
+        peak = torch.cuda.max_memory_allocated()
+        if any(ft.LAUNCHES.values()) or stats["steps"] != WRAPPER_STEPS \
+                or not np.isfinite(stats["final_loss"]):
+            raise AssertionError(f"wrapper train: launches {ft.LAUNCHES}, {stats['steps']} steps")
+        cfg = cli.build_config(cli_wrapper.delegated_args(
+            cli_wrapper.config_parser().parse_args(["--mode", "train", *argv])))
+        schedule = make_schedule(cfg)
+        # test mode renders the train split (the reference's quirk), here of
+        # WRAPPER_VIEWS views; the checkpoint is found under the same scene
+        fr.reset_launch_counts()
+        records = cli_wrapper.main(["--mode", "test", "--data_path",
+                                    _views(full_data, "train", WRAPPER_VIEWS),
+                                "--checkpoint_path", ck, "--images_path",
+                                os.path.join(OUT, "wrapper_test")])
+        launches = dict(fr.LAUNCHES)
+        if launches != {"fused_render_rays": WRAPPER_VIEWS, "fused_render_rays_weights": 0} \
+                or len(records) != WRAPPER_VIEWS or not all(np.isfinite(r["mse"]) for r in records):
+            raise AssertionError(f"wrapper test: launches {launches}, views {records}")
+        emit("wrapper", train={
+                 "steps": stats["steps"], "route": "nn.Module (legacy compositor)",
+                 "train_views": TOOL_VIEWS,
+                 "ms_per_step_whole_fit": stats["elapsed_s"] * 1e3 / stats["steps"],
+                 "final_loss": stats["final_loss"], "peak_mem_gib": round(peak / 2**30, 3),
+                 "near_far_variant": [cfg.render.near, cfg.render.far, cfg.render.variant],
+                 "lr_at_step": {"0": schedule(0), "1000": schedule(1000)}},
+             test={"views": [{k: round(v, 4) if isinstance(v, float) else v
+                              for k, v in r.items()} for r in records], "launches": launches})
+
+    def gif_writer():
+        frames_dir = os.path.join(OUT, "synth800_legacy")
+        out = os.path.join(OUT, "turntable.gif")
+        t0 = time.perf_counter()
+        res = cli_gif.main(["--images_path", frames_dir, "--out", out])
+        write_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        got, delays = read_gif(out)
+        read_ms = (time.perf_counter() - t0) * 1e3
+        errs = []
+        for p, frame, held in zip(res["frames"], got, res["written"]):
+            src = read_png(p)[..., :3][..., ::-1].astype(int)
+            errs.append(float(np.abs(frame.astype(int) - src).mean()))
+            if not np.array_equal(frame, held):
+                raise AssertionError(f"gif_writer: {p} does not decode to what was written")
+        if len(got) != len(res["frames"]) or len(got) < 2 or delays != [50] * len(got) \
+                or max(errs) > GIF_MEAN_ERR:
+            raise AssertionError(f"gif_writer: {len(got)} frames, delays {delays}, errors {errs}")
+        emit("gif_writer", frames=len(got), shape=list(got.shape[1:]), delays_cs=delays,
+             mean_abs_err_per_frame=errs, bytes=os.path.getsize(out), write_ms=write_ms,
+             read_ms=read_ms)
+
+    def synth_scene():
+        out = {}
+        rig = ss.camera_rig(100, 16, 0)
+        for family, scene_name, background, views in (("synth800", "spheres", "black", 4),
+                                                      ("chair800", "chair", "white", 1)):
+            root = os.path.join(REPO, "Phase2", "nerf_synthetic", family)
+            with open(os.path.join(root, "transforms_train.json")) as f:
+                frames = json.load(f)["frames"]
+            from_json = [np.asarray(fm["transform_matrix"]) for fm in frames]
+            rig_poses = all(np.allclose(a, b, rtol=0, atol=1e-12)
+                            for a, b in zip(from_json, rig["train"]))
+            poses = rig["train"] if rig_poses else from_json
+            scene = ss.Scene()
+            scene.set_scene(scene_name)
+            scene.set_background(background)
+            ss.render_view(poses[0], 64, scene, dev)     # warm-up
+            rows = []
+            for i in range(views):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                img = ss.render_view(poses[i], 800, scene, dev)       # ends in a host copy
+                ms = (time.perf_counter() - t0) * 1e3
+                ours = (img * 255 + 0.5).astype(np.uint8).astype(np.float64) / 255
+                ref = read_png(os.path.join(root, "train", f"r_{i}.png"))[..., :3] / 255.0
+                diff = np.abs(ours - ref)
+                row = {"view": i, "ms": ms, "frac_over_0.05": float((diff > SYNTH_OFF).mean()),
+                       "median": float(np.median(diff)), "max": float(diff.max())}
+                if row["frac_over_0.05"] >= SYNTH_FRAC or row["median"] > SYNTH_MEDIAN:
+                    raise AssertionError(f"synth_scene {family} r_{i}: {row}")
+                rows.append(row)
+            out[family] = {"poses_from": "camera_rig(100, 16, 0)" if rig_poses else "json",
+                           "views": rows}
+        small = os.path.join(OUT, "synth_small")
+        shutil.rmtree(small, ignore_errors=True)
+        res = ss.main(["--out", small, "--size", "800", "--n_train", "4", "--n_test", "2"])
+        tr_images, _, tr_cam = load_blender_dataset(small, "train")
+        te_images, _, _ = load_blender_dataset(small, "test")
+        if tr_images.shape != (4, 800, 800, 3) or te_images.shape != (2, 800, 800, 3) \
+                or tr_cam.width != 800 or not 0.02 < float((tr_images.sum(-1) > 0).mean()) < 0.9:
+            raise AssertionError(f"synth_scene dataset: {tr_images.shape}, {te_images.shape}")
+        emit("synth_scene", **out, dataset={"views": [4, 2], "size": 800,
+                                            "ms_per_view": res["ms_per_view"]})
+
+    phase(profile)
+    phase(async_ckpt)
+    phase(interrupt)
+    phase(wrapper)
+    phase(gif_writer)
+    phase(synth_scene)
+
+
 def main():
     sys.path.insert(0, REPO)
     import numpy as np
@@ -1837,6 +2219,7 @@ def main():
 
     if not failed:
         phase(kernel_line)
+    run_tool_phases(phase, data, train_flags, state)
     run_parallel_phases(phase, data, train_flags, state)
     run_sfm_phases(phase, OUT)
     emit("timing", elapsed_s=round(time.time() - t_start, 1))

@@ -43,8 +43,11 @@ non-zero, as does a world whose process group cannot start.  Tensor
 parallelism is reached through ``ParallelConfig.tp`` only, as in the JAX
 package.
 
+``--ckpt_backend orbax`` writes the same npz files from a background thread
+(train/async_ckpt.py), not orbax's step directories.
+
 Not ported yet: ``figure_{i}.png`` (matplotlib), ``--plot_rays``, ``.pth``
-checkpoints, ``--steps_per_call``, ``--ckpt_backend orbax``.
+checkpoints, ``--steps_per_call``.
 """
 
 from __future__ import annotations
@@ -134,6 +137,9 @@ def config_parser(mode: str = "test") -> argparse.ArgumentParser:
                        help="experiment name for logging (no writer: unused)")
         p.add_argument('--load_checkpoint', default=True, help="whether to load checkpoint or not")
         p.add_argument('--save_ckpt_iter', default=1000, help="num of iteration to save checkpoint")
+        p.add_argument('--ckpt_backend', default="npz", choices=["npz", "orbax"],
+                       help="checkpoint writer: npz (written by the training loop) or "
+                            "orbax (the same npz files, written from a background thread)")
         p.add_argument('--lrate_decay', default=0.1, type=float, help="learning rate decay factor")
         p.add_argument('--lrate_decay_steps', default=50000, type=int, help="learning rate decay steps")
         p.add_argument('--density_bias_init', default=0.0, type=float,
@@ -199,7 +205,7 @@ def _train_config(args):
         lrate_decay_steps=int(args.lrate_decay_steps),
         n_rays_batch=int(args.n_rays_batch), max_iters=int(args.max_iters),
         save_ckpt_iter=int(args.save_ckpt_iter), log_every=int(args.log_every),
-        val_every=int(args.val_every), seed=int(args.seed),
+        val_every=int(args.val_every), seed=int(args.seed), ckpt_backend=args.ckpt_backend,
     )
 
 
@@ -250,8 +256,8 @@ def _resolve_bounds(args, cam, split: str) -> None:
 
 
 def run_train(args) -> dict:
-    """Train mode.  Returns the trainer's stats with the logged losses and
-    validation errors."""
+    """Train mode.  Returns the trainer's stats with the logged losses,
+    validation errors and the trained model."""
     import torch.distributed as dist
 
     from sfm_nerf_tpu_torch.io.blender import load_blender_dataset
@@ -275,7 +281,7 @@ def run_train(args) -> dict:
     mesh = None if trainer.mesh is None else dict(zip(trainer.mesh.mesh_dim_names,
                                                        trainer.mesh.shape))
     return {**stats, "start_iter": trainer.start_iter, "losses": trainer.loss_log,
-            "val": trainer.val_log, "mesh": mesh}
+            "val": trainer.val_log, "mesh": mesh, "model": trainer.model}
 
 
 def run_test(args) -> List[dict]:

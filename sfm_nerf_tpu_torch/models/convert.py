@@ -9,7 +9,14 @@ run's ``{'coarse': ..., 'fine': ...}`` tree (params, ``mu`` and ``nu`` alike)
 maps to a ``NeRFPair``; every function here takes either.  A model whose
 parameters are DTensors (the dp x tp step, parallel/train_step.py) is read
 whole (a gather: every rank of its mesh must call) and written shard by
-shard (each rank keeps its slice of the same values).  Conversion of
+shard (each rank keeps its slice of the same values).
+
+The readers take ``how``: ``'host'`` float32 numpy (the default),
+``'device'`` detached tensors on the model's device, the weights as
+transposed views (nothing copied, nothing waited for: the asynchronous
+checkpointer snapshots them), ``'local'`` float32 numpy of this rank's own
+shard of a DTensor (no collective: what an interrupted rank can still
+write; ``shard_layout`` says where each piece lies).  Conversion of
 reference ``.pth`` files waits for a slice that needs it: no ``.pth`` file
 is in the repository.
 """
@@ -42,13 +49,30 @@ def _check_kind(model: Model, tree: dict, what: str) -> None:
                          f"{kind[isinstance(model, NeRFPair)]}")
 
 
-def _host(t: torch.Tensor) -> np.ndarray:
-    """float32 numpy of ``t``; a DTensor is gathered whole first."""
+def _read(t: torch.Tensor, key: str, how: str):
+    """``t`` in the JAX layout (a weight transposed) as ``how`` asks:
+    'host', 'device' or 'local' (see the module docstring)."""
     if hasattr(t, "device_mesh"):
-        from sfm_nerf_tpu_torch.parallel.train_step import gather_whole
+        if how == "local":
+            t = t.to_local()
+        else:
+            from sfm_nerf_tpu_torch.parallel.train_step import gather_whole
 
-        t = gather_whole([t])[0]
-    return t.detach().float().cpu().numpy()
+            t = gather_whole([t])[0]
+    t = t.detach()
+    if how == "device":
+        return t.T if key == "w" else t
+    a = t.float().cpu().numpy()        # on the CPU a view of the tensor: copy
+    return a.T.copy() if key == "w" else a.copy()
+
+
+def _layers(model: Model, leaf) -> dict:
+    """``{layer: {'w': leaf(weight, 'w'), 'b': leaf(bias, 'b')}}``, a
+    {'coarse', 'fine'} tree of these for a pair."""
+    if isinstance(model, NeRFPair):
+        return {side: _layers(getattr(model, side), leaf) for side in SIDES}
+    return {name: {"w": leaf(layer.weight, "w"), "b": leaf(layer.bias, "b")}
+            for name, layer in model.layers.items()}
 
 
 def _laid_out_as(p: torch.Tensor, a: np.ndarray) -> torch.Tensor:
@@ -96,43 +120,44 @@ def params_from_jax(params: JaxParams, mcfg: NeRFModelConfig, device="cpu") -> M
     return load_params_from_jax(cls(mcfg, device=device), params)
 
 
-def params_to_jax(model: Model) -> JaxParams:
-    """Inverse of params_from_jax: float32 numpy in the JAX layout."""
-    if isinstance(model, NeRFPair):
-        return {side: params_to_jax(getattr(model, side)) for side in SIDES}
-    return {
-        name: {
-            "w": _host(layer.weight).T.copy(),
-            "b": _host(layer.bias),
-        }
-        for name, layer in model.layers.items()
-    }
+def params_to_jax(model: Model, how: str = "host") -> JaxParams:
+    """Inverse of params_from_jax: float32 numpy in the JAX layout (or, by
+    ``how``, device tensors or this rank's shards)."""
+    return _layers(model, lambda t, key: _read(t, key, how))
 
 
-def optimizer_state_to_jax(model: Model, optimizer: torch.optim.Adam) -> dict:
+def optimizer_state_to_jax(model: Model, optimizer: torch.optim.Adam,
+                           how: str = "host") -> dict:
     """``{'count', 'mu', 'nu'}`` in the JAX layout from the Adam state of
-    ``model``'s parameters.  A parameter that has taken no step yet counts
-    zeros; ``count`` is the number of updates done."""
-    if isinstance(model, NeRFPair):
-        sides = {side: optimizer_state_to_jax(getattr(model, side), optimizer)
-                 for side in SIDES}
-        return {"count": max(s["count"] for s in sides.values()),
-                "mu": {side: s["mu"] for side, s in sides.items()},
-                "nu": {side: s["nu"] for side, s in sides.items()}}
-    mu: JaxParams = {}
-    nu: JaxParams = {}
-    count = 0
-    for name, layer in model.layers.items():
-        mu[name], nu[name] = {}, {}
-        for key, p in (("w", layer.weight), ("b", layer.bias)):
+    ``model``'s parameters (``how`` as params_to_jax's).  A parameter that
+    has taken no step yet counts zeros; ``count`` is the number of updates
+    done (Adam keeps it on the CPU: reading it waits for nothing)."""
+    def moment(field):
+        def leaf(p, key):
             st = optimizer.state.get(p, {})
-            for tree, field in ((mu, "exp_avg"), (nu, "exp_avg_sq")):
-                t = st[field] if field in st else torch.zeros_like(p)
-                a = _host(t)
-                tree[name][key] = a.T.copy() if key == "w" else a
-            if "step" in st:
-                count = max(count, int(st["step"]))
-    return {"count": count, "mu": mu, "nu": nu}
+            return _read(st[field] if field in st else torch.zeros_like(p), key, how)
+        return _layers(model, leaf)
+
+    count = max((int(optimizer.state[p]["step"]) for p in model.parameters()
+                 if "step" in optimizer.state.get(p, {})), default=0)
+    return {"count": count, "mu": moment("exp_avg"), "nu": moment("exp_avg_sq")}
+
+
+def shard_layout(model: Model) -> dict:
+    """Where this rank's ``how='local'`` pieces lie, a tree like the params:
+    ``(dim, index, count)`` per leaf, the JAX-layout dimension the tensor is
+    split along, this rank's place on that mesh axis and the axis's size;
+    ``(-1, 0, 1)`` for a whole tensor.  The Adam moments share their
+    parameter's layout."""
+    def leaf(t, key):
+        shard = [(i, pl.dim) for i, pl in enumerate(getattr(t, "placements", ()))
+                 if pl.is_shard()]
+        if not shard:
+            return (-1, 0, 1)
+        i, dim = shard[0]
+        return (1 - dim if key == "w" else dim, t.device_mesh.get_local_rank(i),
+                t.device_mesh.size(i))
+    return _layers(model, leaf)
 
 
 def optimizer_state_from_jax(model: Model, optimizer: torch.optim.Adam, state: dict) -> None:

@@ -122,14 +122,16 @@ def _local_rays(cfg: NeRFPipelineConfig, world: int) -> int:
 
 
 def make_dp_train_step(cfg: NeRFPipelineConfig, optimizer, scheduler,
-                       mesh: DeviceMesh) -> Callable:
+                       mesh: DeviceMesh, guard=None) -> Callable:
     """Explicit-collective data-parallel step over every mesh axis but
     'model' ('data', or ('dcn', 'data') on a multi-node mesh):
     ``step(model, generator, images, poses, K, draws=None, u=None,
     u_pdf=None) -> loss``, the single-device step's signature; the hooks
-    replace this rank's draws (tests)."""
-    from sfm_nerf_tpu_torch.train.nerf_trainer import make_loss_fn
+    replace this rank's draws (tests).  ``guard`` (the trainer's
+    ``UpdateGuard``) is held from the update on, as in every step here."""
+    from sfm_nerf_tpu_torch.train.nerf_trainer import UpdateGuard, make_loss_fn
 
+    guard = guard or UpdateGuard()
     axes = [a for a in mesh.mesh_dim_names if a != cfg.parallel.model_axis]
     world = axes_size(mesh, axes)
     loss_fn = make_loss_fn(cfg, n_rays=_local_rays(cfg, world))
@@ -142,6 +144,7 @@ def make_dp_train_step(cfg: NeRFPipelineConfig, optimizer, scheduler,
         loss = loss.detach().reshape(1)
         average_([loss] + [p.grad for p in model.parameters() if p.grad is not None],
                  group, world)
+        guard.hold()
         optimizer.step()
         scheduler.step()
         return loss[0]
@@ -197,24 +200,25 @@ def distribute_params(model, mesh: DeviceMesh, placements: Dict) -> None:
 
 
 def make_spmd_train_step(cfg: NeRFPipelineConfig, optimizer, scheduler,
-                         mesh: DeviceMesh, model) -> Callable:
+                         mesh: DeviceMesh, model, guard=None) -> Callable:
     """dp x tp step over ``model``, whose parameters ``distribute_params``
     has laid out on ``mesh`` and which ``optimizer`` updates.  Same
     signature as the dp step.  A config that asks for the fused kernels but
     lies outside their envelope warns once and takes the module route."""
-    from sfm_nerf_tpu_torch.train.nerf_trainer import fused_train_supported
+    from sfm_nerf_tpu_torch.train.nerf_trainer import UpdateGuard, fused_train_supported
 
+    guard = guard or UpdateGuard()
     if cfg.render.use_fused_kernel and fused_train_supported(cfg):
-        return _make_spmd_fused_step(cfg, optimizer, scheduler, mesh, model)
+        return _make_spmd_fused_step(cfg, optimizer, scheduler, mesh, model, guard)
     if cfg.render.use_fused_kernel:
         warnings.warn(
             "spmd step: config requests fused kernels but is outside the fused "
             "envelope (see fused_train_supported) — using the nn.Module path",
             stacklevel=2)
-    return _make_spmd_module_step(cfg, optimizer, scheduler, mesh, model)
+    return _make_spmd_module_step(cfg, optimizer, scheduler, mesh, model, guard)
 
 
-def _make_spmd_fused_step(cfg, optimizer, scheduler, mesh, model) -> Callable:
+def _make_spmd_fused_step(cfg, optimizer, scheduler, mesh, model, guard) -> Callable:
     """Parameters stored model-sharded, the loss computed data parallel over
     every mesh axis on a plain module that holds the gathered weights."""
     from sfm_nerf_tpu_torch.train.nerf_trainer import make_loss_fn
@@ -242,6 +246,7 @@ def _make_spmd_fused_step(cfg, optimizer, scheduler, mesh, model) -> Callable:
         for p, g in zip(params, grads):
             if g is not None:
                 p.grad = distribute_tensor(g, mesh, p.placements, src_data_rank=None)
+        guard.hold()
         optimizer.step()
         scheduler.step()
         return loss[0]
@@ -250,7 +255,7 @@ def _make_spmd_fused_step(cfg, optimizer, scheduler, mesh, model) -> Callable:
     return train_step
 
 
-def _make_spmd_module_step(cfg, optimizer, scheduler, mesh, model) -> Callable:
+def _make_spmd_module_step(cfg, optimizer, scheduler, mesh, model, guard) -> Callable:
     """The nn.Module on DTensors: each network's inputs (points, directions)
     enter as this data rank's rows of the batch, ``Shard(0)`` on 'data' and
     replicated on 'model', and leave as local tensors; sampling,
@@ -284,6 +289,7 @@ def _make_spmd_module_step(cfg, optimizer, scheduler, mesh, model) -> Callable:
         for p in model.parameters():
             if p.grad is not None:
                 p.grad = p.grad.redistribute(p.device_mesh, p.placements)
+        guard.hold()
         optimizer.step()
         scheduler.step()
         return loss.detach()

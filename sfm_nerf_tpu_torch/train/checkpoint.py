@@ -19,6 +19,13 @@ does: ``params//d:coarse//d:<layer>//d:w``, ``params//d:fine//...``,
 Resume picks the numerically newest step.  Arrays here are numpy in the JAX
 layout; models/convert.py carries them to and from the ``nn.Module`` and
 ``torch.optim.Adam``.
+
+Shards.  A rank of a run whose parameters are stored sharded (tp > 1) that
+is interrupted cannot join a gather, so it writes its own pieces:
+``shard_rank{r}_of{world}.npz``, the keys above plus ``layout//...``
+(``models/convert.py:shard_layout``: each leaf's split dimension, this
+rank's index on it and the split count).  ``load_shards`` puts the pieces
+of one interrupt back together when every rank's stamp agrees.
 """
 
 from __future__ import annotations
@@ -103,14 +110,8 @@ def _flatten(tree: dict, prefix: str) -> Dict[str, np.ndarray]:
     return flat
 
 
-def save_checkpoint(
-    ckpt_dir: str, step: int, params: dict, opt_state: Optional[dict] = None,
-    extra: Optional[Dict[str, float]] = None, final: bool = False,
-) -> str:
-    """Write params (nested dicts of numpy arrays in the JAX layout), the
-    Adam state ``{'count': int, 'mu': like params, 'nu': like params}`` and
-    the step.  Returns the path."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+def _blobs(step: int, params: dict, opt_state: Optional[dict],
+           extra: Optional[Dict[str, float]]) -> Dict[str, np.ndarray]:
     blobs = _flatten(params, "params")
     if opt_state is not None:
         count = np.asarray(opt_state["count"], np.int32)
@@ -121,19 +122,101 @@ def save_checkpoint(
     blobs["step"] = np.asarray(step, np.int64)
     for k, v in (extra or {}).items():
         blobs[f"extra{SEP}{k}"] = np.asarray(v)
-    name = "final_model.ckpt.npz" if final else f"model_{step:06d}.ckpt.npz"
-    path = os.path.join(ckpt_dir, name)
+    return blobs
+
+
+def _write(path: str, blobs: Dict[str, np.ndarray]) -> str:
+    """Write to a temporary name, then rename: a reader never sees half a
+    file."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     tmp = path + ".tmp.npz"
     np.savez(tmp, **blobs)
     os.replace(tmp, path)
     return path
 
 
+def checkpoint_name(step: int, final: bool = False) -> str:
+    return "final_model.ckpt.npz" if final else f"model_{step:06d}.ckpt.npz"
+
+
+def save_checkpoint(
+    ckpt_dir: str, step: int, params: dict, opt_state: Optional[dict] = None,
+    extra: Optional[Dict[str, float]] = None, final: bool = False,
+) -> str:
+    """Write params (nested dicts of numpy arrays in the JAX layout), the
+    Adam state ``{'count': int, 'mu': like params, 'nu': like params}`` and
+    the step.  Returns the path."""
+    return _write(os.path.join(ckpt_dir, checkpoint_name(step, final)),
+                  _blobs(step, params, opt_state, extra))
+
+
+def save_shard(ckpt_dir: str, rank: int, world: int, step: int, params: dict,
+               opt_state: dict, layout: dict, extra: Optional[Dict[str, float]] = None) -> str:
+    """Write this rank's pieces (``how='local'`` trees) and their
+    ``layout`` stamped ``step``, replacing the rank's previous shard file."""
+    blobs = _blobs(step, params, opt_state, extra)
+    blobs.update(_flatten(layout, "layout"))
+    return _write(os.path.join(ckpt_dir, f"shard_rank{rank}_of{world}.npz"), blobs)
+
+
+def _assemble(pieces: list, layouts: list):
+    """One whole array from the ranks' pieces of it: the piece of each
+    index along the split dimension, in index order."""
+    dim, _, count = (int(v) for v in layouts[0])
+    if dim < 0:
+        return pieces[0]
+    by_index = {int(lay[1]): a for a, lay in zip(pieces, layouts)}
+    if sorted(by_index) != list(range(count)):
+        raise ValueError(f"shards cover indices {sorted(by_index)} of {count}")
+    return np.concatenate([by_index[i] for i in range(count)], axis=dim)
+
+
+def load_shards(ckpt_dir: str):
+    """The newest complete set of shard files in ``ckpt_dir`` (every rank
+    of one world size), as ``(whole, stamps)``: ``stamps`` each rank's
+    step, ``whole`` ``(params, opt_state, step)`` put back together, or
+    None when the stamps disagree (never a mix of steps).  None when no
+    complete set exists."""
+    sets: Dict[int, Dict[int, str]] = {}
+    for path in glob.glob(os.path.join(ckpt_dir, "shard_rank*_of*.npz")):
+        m = re.search(r"shard_rank(\d+)_of(\d+)\.npz$", path)
+        if m:
+            sets.setdefault(int(m.group(2)), {})[int(m.group(1))] = path
+    complete = []
+    for world, files in sets.items():
+        if sorted(files) != list(range(world)):
+            continue
+        flats = []
+        for r in range(world):
+            with np.load(files[r]) as z:
+                flats.append(dict(z))
+        complete.append(({r: int(f["step"]) for r, f in enumerate(flats)}, flats))
+    if not complete:
+        return None
+    stamps, flats = max(complete, key=lambda c: max(c[0].values()))
+    if len(set(stamps.values())) > 1:
+        return None, stamps
+    flat = {}
+    for k in flats[0]:
+        if k.startswith(f"layout{SEP}"):
+            continue
+        if k.startswith(("params" + SEP, f"opt{SEP}s:0{SEP}a:mu", f"opt{SEP}s:0{SEP}a:nu")):
+            leaf = k.split(SEP, 1 if k.startswith("params") else 3)[-1]
+            lay_key = f"layout{SEP}{leaf}"
+            flat[k] = _assemble([f[k] for f in flats], [f[lay_key] for f in flats])
+        else:
+            flat[k] = flats[0][k]
+    return _unflatten(flat), stamps
+
+
 def load_checkpoint(path: str) -> Tuple[dict, Optional[dict], int]:
     """(params, opt_state or None, step) of a checkpoint written by either
     package; opt_state as save_checkpoint takes it."""
     with np.load(path) as z:
-        flat = dict(z)
+        return _unflatten(dict(z))
+
+
+def _unflatten(flat: Dict[str, np.ndarray]) -> Tuple[dict, Optional[dict], int]:
     step = int(flat["step"])
     params = _nest(flat, "params" + SEP)
     opt_state = None

@@ -23,8 +23,18 @@ legacy compositor, ``--no_fused``) the pair trains through
 
 On CPU tensors the fused wrappers run their plain versions.  The host loop
 reads the loss only every ``log_every`` steps; checkpoints (.npz, the JAX
-package's key layout) and validation renders follow their own cadences, and
-a KeyboardInterrupt saves a checkpoint stamped with the last finished step.
+package's key layout; ``ckpt_backend='orbax'`` writes the same files from a
+background thread, train/async_ckpt.py) and validation renders follow their
+own cadences, and a KeyboardInterrupt saves a checkpoint stamped with the
+last finished step.  While ``fit`` runs, SIGINT is held from a step's first
+parameter write until the loop has recorded the step as done
+(``UpdateGuard``), so the stamp always names the update the parameters
+hold, as the JAX trainer's one-statement rebind of params and opt_state
+does.  With the parameters sharded (tp > 1) an interrupted rank cannot join
+a gather: each rank writes its own shards with the stamp, and ``try_resume``
+puts them back together when every rank's stamp agrees, writes them as a
+whole checkpoint and continues from it; stamps that disagree fall back to
+the newest whole checkpoint.
 
 Several ranks (a process group is initialised: torchrun, or an in-process
 start): the step is parallel/train_step.py's, routed from
@@ -38,8 +48,8 @@ hold whole tensors, so either package and one device resume them.
 
 Not ported: ``steps_per_call`` (a ``lax.scan`` that amortises XLA dispatch:
 the torch loop enqueues each step's launches without waiting for the
-device, so there is no per-step round trip to amortise), the orbax backend,
-the ``.pth`` fine-tune resume.
+device, so there is no per-step round trip to amortise), the ``.pth``
+fine-tune resume.
 
 Renderers.  Route, decided from the config alone:
 
@@ -64,6 +74,9 @@ Nothing catches a kernel error and carries on down the other path.
 
 from __future__ import annotations
 
+import os
+import signal
+import threading
 import time
 from typing import Any, Callable, List, Optional, Tuple
 
@@ -80,7 +93,7 @@ from sfm_nerf_tpu_torch.kernels.fused_train import (
 )
 from sfm_nerf_tpu_torch.models.convert import (
     load_params_from_jax, optimizer_state_from_jax, optimizer_state_to_jax, params_from_jax,
-    params_to_jax,
+    params_to_jax, shard_layout,
 )
 from sfm_nerf_tpu_torch.models.nerf import NeRF, NeRFPair
 from sfm_nerf_tpu_torch.ops.rays import image_rays, sample_ray_batch
@@ -91,6 +104,48 @@ from sfm_nerf_tpu_torch.ops.render import (
 )
 from sfm_nerf_tpu_torch.train import checkpoint as ckpt_lib
 from sfm_nerf_tpu_torch.utils.metrics import mse as host_mse
+
+
+class UpdateGuard:
+    """Holds SIGINT across a step's parameter update.  ``install`` (the
+    trainer's ``fit``) takes over SIGINT from Python's own handler; a step
+    calls ``hold`` just before its first parameter write, and the loop calls
+    ``release`` once it has recorded the step as done, which raises the
+    KeyboardInterrupt that arrived in between.  Outside a hold, or where the
+    guard is not installed, SIGINT acts as it did."""
+
+    def __init__(self):
+        self._holding = self._pending = False
+        self._prev = None
+
+    def install(self) -> None:
+        self._holding = self._pending = False
+        # only the main thread may set handlers; a SIGINT ignored or taken
+        # over by the caller stays theirs
+        if (threading.current_thread() is threading.main_thread()
+                and signal.getsignal(signal.SIGINT) is signal.default_int_handler):
+            self._prev = signal.signal(signal.SIGINT, self._on_sigint)
+
+    def uninstall(self) -> None:
+        if self._prev is not None:
+            signal.signal(signal.SIGINT, self._prev)
+            self._prev = None
+        self._holding = False
+
+    def _on_sigint(self, signum, frame) -> None:
+        if self._holding:
+            self._pending = True
+        else:
+            signal.default_int_handler(signum, frame)
+
+    def hold(self) -> None:
+        self._holding = True
+
+    def release(self) -> None:
+        self._holding = False
+        if self._pending:
+            self._pending = False
+            raise KeyboardInterrupt
 
 
 def fused_network_supported(mcfg) -> bool:
@@ -337,15 +392,19 @@ def make_loss_fn(cfg: NeRFPipelineConfig, n_rays: Optional[int] = None):
     return loss_fn
 
 
-def make_train_step(cfg: NeRFPipelineConfig, optimizer, scheduler) -> Callable:
+def make_train_step(cfg: NeRFPipelineConfig, optimizer, scheduler,
+                    guard: Optional[UpdateGuard] = None) -> Callable:
     """``step(model, generator, images, poses, K) -> loss`` (a detached
-    scalar tensor on the device; nothing here waits for the device)."""
+    scalar tensor on the device; nothing here waits for the device).
+    ``guard`` (the trainer's) is held from the update on."""
     loss_fn = make_loss_fn(cfg)
+    guard = guard or UpdateGuard()
 
     def train_step(model, generator, images, poses, K) -> torch.Tensor:
         optimizer.zero_grad(set_to_none=True)
         loss = loss_fn(model, generator, images, poses, K)
         loss.backward()
+        guard.hold()
         optimizer.step()
         scheduler.step()
         return loss.detach()
@@ -366,8 +425,8 @@ class NeRFTrainer:
         train_step: Optional[Callable] = None,
         writer: Any = None,
     ):
-        if cfg.train.ckpt_backend != "npz":
-            raise NotImplementedError("only the npz checkpoint backend is ported")
+        if cfg.train.ckpt_backend not in ("npz", "orbax"):
+            raise ValueError(f"ckpt_backend {cfg.train.ckpt_backend!r}: npz or orbax")
         self.cfg = cfg
         self.device = torch.device(device)
         f32 = dict(dtype=torch.float32, device=self.device)
@@ -383,7 +442,13 @@ class NeRFTrainer:
             else (None, False)
         self.optimizer, self.scheduler = make_optimizer(cfg, self.model)
         self._schedule = make_schedule(cfg)
+        self._guard = UpdateGuard()
         self.train_step = train_step or self._make_step(cfg)
+        self._async = None
+        if cfg.train.ckpt_backend == "orbax" and self.rank0:
+            from sfm_nerf_tpu_torch.train.async_ckpt import AsyncCheckpointer
+
+            self._async = AsyncCheckpointer(cfg.checkpoint_path)
         self.start_iter = 0
         self.writer = writer
         self.loss_log: List[Tuple[int, float]] = []   # (iteration, loss) at log_every
@@ -417,14 +482,15 @@ class NeRFTrainer:
 
     def _make_step(self, cfg: NeRFPipelineConfig) -> Callable:
         if self.mesh is None:
-            return make_train_step(cfg, self.optimizer, self.scheduler)
+            return make_train_step(cfg, self.optimizer, self.scheduler, self._guard)
         from sfm_nerf_tpu_torch.parallel import train_step as pstep
 
         if self.sharded:
             step = pstep.make_spmd_train_step(cfg, self.optimizer, self.scheduler,
-                                              self.mesh, self.model)
+                                              self.mesh, self.model, self._guard)
         else:
-            step = pstep.make_dp_train_step(cfg, self.optimizer, self.scheduler, self.mesh)
+            step = pstep.make_dp_train_step(cfg, self.optimizer, self.scheduler, self.mesh,
+                                            self._guard)
         if self.rank0:
             print(f"{'dp x tp' if self.sharded else 'data-parallel'} over "
                   f"{dict(zip(self.mesh.mesh_dim_names, self.mesh.shape))} ranks")
@@ -436,10 +502,26 @@ class NeRFTrainer:
 
     # -- checkpointing -----------------------------------------------------
     def try_resume(self) -> bool:
-        path = ckpt_lib.latest_checkpoint(self.cfg.checkpoint_path)
-        if path is None:
+        """Load the newest checkpoint: an interrupted sharded run's shards
+        when they are newer than every whole checkpoint and agree (then
+        written whole first), else the newest whole file."""
+        ck = self.cfg.checkpoint_path
+        path = ckpt_lib.latest_checkpoint(ck)
+        state = ckpt_lib.load_checkpoint(path) if path is not None else None
+        shards = ckpt_lib.load_shards(ck) if os.path.isdir(ck) else None
+        if shards is not None and max(shards[1].values()) > (state[2] if state else -1):
+            whole, stamps = shards
+            if whole is None:
+                print(f"shard stamps disagree {stamps}: resuming from "
+                      f"{path or 'scratch'} instead")
+            else:
+                state, path = whole, os.path.join(ck, ckpt_lib.checkpoint_name(whole[2]))
+                if self.rank0:
+                    ckpt_lib.save_checkpoint(ck, whole[2], whole[0], whole[1])
+                self._barrier()
+        if state is None:
             return False
-        params, opt_state, step = ckpt_lib.load_checkpoint(path)
+        params, opt_state, step = state
         try:
             load_params_from_jax(self.model, params)
         except ValueError as e:
@@ -455,17 +537,50 @@ class NeRFTrainer:
         self.start_iter = step + 1
         return True
 
-    def save(self, step: int, loss: float, final: bool = False) -> Optional[str]:
+    def save(self, step: int, loss, final: bool = False) -> Optional[str]:
         """Write a checkpoint of whole tensors from rank 0 (the path; None
-        on the other ranks).  With several ranks every rank must call: the
-        sharded parameters are gathered, and all wait for the file."""
-        params = params_to_jax(self.model)
-        opt_state = optimizer_state_to_jax(self.model, self.optimizer)
-        path = ckpt_lib.save_checkpoint(
-            self.cfg.checkpoint_path, step, params, opt_state,
-            extra={"loss": loss}, final=final) if self.rank0 else None
+        on the other ranks).  ``loss``: a number or a scalar tensor.  With
+        several ranks every rank must call: the sharded parameters are
+        gathered, and all wait for the file."""
+        path = self._write(step, loss, final)
         self._barrier()
         return path
+
+    def _write(self, step: int, loss, final: bool = False) -> Optional[str]:
+        """Rank 0's checkpoint write; sharded parameters are gathered first
+        (a collective).  The orbax backend hands a snapshot to the
+        background writer and returns; its final save is stamped ``step``,
+        not ``final_model``, as the JAX backend's, and is waited for."""
+        how = "device" if self.cfg.train.ckpt_backend == "orbax" else "host"
+        params = params_to_jax(self.model, how=how)
+        opt_state = optimizer_state_to_jax(self.model, self.optimizer, how=how)
+        if not self.rank0:
+            return None
+        if self._async is None:
+            return ckpt_lib.save_checkpoint(self.cfg.checkpoint_path, step, params, opt_state,
+                                            extra={"loss": float(loss)}, final=final)
+        path = self._async.save(step, params, opt_state, extra={"loss": loss})
+        if final:
+            self._async.wait()
+        return path
+
+    def _save_interrupted(self) -> None:
+        """The interrupt's checkpoint, with no collective: the other ranks
+        may be anywhere.  Sharded parameters: every rank writes its own
+        shards.  Else rank 0 writes whole tensors and waits for the file."""
+        step, loss = self._done_through, float(self._loss)
+        if self.sharded:
+            print(f"KeyboardInterrupt: saving rank {dist.get_rank()}'s shards before exit")
+            ckpt_lib.save_shard(
+                self.cfg.checkpoint_path, dist.get_rank(), self.world, step,
+                params_to_jax(self.model, how="local"),
+                optimizer_state_to_jax(self.model, self.optimizer, how="local"),
+                shard_layout(self.model), extra={"loss": loss})
+        elif self.rank0:
+            print("KeyboardInterrupt: saving checkpoint before exit")
+            self._write(step, loss, final=False)
+            if self._async is not None:
+                self._async.wait()
 
     # -- main loop ---------------------------------------------------------
     def fit(self, max_iters: Optional[int] = None,
@@ -498,28 +613,25 @@ class NeRFTrainer:
                 iterator = tqdm(iterator)
             except ImportError:
                 pass
+        self._guard.install()
         try:
             self._fit_loop(iterator, cfg, val_indices, progress)
         except KeyboardInterrupt:
-            # interrupt -> checkpoint -> exit.  An interrupt that lands
-            # inside optimizer.step() may have applied part of that update;
-            # the stamp is still the last finished step, which resume re-runs
-            # no collective here: the other ranks may be anywhere.  Rank 0
-            # holds whole parameters unless they are sharded (tp > 1)
+            # interrupt -> checkpoint -> exit.  The guard held it until the
+            # step in flight was recorded, so the stamp names the update the
+            # parameters hold
             if self._done_through < 0:
                 print("KeyboardInterrupt before any completed step; nothing to checkpoint")
-            elif self.sharded:
-                print("KeyboardInterrupt: parameters sharded over tp ranks; not saved")
-            elif self.rank0:
-                print("KeyboardInterrupt: saving checkpoint before exit")
-                ckpt_lib.save_checkpoint(
-                    self.cfg.checkpoint_path, self._done_through, params_to_jax(self.model),
-                    optimizer_state_to_jax(self.model, self.optimizer),
-                    extra={"loss": float(self._loss)})
+            else:
+                self._save_interrupted()
             raise
+        finally:
+            self._guard.uninstall()
         final_loss = float(self._loss)      # waits for the device
         if self._steps_done > 0:
             self.save(max_iters - 1, final_loss, final=True)
+        if self._async is not None:
+            self._async.wait()
         elapsed = time.time() - t_start
         rays = self._steps_done * cfg.train.n_rays_batch
         return {"final_loss": final_loss, "steps": self._steps_done,
@@ -546,6 +658,7 @@ class NeRFTrainer:
             self._loss = loss
             self._steps_done += 1
             self._done_through = it
+            self._guard.release()      # raises a SIGINT held since the update
             # the loss reaches the host only here: a read per step would
             # stall the stream
             if t.log_every and it % t.log_every == 0 and self.rank0:
@@ -566,7 +679,7 @@ class NeRFTrainer:
                         "Loss/train_avg",
                         float(np.mean([v for _, v in self.loss_log[-10:]])), it)
             if t.save_ckpt_iter and it % t.save_ckpt_iter == 0 and it > 0:
-                self.save(it, float(loss))
+                self.save(it, loss)
             if t.val_every and it % t.val_every == 0 and it > 0:
                 self._validate(it, val_indices)
 

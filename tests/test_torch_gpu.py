@@ -556,3 +556,47 @@ def test_fused_train_kernel_rejects_f32_packing():
     o, d, z, target = _train_batch(64, 32, seed=0)
     with pytest.raises(ValueError):
         ft.fused_mse_loss_grads(packed, o, d, z, target, RenderConfig(n_sample=32))
+
+
+@pytest.mark.gpu
+def test_async_checkpoint_snapshot_is_the_state_at_save(tmp_path):
+    """train/async_ckpt.py on the card: the file written from the pinned
+    snapshot equals a synchronous ``.cpu()`` copy taken at ``save`` (params
+    and Adam moments, bit for bit), although three more in-place Adam steps
+    were enqueued on the same stream before the writer ran, and differs
+    from the parameters after them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the snapshot is a device-to-pinned copy")
+    from sfm_nerf_tpu_torch.config import NeRFModelConfig
+    from sfm_nerf_tpu_torch.models.convert import optimizer_state_to_jax, params_to_jax
+    from sfm_nerf_tpu_torch.models.nerf import NeRF
+    from sfm_nerf_tpu_torch.train.async_ckpt import AsyncCheckpointer
+
+    model = NeRF(NeRFModelConfig(), device="cuda", seed=0)
+    opt = torch.optim.Adam(model.parameters(), lr=5e-4)
+    pts = torch.randn(8192, 3, device="cuda")
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        density, rgb = model(pts, pts)
+        (density.square().mean() + rgb.square().mean()).backward()
+        opt.step()
+
+    step()
+    torch.cuda.synchronize()
+    want_p, want_o = params_to_jax(model), optimizer_state_to_jax(model, opt)
+    ck = AsyncCheckpointer(str(tmp_path))
+    path = ck.save(1, params_to_jax(model, how="device"),
+                   optimizer_state_to_jax(model, opt, how="device"))
+    for _ in range(3):
+        step()
+    ck.wait()
+    params, state, s = ckpt.load_checkpoint(path)
+    after = params_to_jax(model)
+    assert s == 1 and state["count"] == want_o["count"] == 1
+    for name in want_p:
+        for k in ("w", "b"):
+            np.testing.assert_array_equal(params[name][k], want_p[name][k])
+            np.testing.assert_array_equal(state["mu"][name][k], want_o["mu"][name][k])
+            np.testing.assert_array_equal(state["nu"][name][k], want_o["nu"][name][k])
+    assert not np.array_equal(after["fc1"]["w"], want_p["fc1"]["w"])

@@ -373,7 +373,9 @@ def trained(scene, tmp_path_factory):
                 train=dict(n_rays_batch=N_RAYS, lrate=5e-3, log_every=1, save_ckpt_iter=4,
                            val_every=5, n_val_images=1),
                 checkpoint_path=ck, max_iters=7,
-                checkpoint_path_tp=str(tmp_path_factory.mktemp("tp_ckpt")), tp_iters=(4, 6))
+                checkpoint_path_tp=str(tmp_path_factory.mktemp("tp_ckpt")), tp_iters=(4, 6),
+                checkpoint_path_int=str(tmp_path_factory.mktemp("tp_int_ckpt")),
+                interrupt_at=5)
     return ck, case["checkpoint_path_tp"], _spawn(
         str(tmp_path_factory.mktemp("trainer_ranks")), case, 2)
 
@@ -462,3 +464,30 @@ def test_trainer_with_tp_stores_shards_and_writes_whole_checkpoints(trained, sce
         os.path.join(ck, "final_model.ckpt.npz"), template, tx.init(template))
     assert step == 5 and int(opt_state[0].count) == 6
     _assert_params_close(_np_tree(params), res[0]["tp"][1]["params"], rtol=0, atol=0)
+
+
+def test_interrupt_under_tp_saves_shards_and_resumes(trained, scene):
+    """dp1 x tp2, SIGINT on both ranks inside the fifth update: each rank
+    holds it until the step is recorded, then writes its own shards stamped
+    4 (no collective: the other rank may be anywhere); a new trainer puts
+    them back together (the stamps agree), writes them as a whole
+    checkpoint, which the JAX package reads, and resumes at 5 with the
+    parameters of the one-process replay of those 5 steps (the replay's
+    tolerances, PARAM_RTOL / PARAM_ATOL)."""
+    _, _, res = trained
+    for r in res:
+        got = r["tp_interrupt"]
+        assert got["interrupted"] and got["resumed"] and got["start_iter"] == 5
+        assert got["files_after_interrupt"] == ["shard_rank0_of2.npz", "shard_rank1_of2.npz"]
+        assert got["files_after_resume"] == ["model_000004.ckpt.npz", "shard_rank0_of2.npz",
+                                             "shard_rank1_of2.npz"]
+        _assert_params_close(got["params"], res[0]["tp_interrupt"]["replay"])
+    _assert_params_close(res[1]["tp_interrupt"]["params"], res[0]["tp_interrupt"]["params"],
+                         rtol=0, atol=0)
+    template = _jtree(scene["params"]["flat"])
+    tx = jmake_optimizer(_jcfg())
+    params, opt_state, step = jckpt.load_checkpoint(
+        os.path.join(res[0]["tp_interrupt"]["ckpt_dir"], "model_000004.ckpt.npz"),
+        template, tx.init(template))
+    assert step == 4 and int(opt_state[0].count) == 5
+    _assert_params_close(_np_tree(params), res[0]["tp_interrupt"]["params"], rtol=0, atol=0)

@@ -26,7 +26,8 @@ for sub in ("io", "models", "ops", "kernels", "train", "utils", "cli", "sfm",
             "ops.triangulation", "ops.pnp", "ops.ba", "sfm.tracks", "sfm.pipeline",
             "sfm.to_nerf", "cli.sfm", "parallel", "parallel.mesh", "parallel.train_step",
             "parallel.render", "parallel.ransac", "parallel.ba", "ops.essential5",
-            "ops.rotation_avg", "ops.translation_avg"):
+            "ops.rotation_avg", "ops.translation_avg", "utils.profiling", "utils.debug",
+            "train.async_ckpt", "cli.wrapper", "io.gif", "cli.gif", "cli.synth_scene"):
     assert "sfm_nerf_tpu_torch." + sub in sys.modules, sub
 # nothing of native/: no module from that directory, no library it builds
 import os
@@ -67,7 +68,7 @@ def test_port_imports_no_jax():
     out = _run(_PROBE)
     assert out.returncode == 0, out.stdout + out.stderr
     n_mods = int(out.stdout.split()[0])
-    assert n_mods >= 37, out.stdout
+    assert n_mods >= 44, out.stdout
 
 
 def test_chip_smoke_imports_no_jax():
@@ -83,6 +84,13 @@ def test_entry_points_default_to_cuda():
     assert sfm_nerf_tpu_torch.DEFAULT_DEVICE == "cuda"
     for mode in ("train", "test", "gif"):
         assert config_parser(mode).parse_args([]).device == "cuda"
+    from sfm_nerf_tpu_torch.cli import synth_scene, wrapper
+    from sfm_nerf_tpu_torch.utils.profiling import StepTimer
+
+    assert wrapper.config_parser().parse_args([]).device == "cuda"
+    args = synth_scene.config_parser().parse_args([])
+    assert (args.device, args.trace_backend) == ("cuda", "torch")
+    assert StepTimer.__init__.__defaults__ == ("cuda",)
 
 
 # train mode with no card visible (CUDA_VISIBLE_DEVICES="" in _run): the

@@ -9,6 +9,7 @@ from a seed and fed to both packages."""
 
 import dataclasses
 import glob
+import json
 import os
 
 import jax
@@ -499,6 +500,83 @@ def test_interrupt_saves_the_last_finished_step(tiny, tmp_path):
     assert again.try_resume() and again.start_iter == 4
 
 
+# The trainer on the CPU in a child process (a SIGINT sent inside a
+# pytest-xdist worker is not safe): an optimizer post-hook sends SIGINT to
+# the process during the fifth update, as Ctrl-C can land there
+_INTERRUPT_PROBE = r"""
+import json, os, signal, sys
+import numpy as np
+import torch
+from sfm_nerf_tpu_torch.config import (
+    NeRFModelConfig, NeRFPipelineConfig, RenderConfig, TrainConfig)
+from sfm_nerf_tpu_torch.models.convert import params_to_jax
+from sfm_nerf_tpu_torch.train import checkpoint as ckpt
+from sfm_nerf_tpu_torch.train.nerf_trainer import NeRFTrainer
+
+torch.set_num_threads(1)
+ck, backend = sys.argv[1], sys.argv[2]
+rng = np.random.default_rng(0)
+images = rng.uniform(0, 1, (3, 16, 16, 3)).astype(np.float32)
+poses = np.tile(np.eye(4, dtype=np.float32), (3, 1, 1))
+poses[:, 2, 3] = 4.0
+K = np.array([[20, 0, 8], [0, 20, 8], [0, 0, 1]], np.float32)
+cfg = NeRFPipelineConfig(
+    model=NeRFModelConfig(hidden=32, n_pos_freq=4, n_dir_freq=2),
+    render=RenderConfig(n_sample=16, use_fused_kernel=True),
+    train=TrainConfig(n_rays_batch=64, log_every=0, val_every=0, save_ckpt_iter=0,
+                      ckpt_backend=backend),
+    checkpoint_path=ck, load_checkpoint=False)
+tr = NeRFTrainer(cfg, images, poses, K, device="cpu")
+held = {}
+
+def hook(opt, args, kwargs):
+    n = int(next(iter(opt.state.values()))["step"])
+    if n == 5:
+        held["params"] = params_to_jax(tr.model)
+        os.kill(os.getpid(), signal.SIGINT)
+
+tr.optimizer.register_step_post_hook(hook)
+try:
+    tr.fit(max_iters=20, progress=False)
+    raise SystemExit("fit ran to its end: no interrupt")
+except KeyboardInterrupt:
+    pass
+assert signal.getsignal(signal.SIGINT) is signal.default_int_handler
+path = ckpt.latest_checkpoint(ck)
+params, opt_state, step = ckpt.load_checkpoint(path)
+same = all(np.array_equal(params[k][w], held["params"][k][w])
+           for k in params for w in ("w", "b"))
+again = NeRFTrainer(cfg, images, poses, K, device="cpu")
+print(json.dumps({"files": sorted(os.listdir(ck)), "stamp": step,
+                  "count": opt_state["count"], "params_equal": same,
+                  "resumed": again.try_resume(), "start_iter": again.start_iter}))
+"""
+
+
+@pytest.mark.parametrize("backend", ["npz", "orbax"])
+def test_interrupt_during_the_update_saves_that_update(tmp_path, backend):
+    """SIGINT inside optimizer.step() of the fifth step: the trainer holds it
+    until the step is recorded as done, so the checkpoint is stamped 4 with
+    Adam's count 5 (stamp = count - 1, as the JAX trainer's
+    tests/test_interrupt.py:19 implies), holds the parameters after those 5
+    updates, and a fresh trainer resumes at 5; the SIGINT handler is given
+    back after fit.  Under both checkpoint backends."""
+    import subprocess
+    import sys
+
+    repo = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(PYTHONPATH=os.path.abspath(repo), CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    out = subprocess.run([sys.executable, "-c", _INTERRUPT_PROBE, str(tmp_path / "ck"), backend],
+                         env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["files"] == ["model_000004.ckpt.npz"], got
+    assert (got["stamp"], got["count"]) == (4, 5), got
+    assert got["params_equal"], got
+    assert got["resumed"] and got["start_iter"] == 5, got
+
+
 def test_interrupt_before_any_step_saves_nothing(tiny, tmp_path):
     cfg = _port_cfg(tiny["jcfg"], checkpoint_path=str(tmp_path / "ck"))
 
@@ -543,11 +621,14 @@ def test_the_loss_reaches_the_host_only_at_log_every(tiny, tmp_path):
     assert writer.images == [("Val_Image_0", (3, 16, 32), 8)]
 
 
-def test_unported_options_raise(tiny):
-    """The orbax backend and the bf16 nn.Module path are not ported and say
-    so; hierarchical sampling is (tests/test_torch_hier_train.py): the
-    trainer builds a coarse/fine pair for it."""
+def test_unported_options_raise(tiny, tmp_path):
+    """The bf16 nn.Module path is not ported and says so; hierarchical
+    sampling is (tests/test_torch_hier_train.py): the trainer builds a
+    coarse/fine pair for it.  The orbax backend is ported
+    (train/async_ckpt.py, held by tests/test_torch_aux.py): the trainer
+    takes it, and refuses a backend it does not know."""
     from sfm_nerf_tpu_torch.models.nerf import NeRFPair
+    from sfm_nerf_tpu_torch.train.async_ckpt import AsyncCheckpointer
 
     args = (tiny["images"], tiny["poses"], tiny["K"])
     hier = NeRFTrainer(_port_cfg(tiny["jcfg"], render=dict(n_importance=8)), *args, device="cpu")
@@ -555,8 +636,11 @@ def test_unported_options_raise(tiny):
     assert callable(make_loss_fn(_port_cfg(tiny["jcfg"], render=dict(n_importance=8))))
     with pytest.raises(NotImplementedError):
         make_loss_fn(_port_cfg(tiny["jcfg"], train=dict(compute_dtype="bfloat16")))
-    with pytest.raises(NotImplementedError):
-        NeRFTrainer(_port_cfg(tiny["jcfg"], train=dict(ckpt_backend="orbax")), *args,
+    orbax = NeRFTrainer(_port_cfg(tiny["jcfg"], checkpoint_path=str(tmp_path),
+                                  train=dict(ckpt_backend="orbax")), *args, device="cpu")
+    assert isinstance(orbax._async, AsyncCheckpointer)
+    with pytest.raises(ValueError, match="ckpt_backend"):
+        NeRFTrainer(_port_cfg(tiny["jcfg"], train=dict(ckpt_backend="zarr")), *args,
                     device="cpu")
 
 

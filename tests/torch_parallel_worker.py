@@ -24,6 +24,7 @@ from sfm_nerf_tpu_torch.config import (  # noqa: E402
     NeRFModelConfig, NeRFPipelineConfig, ParallelConfig, RenderConfig, TrainConfig,
 )
 from sfm_nerf_tpu_torch.models.convert import params_from_jax, params_to_jax  # noqa: E402
+from sfm_nerf_tpu_torch.models.nerf import NeRF  # noqa: E402
 from sfm_nerf_tpu_torch.parallel import mesh as pmesh  # noqa: E402
 from sfm_nerf_tpu_torch.parallel import train_step as pstep  # noqa: E402
 from sfm_nerf_tpu_torch.parallel.render import make_sharded_render_image  # noqa: E402
@@ -175,6 +176,58 @@ def trainer(c, rank, world):
                      "mesh": dict(zip(tr.mesh.mesh_dim_names, tr.mesh.shape)),
                      "val_log": tr.val_log})
     out["tp"] = fits
+    out["tp_interrupt"] = _interrupted_tp(c, tp, rank)
+    return out
+
+
+def _interrupted_tp(c, tp, rank):
+    """dp1 x tp2 with SIGINT sent to this rank inside its optimizer's
+    update of step ``interrupt_at`` (both ranks, as torchrun sends it to
+    every rank): each rank writes its shards stamped with that step; a new
+    trainer resumes from them, writing a whole checkpoint.  Rank 0 also
+    replays the run in one process: whole weights, the mean of both ranks'
+    losses on their own draw streams, one Adam step at a time."""
+    import signal
+
+    from sfm_nerf_tpu_torch.parallel.train_step import draw_seed
+
+    cfg = dataclasses.replace(tp, checkpoint_path=c["checkpoint_path_int"],
+                              load_checkpoint=False)
+    n = c["interrupt_at"]
+    tr = NeRFTrainer(cfg, c["images"], c["poses"], c["K"], device="cpu")
+
+    def hook(opt, args, kwargs):
+        if int(next(iter(opt.state.values()))["step"]) == n:
+            os.kill(os.getpid(), signal.SIGINT)
+
+    tr.optimizer.register_step_post_hook(hook)
+    try:
+        tr.fit(max_iters=n + 5, progress=False)
+        interrupted = False
+    except KeyboardInterrupt:
+        interrupted = True
+    dist.barrier()
+    shard_files = sorted(os.listdir(cfg.checkpoint_path))
+    again = NeRFTrainer(dataclasses.replace(cfg, load_checkpoint=True),
+                        c["images"], c["poses"], c["K"], device="cpu")
+    resumed = again.try_resume()
+    out = {"interrupted": interrupted, "files_after_interrupt": shard_files,
+           "ckpt_dir": cfg.checkpoint_path,
+           "resumed": resumed, "start_iter": again.start_iter,
+           "params": params_to_jax(again.model),
+           "files_after_resume": sorted(os.listdir(cfg.checkpoint_path))}
+    if rank == 0:
+        scene = tuple(_t(c[k]) for k in ("images", "poses", "K"))
+        model = NeRF(cfg.model, device="cpu", seed=cfg.train.seed)    # the trainer's init
+        opt, sched = make_optimizer(cfg, model)
+        loss_fn = make_loss_fn(cfg, n_rays=cfg.train.n_rays_batch // 2)
+        gens = [torch.Generator().manual_seed(draw_seed(cfg.train.seed, i)) for i in range(2)]
+        for _ in range(n):
+            opt.zero_grad(set_to_none=True)
+            torch.stack([loss_fn(model, g, *scene) for g in gens]).mean().backward()
+            opt.step()
+            sched.step()
+        out["replay"] = params_to_jax(model)
     return out
 
 
