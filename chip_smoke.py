@@ -122,6 +122,27 @@ training step; hierarchical: 256 coarse + 128 importance samples):
    held against the committed PNG by tests/test_synth_scene.py's rule, ms
    per view; then a 4 + 2 view dataset through ``cli.synth_scene``, read
    back by io/blender.py.
+26. pth_interop (after hier_kernels, like 27-28, before the kernels line):
+   synth800's checkpoint exported as a reference active-class .pth and read
+   back bit-equal; ``cli.wrapper --mode gif --no_perturb`` on a directory
+   holding only that file renders the gif phase's 2 frames through K1, bit-
+   equal to the npz's; a seeded full-width legacy network exported as
+   final_model.pth is fine-tuned by ``cli.nerf --mode train --arch legacy``
+   for 20 steps through K2 (from step 0, the exported weights); a seeded
+   skip-less no-PE legacy network read from a .pth renders 16,384 rays of
+   the serve view through K1, held against the plain version;
+27. bf16_module: the legacy-compositor nn.Module route (``cli.wrapper --mode
+   train``'s config) at 8,192 x 256 through NeRFTrainer, 20 steps float32 and
+   20 bf16 (``compute_dtype``) from one seeded init: ms per step, peak
+   memory, losses, a trace of 3 more steps of each (the device's time by
+   kernel); on one batch bf16 against float32 (loss, every grad) and
+   bf16 on the card against bf16 on the CPU on its first 1,024 rays; the
+   product alone at one layer's shape in float32, bf16 with float32 out
+   (Bf16Linear's) and bf16 out;
+28. tb_events: the train phase's two runs' event files read back: the tags
+   and steps the trainer logged, the scalars equal to its logged losses,
+   Val_Image_0 decoded against the final model's validation side-by-side,
+   the files' bytes and the writer's share of the fit's wall time.
 
 Each kernel path runs with the launch counters set to 0 just before it and
 read just after; a path that did not launch its kernel fails the run.  Every
@@ -130,6 +151,9 @@ without a result when no card is visible, when the package is missing, or
 when any phase fails.
 """
 
+import contextlib
+import dataclasses
+import io
 import json
 import os
 import shutil
@@ -165,6 +189,19 @@ PSNR_GT_FLOOR = 25.0     # dB vs ground truth: catches a broken frame only
 GRAD_REL_TOL, GRAD_MAX_TOL = 2e-2, 5e-2
 LOSS_REL_TOL = 1e-3      # kernel loss vs plain version's loss
 TRAIN_STEPS, RESUME_STEPS, K3_STEPS = 100, 12, 12
+# slice 12's phases: the fine-tune of a converted legacy .pth through K2,
+# the bf16 nn.Module route beside the float32 one, and the rules for it: bf16
+# against float32 compute on one batch (loss, each grad tensor against its
+# norm), and bf16 on the card against bf16 on the CPU on the batch's first
+# BF16_CPU_RAYS rays (the card's products also round the output cotangent to
+# bf16, Bf16Linear); Val_Image_0 against the validation side-by-side
+FINETUNE_STEPS, BF16_STEPS, BF16_TRACE_STEPS, BF16_CPU_RAYS = 20, 20, 3, 1024
+BF16_LOSS_REL, BF16_GRAD_REL = 2e-2, 5e-2
+CARD_LOSS_REL, CARD_GRAD_REL = 1e-3, 2e-2
+VAL_IMAGE_LEVELS = 1
+# the gif phase's legacy turntable (2 frames), rendered again from a .pth
+GIF_LEGACY_FLAGS = ["--orbit", "lookat", "--orbit_elev", "30", "--orbit_target", "0,-0.2,0",
+                    "--n_frames", "2"]
 N_IMPORTANCE = 128       # importance samples of the hierarchical phases
 PEAK_BF16 = 989e12       # H100 SXM dense bf16 FLOP/s (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12     # H100 SXM HBM3 bytes/s
@@ -1405,7 +1442,7 @@ def main():
     from sfm_nerf_tpu_torch.kernels import _build
     from sfm_nerf_tpu_torch.kernels import fused_render as fr
     from sfm_nerf_tpu_torch.kernels import fused_train as ft
-    from sfm_nerf_tpu_torch.models.convert import params_from_jax
+    from sfm_nerf_tpu_torch.models.convert import params_from_jax, params_to_jax
     from sfm_nerf_tpu_torch.ops.rays import image_rays, sample_ray_batch
     from sfm_nerf_tpu_torch.ops.render import (
         composite, merge_sorted, sample_pdf, stratified_samples,
@@ -1626,9 +1663,7 @@ def main():
     def gif():
         out = {}
         for name, extra, variant_kw in (
-            ("synth800_legacy", ["--orbit", "lookat", "--orbit_elev", "30",
-                                 "--orbit_target", "0,-0.2,0", "--n_frames", "2"],
-             dict(near=1.0, far=10.0, variant="legacy")),
+            ("synth800_legacy", GIF_LEGACY_FLAGS, dict(near=1.0, far=10.0, variant="legacy")),
             ("chair800_white", ["--orbit", "lookat", "--orbit_elev", "30",
                                 "--orbit_target", "0,-0.2,0", "--train_variant",
                                 "--white_bkgd", "--near", "2", "--far", "6",
@@ -1668,7 +1703,8 @@ def main():
     # ---- 5. train: the CLI's train mode through K2 ------------------------
     train_ckpt = os.path.join(OUT, "train_ckpt")
     train_flags = ["--mode", "train", "--data_path", data, "--n_sample", "256",
-                   "--n_rays_batch", "8192", "--seed", "0"]
+                   "--n_rays_batch", "8192", "--seed", "0",
+                   "--logs_path", os.path.join(OUT, "logs")]
 
     def train_run(tag, ck, extra, per_step, per_val_view):
         """``--mode train`` for TRAIN_STEPS steps from a seeded init, then a
@@ -1681,7 +1717,7 @@ def main():
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         ft.reset_launch_counts()
-        stats = cli.main([*train_flags, *extra, "--checkpoint_path", ck,
+        stats = cli.main([*train_flags, *extra, "--checkpoint_path", ck, "--exp_name", tag,
                           "--max_iters", str(TRAIN_STEPS), "--log_every", "5",
                           "--val_every", "0", "--save_ckpt_iter", str(half)])
         launches = dict(ft.LAUNCHES)
@@ -1699,13 +1735,14 @@ def main():
         saved = sorted(os.listdir(os.path.join(ck, "synth800")))
         if saved != ["final_model.ckpt.npz", f"model_{half:06d}.ckpt.npz"]:
             raise AssertionError(f"{tag}: checkpoints {saved}")
-        # resume from the mid-run checkpoint for a few steps, then validate
+        # resume from the mid-run checkpoint for a few steps, validating
+        # after the last one (the model the final checkpoint holds)
         fr.reset_launch_counts()
         ft.reset_launch_counts()
         end = half + 1 + RESUME_STEPS
-        resumed = cli.main([*train_flags, *extra, "--checkpoint_path", ck,
+        resumed = cli.main([*train_flags, *extra, "--checkpoint_path", ck, "--exp_name", tag,
                             "--max_iters", str(end), "--log_every", "1",
-                            "--val_every", str(end - 2), "--save_ckpt_iter", "0"])
+                            "--val_every", str(end - 1), "--save_ckpt_iter", "0"])
         val = [v for _, _, v in resumed["val"]]
         want = {k: per_step.get(k, 0) * RESUME_STEPS for k in launches}
         if (resumed["start_iter"] != half + 1 or resumed["steps"] != RESUME_STEPS
@@ -1728,13 +1765,16 @@ def main():
             resume={"start_iter": resumed["start_iter"], "steps": resumed["steps"],
                     "ms_per_step": resumed["ms_per_step"],
                     "losses": [v for _, v in resumed["losses"]],
-                    "val_views": len(val), "val_mse": val, "launches": dict(fr.LAUNCHES)})
+                    "val_views": len(val), "val_mse": val, "launches": dict(fr.LAUNCHES)},
+            events=[{k: r[k] for k in ("events", "writer_s", "elapsed_s", "losses", "val")}
+                    for r in (stats, resumed)])
 
     def train():
         launches, record = train_run("train", train_ckpt, [], {"fused_mse_loss": 1},
                                      {"fused_render_rays": 1})
         state["K2_launches"] = launches["fused_mse_loss"]
         state["train_ms_per_step"] = record["ms_per_step"]
+        state["train_events"] = record.pop("events")
         emit("train", **record)
 
     # ---- 6. train through the two-kernel route (K3) ------------------------
@@ -1903,6 +1943,7 @@ def main():
             {"fused_mse_loss_weights": 1, "fused_mse_loss": 1},
             {"fused_render_rays_weights": 1, "fused_render_rays": 1})
         state["K4_launches"] = launches["fused_mse_loss_weights"]
+        record.pop("events")
         emit("train_hier", samples=[256, N_IMPORTANCE], **record)
 
     hrcfg = RenderConfig(n_sample=256, n_importance=N_IMPORTANCE, near=2.0, far=6.0,
@@ -2099,6 +2140,297 @@ def main():
                     "parts_peak_mem_gib": round(peak / 2**30, 3),
                     "kernel_vs_module": {"psnr": round(p_mod, 2), "module_ms": round(mod_ms, 2)}})
 
+
+    # ---- slice 12: reference .pth files, bf16 nn.Module compute, the log ----
+    def pth_interop():
+        from sfm_nerf_tpu_torch.cli import wrapper as cli_wrapper
+        from sfm_nerf_tpu_torch.config import NeRFModelConfig
+        from sfm_nerf_tpu_torch.models import convert as cv
+        from sfm_nerf_tpu_torch.models.nerf import NeRF
+        from sfm_nerf_tpu_torch.train.nerf_trainer import NeRFTrainer, make_render_rays
+
+        def same_tree(a, b):
+            return set(a) == set(b) and all(np.array_equal(a[k][f], b[k][f])
+                                            for k in a for f in ("w", "b"))
+
+        if "gif" in failed:
+            raise AssertionError("the gif phase's npz frames are missing")
+        paths = state.setdefault("launch_paths", {})
+        # 1. the committed checkpoint as a reference active-class file
+        root = os.path.join(OUT, "pth_ckpt")
+        shutil.rmtree(root, ignore_errors=True)
+        os.makedirs(os.path.join(root, "synth800"))
+        pth = os.path.join(root, "synth800", "final_model.pth")
+        cv.export_active_to_pth(params, pth)
+        back, back_cfg = cv.convert_pth(pth)
+        if back_cfg != mcfg or not same_tree(back, params):
+            raise AssertionError(f"active .pth read back: {back_cfg} vs {mcfg}")
+        # 2. gif mode on the directory that holds only the .pth
+        fr.reset_launch_counts()
+        records = cli_wrapper.main([
+            "--mode", "gif", "--data_path", data, "--checkpoint_path", root,
+            "--images_path", os.path.join(OUT, "pth_gif"), "--no_perturb",
+            "--n_sample", "256", *GIF_LEGACY_FLAGS])
+        gif_launches = dict(fr.LAUNCHES)
+        if gif_launches["fused_render_rays"] != len(records) or len(records) != 2:
+            raise AssertionError(f"pth gif: launches {gif_launches}, {len(records)} frames")
+        for r in records:
+            npz_frame = read_png(os.path.join(OUT, "synth800_legacy", os.path.basename(r["path"])))
+            if not np.array_equal(read_png(r["path"]), npz_frame):
+                raise AssertionError(f"pth gif frame {r['frame']} differs from the npz frame")
+        # 3. fine-tune a seeded full-width legacy network from its .pth through K2
+        lcfg = NeRFModelConfig(arch="legacy")
+        src = params_to_jax(NeRF(lcfg, seed=12))
+        ft_root = os.path.join(OUT, "finetune_ckpt")
+        shutil.rmtree(ft_root, ignore_errors=True)
+        os.makedirs(os.path.join(ft_root, "synth800"))
+        cv.export_legacy_to_pth(src, lcfg, os.path.join(ft_root, "synth800", "final_model.pth"))
+        small = _views(data, "train", TOOL_VIEWS)
+        flags = [small if f == data else f for f in train_flags] + [
+            "--arch", "legacy", "--checkpoint_path", ft_root, "--exp_name", "finetune",
+            "--max_iters", str(FINETUNE_STEPS), "--log_every", "5", "--val_every", "0",
+            "--save_ckpt_iter", "0"]
+        ft_cfg = cli.build_config(cli.config_parser("train").parse_args(flags))
+        s_images, s_poses, s_cam = load_blender_dataset(small, "train")
+        probe = NeRFTrainer(ft_cfg, s_images, s_poses, s_cam.camera_matrix, device=dev)
+        if not probe.try_resume() or probe.start_iter != 0 \
+                or not same_tree(params_to_jax(probe.model), src):
+            raise AssertionError("the .pth fine-tune did not resume the exported weights")
+        del probe
+        ft.reset_launch_counts()
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            stats = cli.main(flags)
+        told = [ln for ln in log.getvalue().splitlines() if "Fine-tuning from converted" in ln]
+        losses = [v for _, v in stats["losses"]]
+        k2 = ft.LAUNCHES["fused_mse_loss"]
+        if (not told or stats["start_iter"] != 0 or stats["steps"] != FINETUNE_STEPS
+                or k2 != FINETUNE_STEPS or not all(np.isfinite(losses))):
+            raise AssertionError(f"fine-tune: {told}, start {stats['start_iter']}, steps "
+                                 f"{stats['steps']}, K2 {k2}, losses {losses}")
+        # 4. a skip-less no-PE legacy network through a .pth, 16,384 rays through K1
+        ncfg = NeRFModelConfig(arch="legacy", pos_encoding=False, has_skip=False,
+                               n_block1_layers=4)
+        nsrc = params_to_jax(NeRF(ncfg, seed=13))
+        npth = os.path.join(OUT, "nope_final_model.pth")
+        cv.export_legacy_to_pth(nsrc, ncfg, npth)
+        nparams, nback = cv.convert_pth(npth)
+        if nback != ncfg or not same_tree(nparams, nsrc):
+            raise AssertionError(f"no-PE .pth read back: {nback} vs {ncfg}")
+        nmodel = params_from_jax(nparams, nback, dev).eval()
+        i = torch.linspace(0, o.shape[0] - 1, SUBSET, device=dev).long()
+        fr.reset_launch_counts()
+        rgb = make_render_rays(NeRFPipelineConfig(model=nback, render=rcfg))(nmodel, o[i], d[i])
+        torch.cuda.synchronize()
+        nope_launches = dict(fr.LAUNCHES)
+        ref = fr.fused_render_rays_reference(
+            fr.pack_nerf_params(nmodel, nback, torch.bfloat16), o[i], d[i], z[i], rcfg)
+        if nope_launches["fused_render_rays"] != 1 or ref.std().item() == 0.0:
+            raise AssertionError(f"no-PE render: launches {nope_launches}, "
+                                 f"plain rgb std {ref.std().item()}")
+        nope_cmp = compare("K1 no-PE", rgb, ref)
+        paths["pth_interop"] = {"fused_render_rays": 2 + 1, "fused_mse_loss": k2}
+        state["K1_launches"] += 3
+        state["K2_launches"] += k2
+        emit("pth_interop",
+             export={"file": pth, "bytes": os.path.getsize(pth), "bit_equal": True},
+             gif={"frames": len(records), "launches": gif_launches, "bit_equal_to_npz": True,
+                  "ms": [round(r["ms"], 2) for r in records]},
+             finetune={"told": told[0], "start_iter": stats["start_iter"],
+                       "steps": stats["steps"], "K2_launches": k2, "losses": losses,
+                       "ms_per_step": stats["ms_per_step"],
+                       "active_ms_per_step": state.get("train_ms_per_step")},
+             nope={"config": dataclasses.asdict(nback), "rays": SUBSET,
+                   "launches": nope_launches, "plain_rgb_std": ref.std().item(), **nope_cmp})
+
+    def bf16_module():
+        from sfm_nerf_tpu_torch.cli import wrapper as cli_wrapper
+        from sfm_nerf_tpu_torch.models.nerf import NeRF
+        from sfm_nerf_tpu_torch.train.nerf_trainer import (
+            NeRFTrainer, fused_train_supported, make_loss_fn,
+        )
+        from sfm_nerf_tpu_torch.utils import profiling as prof
+
+        small = _views(data, "train", TOOL_VIEWS)
+        # cli.wrapper --mode train's config: 8,192 x 256, the legacy compositor
+        base = cli.build_config(cli_wrapper.delegated_args(
+            cli_wrapper.config_parser().parse_args(["--mode", "train", "--data_path", small])))
+        s_images, s_poses, s_cam = load_blender_dataset(small, "train")
+
+        def config(dtype, **train):
+            return dataclasses.replace(
+                base, train=dataclasses.replace(base.train, compute_dtype=dtype, **train),
+                checkpoint_path=os.path.join(OUT, f"bf16_ckpt_{dtype}"), load_checkpoint=False)
+
+        runs = {}
+        for dtype in ("float32", "bfloat16"):
+            cfg_b = config(dtype, log_every=1, val_every=0, save_ckpt_iter=0)
+            if fused_train_supported(cfg_b):
+                raise AssertionError("bf16_module: the config takes a kernel route")
+            shutil.rmtree(cfg_b.checkpoint_path, ignore_errors=True)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            trainer = NeRFTrainer(cfg_b, s_images, s_poses, s_cam.camera_matrix, device=dev)
+            st = trainer.fit(max_iters=BF16_STEPS, progress=False)
+            peak = torch.cuda.max_memory_allocated()
+            losses = [v for _, v in trainer.loss_log]
+            if len(losses) != BF16_STEPS or not all(np.isfinite(losses)) \
+                    or not losses[-1] < losses[0]:
+                raise AssertionError(f"bf16_module {dtype}: losses {losses}")
+            # where a step's device time goes: a trace of BF16_TRACE_STEPS more
+            gen = torch.Generator(device=dev).manual_seed(3)
+            with prof.trace(os.path.join(OUT, f"bf16_trace_{dtype}")) as p:
+                for _ in range(BF16_TRACE_STEPS):
+                    trainer.train_step(trainer.model, gen, trainer.images, trainer.poses,
+                                       trainer.K)
+                torch.cuda.synchronize()
+            summary = prof.profile_summary(p, top=12)
+            per = {k: summary[k] / BF16_TRACE_STEPS for k in ("device_busy_ms", "window_ms")}
+            runs[dtype] = {"ms_per_step": st["ms_per_step"], "peak_mem_gib": round(peak / 2**30, 3),
+                           "loss_first": losses[0], "loss_last": losses[-1], "losses": losses,
+                           "trace_per_step": {**per, "idle_share": summary["idle_share"],
+                                              "top_kernels": [
+                                                  {**k_, "ms": k_["ms"] / BF16_TRACE_STEPS}
+                                                  for k_ in summary["top_kernels"]]}}
+            del trainer
+            torch.cuda.empty_cache()
+        # one real batch, the same seeded init and draws: bf16 against float32
+        # on the card, then bf16 on the card against bf16 on the CPU
+        n, S = base.train.n_rays_batch, base.render.n_sample
+        gen = torch.Generator(device=dev).manual_seed(21)
+        hw = s_images.shape[1:3]
+        draws = tuple(torch.randint(0, hi, (n,), generator=gen, device=dev)
+                      for hi in (len(s_images), hw[1], hw[0]))
+        u = torch.rand((n, S), generator=gen, device=dev)
+
+        def loss_grads(dtype, device, rows):
+            batch = [torch.as_tensor(a, dtype=torch.float32, device=device)
+                     for a in (s_images, s_poses, s_cam.camera_matrix)]
+            model = NeRF(base.model, device=device, seed=base.train.seed)
+            loss = make_loss_fn(config(dtype), n_rays=rows)(
+                model, None, *batch, draws=tuple(t[:rows].to(device) for t in draws),
+                u=u[:rows].to(device))
+            loss.backward()
+            return loss.item(), {k: p.grad.detach().double().cpu()
+                                 for k, p in model.named_parameters()}
+
+        def held(name, got, want, loss_rel, grad_rel):
+            rel = {k: (got[1][k] - want[1][k]).norm().item() / want[1][k].norm().item()
+                   for k in want[1]}
+            out = {"loss": got[0], "against": want[0],
+                   "loss_rel": abs(got[0] - want[0]) / abs(want[0]),
+                   "worst_grad_rel": max(rel.values()),
+                   "worst_grad": max(rel, key=rel.get).replace("layers.", "")}
+            if out["loss_rel"] > loss_rel or out["worst_grad_rel"] > grad_rel:
+                raise AssertionError(f"{name}: {out}")
+            return out
+
+        f32 = loss_grads("float32", dev, n)
+        b16 = loss_grads("bfloat16", dev, n)
+        b16_card = loss_grads("bfloat16", dev, BF16_CPU_RAYS)
+        t0 = time.time()
+        b16_cpu = loss_grads("bfloat16", torch.device("cpu"), BF16_CPU_RAYS)
+        cpu_s = time.time() - t0
+        vs_f32 = held("bf16 vs float32", b16, f32, BF16_LOSS_REL, BF16_GRAD_REL)
+        vs_cpu = held("bf16 card vs CPU", b16_card, b16_cpu, CARD_LOSS_REL, CARD_GRAD_REL)
+        # the products alone, at one layer's shape of a step: 2,097,152 x 256 x
+        # 256, each warmed up once (cuBLAS picks its kernel at the first call)
+        x = torch.randn(n * S, 256, device=dev, dtype=torch.bfloat16)
+        w = torch.randn(256, 256, device=dev, dtype=torch.bfloat16)
+        xf, wf = x.float(), w.float()
+        products = {}
+        for name, fn in (
+                ("float32", lambda: xf @ wf.t()),
+                ("bf16_in_f32_out (Bf16Linear)", lambda: torch.mm(x, w.t(),
+                                                                  out_dtype=torch.float32)),
+                ("bf16_in_bf16_out (F.linear)", lambda: x @ w.t())):
+            fn()
+            products[name] = event_ms(fn, reps=5)[0]
+        del x, w, xf, wf
+        emit("bf16_module", shape=[n, S], route="nn.Module, legacy compositor, near 1 far 10",
+             train_views=TOOL_VIEWS, steps=BF16_STEPS, runs=runs,
+             bf16_over_f32_ms=runs["bfloat16"]["ms_per_step"] / runs["float32"]["ms_per_step"],
+             one_batch={"bf16_vs_float32": vs_f32, "card_vs_cpu": {**vs_cpu,
+                        "rays": BF16_CPU_RAYS, "cpu_s": cpu_s}},
+             product_ms_2097152x256x256=products)
+
+    def tb_events():
+        from sfm_nerf_tpu_torch.io.png import decode_png
+        from sfm_nerf_tpu_torch.utils import tb_events as tbe
+
+        runs = state["train_events"]
+        files = []
+        for run in runs:
+            events = tbe._read_events(run["events"])
+            if events[0].get("file_version") != "brain.Event:2":
+                raise AssertionError(f"{run['events']}: no file_version event first")
+            scalars, images = {}, {}
+            for e in events[1:]:
+                for v in e["values"]:
+                    if "simple_value" in v:
+                        scalars.setdefault(v["tag"], []).append((e["step"], v["simple_value"]))
+                    else:
+                        images[v["tag"]] = (e["step"], v["image"])
+            steps = [it for it, _ in run["losses"]]
+            n_val = len(run["val"])
+            want_tags = {"Loss/train", "Learning_Rate", "Loss/train_avg",
+                         *[f"Loss/val_{i}" for i in range(n_val)]}
+            ok = (set(scalars) == want_tags
+                  and scalars["Loss/train"] == [(it, float(np.float32(v)))
+                                                for it, v in run["losses"]]
+                  and [s_ for s_, _ in scalars["Learning_Rate"]] == steps
+                  and [s_ for s_, _ in scalars["Loss/train_avg"]] == steps
+                  and all(scalars[f"Loss/val_{i}"] == [(it, float(np.float32(m)))]
+                          for i, (it, _, m) in enumerate(run["val"]))
+                  and set(images) == {f"Val_Image_{i}" for i in range(n_val)})
+            if not ok:
+                raise AssertionError(f"{run['events']}: tags {sorted(scalars)} "
+                                     f"{sorted(images)}, {len(run['losses'])} losses")
+            reader = None
+            try:
+                from tensorboard.backend.event_processing.event_file_loader import (
+                    EventFileLoader,
+                )
+            except ImportError:
+                pass
+            else:
+                reader = sum(1 for _ in EventFileLoader(run["events"]).Load())
+                if reader != len(events):
+                    raise AssertionError(f"tensorboard reads {reader} of {len(events)} events")
+            files.append({"file": os.path.basename(run["events"]),
+                          "bytes": os.path.getsize(run["events"]), "events": len(events),
+                          "steps_logged": len(steps), "images": len(images),
+                          "writer_s": run["writer_s"], "fit_s": run["elapsed_s"],
+                          "writer_share": run["writer_s"] / run["elapsed_s"],
+                          "tensorboard_reader_events": reader})
+        # Val_Image_0 of the resume: ground truth beside the final model's view
+        it, idx, _ = runs[1]["val"][0]
+        step, img = images["Val_Image_0"]
+        got = decode_png(img["png"])
+        with open(os.path.join(data, "transforms_train.json")) as f:
+            frame = json.load(f)["frames"][idx]
+        gt = read_png(os.path.join(data, frame["file_path"] + ".png"))[..., :3].astype(
+            np.float32) / 255.0
+        tcfg = cli.build_config(cli.config_parser("train").parse_args(
+            [*train_flags, "--checkpoint_path", train_ckpt]))
+        tp, _ = ckpt.load_params_untyped(os.path.join(train_ckpt, "synth800",
+                                                      "final_model.ckpt.npz"))
+        tcam = load_camera_info(data, "train")
+        pred = make_render_image(tcfg)(
+            params_from_jax(tp, tcfg.model, dev).eval(),
+            torch.as_tensor(tcam.camera_matrix, device=dev),
+            torch.as_tensor(np.asarray(frame["transform_matrix"], np.float32), device=dev),
+            tcam.height, tcam.width)
+        side = torch.cat([torch.as_tensor(gt, dtype=torch.float32, device=dev), pred], 1)
+        want = (side.clamp(0, 1).cpu().numpy() * 255.0).astype(np.uint8)
+        diff = int(np.abs(got.astype(int) - want.astype(int)).max())
+        if step != it or got.shape != want.shape or diff > VAL_IMAGE_LEVELS:
+            raise AssertionError(f"Val_Image_0 at {step} (val at {it}): {got.shape} vs "
+                                 f"{want.shape}, max diff {diff} levels")
+        emit("tb_events", files=files, val_image={
+            "view": idx, "step": step, "shape": list(got.shape),
+            "png_bytes": len(img["png"]), "max_abs_levels": diff})
+
     phase(serve)
     phase(aux)
     phase(gif)
@@ -2110,6 +2442,11 @@ def main():
     if not failed:
         phase(serve_hier)
         phase(hier_kernels)
+    if not failed:
+        phase(pth_interop)
+    phase(bf16_module)
+    if "train" not in failed:
+        phase(tb_events)
 
     # ---- 8. kernels ------------------------------------------------------
     def kernel_line():
@@ -2215,6 +2552,13 @@ def main():
                 "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                 "library_ms": None,
             })
+        emit("kernel_launches_by_path", serve={"fused_render_rays": state["K1_launches"] - 3},
+             aux={"fused_render_rays_weights": state["K5_launches"]},
+             train={"fused_mse_loss": state["K2_launches"] - FINETUNE_STEPS},
+             train_two_kernel={"fused_render_train": state["K3_launches"],
+                               "fused_render_train_backward": state["K3b_launches"]},
+             train_hier={"fused_mse_loss_weights": state["K4_launches"]},
+             **state["launch_paths"])
         print(json.dumps({"kernels": rows}), flush=True)
 
     if not failed:

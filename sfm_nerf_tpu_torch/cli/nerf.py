@@ -14,8 +14,15 @@ CUDA step kernel, its plain PyTorch version on ``--device cpu``), the same
 checkpoint names and cadence, resume from the newest checkpoint under
 ``--checkpoint_path/<scene>``.  The port adds ``--log_every``,
 ``--val_every`` and ``--two_kernel_step`` (the forward and backward kernels
-of ``fused_render_train`` instead of the merged step).  No TensorBoard
-writer is attached (the trainer takes one as an argument).
+of ``fused_render_train`` instead of the merged step).  The TensorBoard
+log goes where ``Phase2/train.py`` puts it, an event file under
+``{--logs_path}/{--exp_name}`` (utils/tb_events.py; rank 0 writes it under
+``--dp``): ``Loss/train``, ``Learning Rate`` and ``Loss/train_avg`` every
+``--log_every`` steps, ``Loss/val_{i}`` and ``Val_Image_{i}`` (ground truth
+beside prediction) every ``--val_every``.  With no npz checkpoint there, a
+reference ``final_model.pth`` (else the newest ``model_*.pth``) under
+``--checkpoint_path/<scene>`` is fine-tuned from step 0; its architecture
+must match ``--arch``, ``--hidden_size`` and the frequency flags.
 
 ``--mode test`` is ``Phase2/train.py --mode test``: the same flags (those
 that act on rendering) and defaults, the same choice of 5 views from
@@ -24,7 +31,9 @@ that act on rendering) and defaults, the same choice of 5 views from
 printed MSE / PSNR / SSIM lines.  ``--mode gif`` is ``Phase2/Wrapper.py
 --mode gif``: ``n_frames`` turntable frames ``image_{count}.png`` through
 the legacy compositor (near 1, far 10 by default), written channel-swapped
-as the reference's cv2.imwrite did unless ``--rgb_frames``.  The flags of
+as the reference's cv2.imwrite did unless ``--rgb_frames``; it renders the
+npz checkpoint, else a reference ``.pth`` (``load_any_checkpoint``), whose
+architecture it reads from the file.  The flags of
 each mode keep the names and defaults of the matching JAX parser; the port
 adds ``--device`` (default cuda).
 
@@ -46,8 +55,8 @@ package.
 ``--ckpt_backend orbax`` writes the same npz files from a background thread
 (train/async_ckpt.py), not orbax's step directories.
 
-Not ported yet: ``figure_{i}.png`` (matplotlib), ``--plot_rays``, ``.pth``
-checkpoints, ``--steps_per_call``.
+Not ported: ``figure_{i}.png`` and ``--plot_rays`` (matplotlib),
+``--steps_per_call`` (an XLA dispatch amortisation).
 """
 
 from __future__ import annotations
@@ -129,12 +138,13 @@ def config_parser(mode: str = "test") -> argparse.ArgumentParser:
         p.add_argument('--lrate', default=5e-4, help="training learning rate")
         p.add_argument('--n_rays_batch', default=32 * 32 * 8, help="number of rays per batch")
         p.add_argument('--max_iters', default=200001, help="number of max iterations for training")
-        # accepted so a Phase2/train.py command line carries over; they name
-        # the TensorBoard run there, and this CLI attaches no writer
-        p.add_argument('--logs_path', default="./logs/", help="logs path (no writer: unused)")
-        p.add_argument('--log_id', default="", help="log id (no writer: unused)")
+        p.add_argument('--logs_path', default="./logs/",
+                       help="logs path: the TensorBoard event file goes to "
+                            "<logs_path>/<exp_name>")
+        p.add_argument('--log_id', default="",
+                       help="log id (accepted as Phase2/train.py accepts it; unused there too)")
         p.add_argument('--exp_name', default="lego_experiment",
-                       help="experiment name for logging (no writer: unused)")
+                       help="experiment name: the TensorBoard run's directory")
         p.add_argument('--load_checkpoint', default=True, help="whether to load checkpoint or not")
         p.add_argument('--save_ckpt_iter', default=1000, help="num of iteration to save checkpoint")
         p.add_argument('--ckpt_backend', default="npz", choices=["npz", "orbax"],
@@ -263,6 +273,7 @@ def run_train(args) -> dict:
     from sfm_nerf_tpu_torch.io.blender import load_blender_dataset
     from sfm_nerf_tpu_torch.parallel.mesh import init_from_env
     from sfm_nerf_tpu_torch.train.nerf_trainer import NeRFTrainer
+    from sfm_nerf_tpu_torch.utils.tb_events import SummaryWriter
 
     device = init_from_env(_device(args.device).type)
     world = dist.get_world_size() if dist.is_initialized() else 1
@@ -275,13 +286,22 @@ def run_train(args) -> dict:
     _resolve_bounds(args, cam, "train")
     cfg = build_config(args)
     print("Start training")
-    trainer = NeRFTrainer(cfg, images, poses, cam.camera_matrix, device=device)
-    stats = trainer.fit()
+    rank0 = not dist.is_initialized() or dist.get_rank() == 0
+    writer = SummaryWriter(os.path.join(cfg.logs_path, cfg.exp_name)) if rank0 else None
+    trainer = NeRFTrainer(cfg, images, poses, cam.camera_matrix, device=device,
+                          writer=writer)
+    try:
+        stats = trainer.fit()
+    finally:
+        if writer is not None:
+            writer.close()
     print(f"Training done: {stats}")
     mesh = None if trainer.mesh is None else dict(zip(trainer.mesh.mesh_dim_names,
                                                        trainer.mesh.shape))
     return {**stats, "start_iter": trainer.start_iter, "losses": trainer.loss_log,
-            "val": trainer.val_log, "mesh": mesh, "model": trainer.model}
+            "val": trainer.val_log, "mesh": mesh, "model": trainer.model,
+            "events": writer.path if writer else None,
+            "writer_s": writer.seconds if writer else None}
 
 
 def run_test(args) -> List[dict]:
@@ -357,12 +377,28 @@ def run_test(args) -> List[dict]:
     return records
 
 
+def load_any_checkpoint(ckpt_dir: str):
+    """The checkpoint gif mode renders from ``ckpt_dir``: ``(path, kind)``,
+    kind None for an npz (``final_model.ckpt.npz``, else the newest
+    ``model_*.ckpt.npz``) and 'pth' for a reference file
+    (``final_model.pth``, else the numerically newest ``model_*.pth``);
+    ``(None, None)`` when there is neither."""
+    from sfm_nerf_tpu_torch.models.convert import latest_pth
+    from sfm_nerf_tpu_torch.train import checkpoint as ckpt_lib
+
+    npz = ckpt_lib.latest_checkpoint(ckpt_dir, prefer_final=True)
+    if npz is not None:
+        return npz, None
+    pth = latest_pth(ckpt_dir)
+    return (pth, "pth") if pth is not None else (None, None)
+
+
 def run_gif(args) -> List[dict]:
     """Gif mode: turntable frames.  Returns one record per frame."""
     from sfm_nerf_tpu_torch.config import NeRFPipelineConfig, RenderConfig
     from sfm_nerf_tpu_torch.io.blender import load_camera_info, look_at_pose, pose_spherical
     from sfm_nerf_tpu_torch.io.png import write_png
-    from sfm_nerf_tpu_torch.models.convert import params_from_jax
+    from sfm_nerf_tpu_torch.models.convert import convert_pth, params_from_jax
     from sfm_nerf_tpu_torch.train import checkpoint as ckpt_lib
     from sfm_nerf_tpu_torch.train.nerf_trainer import make_render_image
 
@@ -373,22 +409,24 @@ def run_gif(args) -> List[dict]:
     height, width = cam.height, cam.width
     names = [args.data_path.split("/")[-2] if args.data_path.count("/") else "",
              args.data_path.rstrip("/").split("/")[-1]]
-    path = None
+    path = kind = None
     for model_name in dict.fromkeys(n for n in names if n):
-        path = ckpt_lib.latest_checkpoint(
-            os.path.join(args.checkpoint_path, model_name), prefer_final=True)
+        path, kind = load_any_checkpoint(os.path.join(args.checkpoint_path, model_name))
         if path is not None:
             break
     if path is None:
-        path = ckpt_lib.latest_checkpoint(args.checkpoint_path, prefer_final=True)
+        path, kind = load_any_checkpoint(args.checkpoint_path)
     if path is None:
         print("No checkpoint found")
         return []
     print(f"Loading checkpoint... {path}")
-    params, _ = ckpt_lib.load_params_untyped(path)
-    if set(params) == {"coarse", "fine"}:
-        params = params["fine"]
-    mcfg = ckpt_lib.infer_model_config(params)
+    if kind == "pth":
+        params, mcfg = convert_pth(path)
+    else:
+        params, _ = ckpt_lib.load_params_untyped(path)
+        if set(params) == {"coarse", "fine"}:
+            params = params["fine"]
+        mcfg = ckpt_lib.infer_model_config(params)
     model = params_from_jax(params, mcfg, device).eval()
     print(f"Checkpoint {path} loaded")
     cfg = NeRFPipelineConfig(

@@ -45,8 +45,10 @@ def config_parser() -> argparse.ArgumentParser:
     p.add_argument('--n_rays_batch', default=32 * 32 * 8, help="number of rays per batch")
     p.add_argument('--n_sample', default=256, help="number of sample per ray")
     p.add_argument('--max_iters', default=100001, help="number of max iterations for training")
-    p.add_argument('--logs_path', default="./logs/", help="logs path (no writer: unused)")
-    p.add_argument('--log_id', default="", help="log id (no writer: unused)")
+    p.add_argument('--logs_path', default="./logs/",
+                   help="logs path: train mode's TensorBoard event file goes to "
+                        "<logs_path>/<exp_name> (cli.nerf's --exp_name default)")
+    p.add_argument('--log_id', default="", help="log id (unused, as in Phase2/Wrapper.py)")
     p.add_argument('--checkpoint_path', default="./Phase2/checkpoints/", help="checkpoints path")
     p.add_argument('--load_checkpoint', default=True, help="whether to load checkpoint or not")
     p.add_argument('--save_ckpt_iter', default=1000, help="num of iteration to save checkpoint")

@@ -3,7 +3,8 @@
 Same behaviour as sfm_nerf_tpu/io/blender.py: ``transforms_{mode}.json``
 with ``camera_angle_x`` and per-frame camera-to-world matrices, RGB in
 [0, 1] with alpha dropped, the reference focal formula
-``0.5 * camera_angle_x * W / tan(0.5 * camera_angle_x)``, explicit ``fl_x/fl_y/cx/cy``
+``0.5 * camera_angle_x * W / tan(0.5 * camera_angle_x)`` by default
+(``focal_formula='standard'``: ``0.5 * W / tan(0.5 * camera_angle_x)``), explicit ``fl_x/fl_y/cx/cy``
 intrinsics and ``near``/``far`` hints when the file carries them.  PNGs are
 decoded by io/png.py.
 """
@@ -29,17 +30,24 @@ class CameraInfo:
     far: "float | None" = None
 
 
-def derive_focal(camera_angle_x: float, width: int) -> float:
-    """The reference's focal: its extra camera_angle_x factor included."""
-    return 0.5 * camera_angle_x * width / np.tan(0.5 * camera_angle_x)
+def derive_focal(camera_angle_x: float, width: int, formula: str = "reference") -> float:
+    """The focal in pixels: 'reference' keeps the reference's extra
+    camera_angle_x factor, 'standard' is the pinhole's."""
+    if formula == "reference":
+        return 0.5 * camera_angle_x * width / np.tan(0.5 * camera_angle_x)
+    if formula == "standard":
+        return 0.5 * width / np.tan(0.5 * camera_angle_x)
+    raise ValueError(f"unknown focal formula {formula!r}")
 
 
 def load_blender_dataset(
     data_path: str,
     mode: str,
     downscale: int = 1,
+    focal_formula: str = "reference",
 ) -> Tuple[np.ndarray, np.ndarray, CameraInfo]:
-    """Returns (images (N,H,W,3) float32, poses (N,4,4) float32, CameraInfo)."""
+    """Returns (images (N,H,W,3) float32, poses (N,4,4) float32, CameraInfo);
+    ``focal_formula`` as ``derive_focal`` takes it."""
     json_file = os.path.join(data_path, f"transforms_{mode}.json")
     with open(json_file) as f:
         meta = json.load(f)
@@ -58,10 +66,10 @@ def load_blender_dataset(
         for frame in meta["frames"]
     ])
     height, width = images.shape[1], images.shape[2]
-    return images, poses, _camera(meta, json_file, width, height, downscale)
+    return images, poses, _camera(meta, json_file, width, height, downscale, focal_formula)
 
 
-def _camera(meta, json_file, width, height, downscale) -> CameraInfo:
+def _camera(meta, json_file, width, height, downscale, focal_formula="reference") -> CameraInfo:
     if "fl_x" in meta:
         s = 1.0 / downscale
         K = np.array(
@@ -75,7 +83,7 @@ def _camera(meta, json_file, width, height, downscale) -> CameraInfo:
             raise KeyError(
                 f"{json_file} has neither camera_angle_x nor fl_x/fl_y — "
                 "cannot derive intrinsics")
-        focal = derive_focal(float(meta["camera_angle_x"]), width)
+        focal = derive_focal(float(meta["camera_angle_x"]), width, focal_formula)
         K = np.array(
             [[focal, 0, width / 2], [0, focal, height / 2], [0, 0, 1]],
             dtype=np.float32,

@@ -61,9 +61,13 @@ def _unfilter(ftype: np.ndarray, filt: np.ndarray) -> np.ndarray:
 
 
 def read_png(path: str) -> np.ndarray:
-    """Decode an 8-bit PNG to uint8: (H, W) for grey, else (H, W, C)."""
+    """Decode an 8-bit PNG file to uint8: (H, W) for grey, else (H, W, C)."""
     with open(path, "rb") as f:
-        data = f.read()
+        return decode_png(f.read(), path)
+
+
+def decode_png(data: bytes, path: str = "PNG") -> np.ndarray:
+    """``read_png`` of the file's bytes (``path`` names them in errors)."""
     if data[:8] != _SIGNATURE:
         raise ValueError(f"{path}: not a PNG file")
     header = None
@@ -104,15 +108,21 @@ def png_size(path: str):
 
 def write_png(path: str, img: np.ndarray) -> None:
     """Encode uint8 (H, W), (H, W, 3) or (H, W, 4) as a PNG file."""
+    with open(path, "wb") as f:
+        f.write(encode_png(img))
+
+
+def encode_png(img: np.ndarray) -> bytes:
+    """``write_png``'s file as bytes."""
     img = np.asarray(img)
     if img.dtype != np.uint8:
-        raise ValueError(f"write_png wants uint8, got {img.dtype}")
+        raise ValueError(f"encode_png wants uint8, got {img.dtype}")
     if img.ndim == 2:
         img = img[..., None]
     h, w, c = img.shape
     ctype = {1: 0, 3: 2, 4: 6}.get(c)
     if ctype is None:
-        raise ValueError(f"write_png: {c} channels not supported")
+        raise ValueError(f"encode_png: {c} channels not supported")
     rows = np.concatenate(
         [np.zeros((h, 1), np.uint8), np.ascontiguousarray(img).reshape(h, w * c)],
         axis=1)
@@ -121,8 +131,7 @@ def write_png(path: str, img: np.ndarray) -> None:
         return (struct.pack(">I", len(body)) + kind + body
                 + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
 
-    with open(path, "wb") as f:
-        f.write(_SIGNATURE)
-        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0)))
-        f.write(chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)))
-        f.write(chunk(b"IEND", b""))
+    return b"".join((_SIGNATURE,
+                     chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0)),
+                     chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)),
+                     chunk(b"IEND", b"")))

@@ -16,14 +16,24 @@ The readers take ``how``: ``'host'`` float32 numpy (the default),
 transposed views (nothing copied, nothing waited for: the asynchronous
 checkpointer snapshots them), ``'local'`` float32 numpy of this rank's own
 shard of a DTensor (no collective: what an interrupted rank can still
-write; ``shard_layout`` says where each piece lies).  Conversion of
-reference ``.pth`` files waits for a slice that needs it: no ``.pth`` file
-is in the repository.
+write; ``shard_layout`` says where each piece lies).
+
+Reference ``.pth`` files (``torch.save`` of a state dict, or of
+``{'model_state_dict': ..., 'optimizer_state_dict': ..., ...}``) in the
+reference's key names, both ways: ``convert_pth`` reads the standard legacy
+layout, the skip-less no-PE legacy layout and the active class into the
+JAX-layout tree and a ``NeRFModelConfig`` (``params_from_jax`` then builds
+the model); ``export_legacy_to_pth`` and ``export_active_to_pth`` write
+them.  Files are read with ``weights_only=True``: tensors, numbers and
+dicts, nothing else unpickled.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Union
+import glob
+import os
+import re
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -182,3 +192,151 @@ def optimizer_state_from_jax(model: Model, optimizer: torch.optim.Adam, state: d
                 st[field] = _laid_out_as(p, np.ascontiguousarray(a))
             # torch.optim.Adam keeps ``step`` as a float32 tensor on the CPU
             st["step"] = torch.tensor(float(state["count"]), dtype=torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# reference .pth files
+# ---------------------------------------------------------------------------
+
+
+def latest_pth(ckpt_dir: str) -> Optional[str]:
+    """``final_model.pth`` in ``ckpt_dir``, else the numerically newest
+    ``model_*.pth`` (model_10000 over model_9000), else None."""
+    final = os.path.join(ckpt_dir, "final_model.pth")
+    if os.path.exists(final):
+        return final
+    cands = glob.glob(os.path.join(ckpt_dir, "model_*.pth"))
+    if not cands:
+        return None
+
+    def step_of(p: str) -> int:
+        m = re.search(r"model_(\d+)\.pth$", p)
+        return int(m.group(1)) if m else -1
+
+    return max(cands, key=step_of)
+
+
+def load_torch_state_dict(path: str) -> Dict[str, np.ndarray]:
+    """A .pth file's state dict as numpy arrays; a training save's
+    ``model_state_dict`` is unwrapped."""
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(obj, dict) and "model_state_dict" in obj:
+        obj = obj["model_state_dict"]
+    return {k: v.detach().cpu().numpy() for k, v in obj.items()}
+
+
+def _wb(sd: Dict[str, np.ndarray], prefix: str) -> dict:
+    return {"w": np.ascontiguousarray(sd[prefix + ".weight"].T), "b": sd[prefix + ".bias"]}
+
+
+def _pe_freqs(pos_in: int, dir_in: int) -> Tuple[bool, int, int]:
+    """(pos_encoding, n_pos_freq, n_dir_freq) from the two input widths,
+    3 * (2L + 1) with PE; 3 without, and the frequencies keep their
+    defaults."""
+    if pos_in == 3:
+        return False, 10, 4
+    return True, (pos_in // 3 - 1) // 2, (dir_in // 3 - 1) // 2
+
+
+def convert_legacy_state_dict(sd: Dict[str, np.ndarray]) -> Tuple[JaxParams, NeRFModelConfig]:
+    """A reference legacy ``Sequential`` state dict -> (JAX-layout tree,
+    config).  Standard layout: ``block1`` of n layers, ``skip_layer``,
+    ``block2`` of 3 (the last (hidden + 1)-wide).  Skip-less no-PE layout:
+    ``block1`` holds everything, its last 3 layers the tail."""
+    def layer_indices(block: str):
+        return sorted(int(m.group(1)) for m in
+                      (re.fullmatch(rf"{block}\.(\d+)\.weight", k) for k in sd) if m)
+
+    has_skip = "skip_layer.0.weight" in sd
+    hidden, pos_in = sd["fc1.0.weight"].shape
+    pos_encoding, n_pos, n_dir = _pe_freqs(pos_in, sd["rgb_fc.0.weight"].shape[1] - hidden)
+    layers = [f"block1.{i}" for i in layer_indices("block1")]
+    if has_skip:
+        tail = [f"block2.{i}" for i in layer_indices("block2")]
+    else:
+        layers, tail = layers[:-3], layers[-3:]
+    if len(tail) != 3:
+        raise ValueError(f"expected 3 tail layers, got {tail}")
+    params = {"fc1": _wb(sd, "fc1.0")}
+    params.update({f"block1_{i}": _wb(sd, name) for i, name in enumerate(layers)})
+    if has_skip:
+        params["skip"] = _wb(sd, "skip_layer.0")
+    params.update({f"block2_{i}": _wb(sd, name) for i, name in enumerate(tail)})
+    if params["block2_2"]["w"].shape[1] != hidden + 1:
+        raise ValueError(f"the last tail layer is {params['block2_2']['w'].shape[1]} wide, "
+                         f"not hidden + 1 = {hidden + 1}")
+    params["density_fc"] = _wb(sd, "density_fc")
+    params["rgb1"] = _wb(sd, "rgb_fc.0")
+    params["rgb2"] = _wb(sd, "rgb_fc.2")
+    return params, NeRFModelConfig(
+        n_pos_freq=n_pos, n_dir_freq=n_dir, hidden=int(hidden), pos_encoding=pos_encoding,
+        arch="legacy", n_block1_layers=len(layers), has_skip=has_skip)
+
+
+def convert_active_state_dict(sd: Dict[str, np.ndarray]) -> Tuple[JaxParams, NeRFModelConfig]:
+    """A reference active-class (``NeRFmodel``) state dict -> (JAX-layout
+    tree, config).  Keys: fc1, fc_layers.{0..3}, skip_layer,
+    fc_layers2.{0..2}, density_layer, feature_layer, rgb_layer{1,2}."""
+    hidden, pos_in = sd["fc1.weight"].shape
+    pos_encoding, n_pos, n_dir = _pe_freqs(pos_in, sd["rgb_layer1.weight"].shape[1] - hidden)
+    params = {"fc1": _wb(sd, "fc1")}
+    params.update({f"fc_{i}": _wb(sd, f"fc_layers.{i}") for i in range(4)})
+    params["skip"] = _wb(sd, "skip_layer")
+    params.update({f"fc2_{i}": _wb(sd, f"fc_layers2.{i}") for i in range(3)})
+    for name, key in (("density", "density_layer"), ("feature", "feature_layer"),
+                      ("rgb1", "rgb_layer1"), ("rgb2", "rgb_layer2")):
+        params[name] = _wb(sd, key)
+    return params, NeRFModelConfig(n_pos_freq=n_pos, n_dir_freq=n_dir, hidden=int(hidden),
+                                   pos_encoding=pos_encoding, arch="active")
+
+
+def convert_pth(path: str) -> Tuple[JaxParams, NeRFModelConfig]:
+    """A .pth file -> (JAX-layout tree of numpy arrays, config), by its
+    layout: a plain ``fc1.weight`` is the active class, ``fc1.0.weight``
+    the legacy ``Sequential``."""
+    sd = load_torch_state_dict(path)
+    if "fc1.weight" in sd:
+        return convert_active_state_dict(sd)
+    return convert_legacy_state_dict(sd)
+
+
+def _save_state_dict(layers, path: str) -> None:
+    """``layers``: (reference prefix, JAX-layout layer) pairs, written as
+    float32 ``prefix.weight`` (out, in) and ``prefix.bias``."""
+    sd = {}
+    for prefix, layer in layers:
+        sd[prefix + ".weight"] = torch.from_numpy(
+            np.ascontiguousarray(np.asarray(layer["w"], np.float32).T))
+        sd[prefix + ".bias"] = torch.from_numpy(
+            np.ascontiguousarray(np.asarray(layer["b"], np.float32)))
+    torch.save(sd, path)
+
+
+def export_legacy_to_pth(params: JaxParams, cfg: NeRFModelConfig, path: str) -> None:
+    """A legacy-arch JAX-layout tree -> a reference-layout .pth state dict:
+    the standard layout with a skip layer, else the skip-less layout whose
+    ``block1`` carries the tail (the reference's Sequential numbering, a
+    Linear at every second index)."""
+    n_b1 = cfg.n_block1_layers
+    layers = [("fc1.0", params["fc1"])]
+    layers += [(f"block1.{2 * i}", params[f"block1_{i}"]) for i in range(n_b1)]
+    if cfg.has_skip:
+        layers.append(("skip_layer.0", params["skip"]))
+        layers += [(f"block2.{2 * i}", params[f"block2_{i}"]) for i in range(3)]
+    else:
+        layers += [(f"block1.{2 * (n_b1 + i)}", params[f"block2_{i}"]) for i in range(3)]
+    layers += [("density_fc", params["density_fc"]), ("rgb_fc.0", params["rgb1"]),
+               ("rgb_fc.2", params["rgb2"])]
+    _save_state_dict(layers, path)
+
+
+def export_active_to_pth(params: JaxParams, path: str) -> None:
+    """An active-arch JAX-layout tree -> a reference ``NeRFmodel`` state
+    dict."""
+    layers = [("fc1", params["fc1"])]
+    layers += [(f"fc_layers.{i}", params[f"fc_{i}"]) for i in range(4)]
+    layers.append(("skip_layer", params["skip"]))
+    layers += [(f"fc_layers2.{i}", params[f"fc2_{i}"]) for i in range(3)]
+    layers += [("density_layer", params["density"]), ("feature_layer", params["feature"]),
+               ("rgb_layer1", params["rgb1"]), ("rgb_layer2", params["rgb2"])]
+    _save_state_dict(layers, path)

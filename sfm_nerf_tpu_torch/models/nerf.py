@@ -55,13 +55,54 @@ def layer_shapes(cfg: NeRFModelConfig) -> Dict[str, Tuple[int, int]]:
     return shapes
 
 
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of two bf16 matrices with the products summed in float32,
+    a float32 result: one tensor-core product on a card; on the CPU the
+    same sums through float32 operands (exact: a bf16 value is a float32)."""
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+class Bf16Linear(torch.autograd.Function):
+    """``x @ W.T + b`` for a bf16 ``W`` on the card's tensor cores: ``x``
+    rounded to bf16, the bf16 x bf16 products summed in float32, the
+    float32 bias added.  The backward is the JAX package's (the cotangents
+    of the bf16 operands come out rounded to bf16, the bias's float32),
+    with one rounding more: the float32 cotangent of the output enters
+    both products rounded to bf16, as a tensor-core product needs."""
+
+    @staticmethod
+    def forward(ctx, x, w, b):
+        x16 = x.to(torch.bfloat16).reshape(-1, x.shape[-1])
+        ctx.save_for_backward(x16, w)
+        ctx.x_meta = (x.shape, x.dtype)
+        y = _mm_f32(x16, w.t()) + b.float()
+        return y.reshape(*x.shape[:-1], w.shape[0])
+
+    @staticmethod
+    def backward(ctx, g):
+        x16, w = ctx.saved_tensors
+        shape, dtype = ctx.x_meta
+        g = g.reshape(-1, g.shape[-1])
+        g16 = g.to(torch.bfloat16)
+        gx = _mm_f32(g16, w).to(torch.bfloat16).to(dtype).reshape(shape)
+        gw = _mm_f32(g16.t(), x16).to(w.dtype)
+        return gx, gw, g.sum(0)
+
+
 def _linear(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-    """x @ W.T + b with float32 accumulation.  With bf16 weights (serving
-    cast) the activation is rounded to bf16 and the product of the two
-    bf16 operands is summed in float32, as the JAX package's mixed
-    precision does; the bias stays float32."""
+    """x @ W.T + b with float32 accumulation.  With bf16 weights (the
+    serving cast, or ``bf16_compute``'s training cast) the activation is
+    rounded to bf16 and the product of the two bf16 operands is summed in
+    float32, as the JAX package's mixed precision does; the bias stays
+    float32.  On the CPU (and for sharded weights) the product runs on
+    float32 copies of the bf16 operands under autograd, the reference; on
+    a card through ``Bf16Linear``."""
     w = layer.weight
     if w.dtype == torch.bfloat16:
+        if w.is_cuda and not hasattr(w, "device_mesh"):
+            return Bf16Linear.apply(x, w, layer.bias)
         return x.to(torch.bfloat16).float() @ w.float().t() + layer.bias.float()
     return F.linear(x, w, layer.bias)
 
@@ -148,6 +189,20 @@ def cast_params_bf16(model: NeRF) -> NeRF:
     for layer in model.layers.values():
         layer.weight.data = layer.weight.data.to(torch.bfloat16)
     return model
+
+
+def bf16_compute(model: NeRF):
+    """``model`` as a ``(pos, direction) -> (density, rgb)`` function that
+    runs on a bf16 cast of its weight matrices, biases float32: the JAX
+    trainer's ``compute_dtype='bfloat16'`` (``cast_params_bf16`` of the
+    float32 masters).  The cast is differentiable: the grads land on the
+    float32 parameters, which the optimizer updates."""
+    def fn(pos: torch.Tensor, direction: torch.Tensor):
+        cast = {name: p.to(torch.bfloat16) if p.ndim == 2 else p
+                for name, p in model.named_parameters()}
+        return torch.func.functional_call(model, cast, (pos, direction))
+
+    return fn
 
 
 def param_count(model: nn.Module) -> int:

@@ -371,6 +371,13 @@ class SfMPipeline:
             print(f"Not enough inliers for reliable PnP with image {i}")
             fails = self.stats.setdefault("pnp_failures", {})
             fails[i] = fails.get(i, 0) + 1
+            dump_dir = os.environ.get("SFM_NERF_DUMP_PNP_FAILURES")
+            if dump_dir:
+                # a debugging aid: the failing inputs, to replay the PnP offline
+                os.makedirs(dump_dir, exist_ok=True)
+                np.savez(os.path.join(dump_dir, f"fail_cam{i}_try{fails[i]}.npz"),
+                         obj=np.asarray(obj_points), img=np.asarray(img_points),
+                         K=np.asarray(K), n_inliers=int(res.n_inliers))
             return None, None
         w = np.asarray(res.inliers, np.float64)
         err_lin = _mean_err_px_np(K, res.R, res.C, obj_points, img_points, w)

@@ -11,7 +11,12 @@ the config alone (``fused_train_supported``):
 - ``use_fused_kernel`` without ``fused_merged_step`` -> ``fused_render_train``
   under an MSE written in torch: the render kernel's forward (rgb and tb),
   then the split step under autograd's cotangent;
-- ``--no_fused`` -> the float32 ``nn.Module`` under autograd.
+- ``--no_fused`` (and every config outside the kernels' envelope) -> the
+  ``nn.Module`` under autograd: float32, or with ``compute_dtype=
+  'bfloat16'`` the JAX trainer's cast (``models/nerf.py:bf16_compute``:
+  bf16 weight matrices from the float32 masters, float32 biases, the
+  products summed in float32; on a card ``Bf16Linear``'s tensor-core
+  products).
 
 With ``n_importance > 0`` the model is a coarse/fine ``NeRFPair`` under one
 Adam and the loss is the coarse MSE plus the fine MSE.  On the merged route
@@ -19,7 +24,7 @@ a step is two launches: ``fused_mse_loss_weights`` on the coarse depths
 (loss, grads and the weight histogram), ``sample_pdf`` and ``merge_sorted``
 in torch, ``fused_mse_loss`` on the sorted union.  Off it (two-kernel step,
 legacy compositor, ``--no_fused``) the pair trains through
-``render_rays_hierarchical`` under autograd, float32 only.
+``render_rays_hierarchical`` under autograd, float32 or bf16 as above.
 
 On CPU tensors the fused wrappers run their plain versions.  The host loop
 reads the loss only every ``log_every`` steps; checkpoints (.npz, the JAX
@@ -46,10 +51,15 @@ draws from its own generator (``draw_seed``); rank 0 alone logs, validates
 and writes checkpoints while the others wait at a barrier.  Checkpoints
 hold whole tensors, so either package and one device resume them.
 
+With no npz checkpoint and no shard set under ``checkpoint_path``,
+``try_resume`` fine-tunes from a reference ``.pth`` there
+(``final_model.pth``, else the numerically newest ``model_*.pth``): its
+weights, converted by models/convert.py, at step 0 under a fresh Adam and
+StepLR.
+
 Not ported: ``steps_per_call`` (a ``lax.scan`` that amortises XLA dispatch:
 the torch loop enqueues each step's launches without waiting for the
-device, so there is no per-step round trip to amortise), the ``.pth``
-fine-tune resume.
+device, so there is no per-step round trip to amortise).
 
 Renderers.  Route, decided from the config alone:
 
@@ -92,10 +102,10 @@ from sfm_nerf_tpu_torch.kernels.fused_train import (
     fused_mse_loss, fused_mse_loss_weights, fused_render_train,
 )
 from sfm_nerf_tpu_torch.models.convert import (
-    load_params_from_jax, optimizer_state_from_jax, optimizer_state_to_jax, params_from_jax,
-    params_to_jax, shard_layout,
+    convert_pth, latest_pth, load_params_from_jax, optimizer_state_from_jax,
+    optimizer_state_to_jax, params_from_jax, params_to_jax, shard_layout,
 )
-from sfm_nerf_tpu_torch.models.nerf import NeRF, NeRFPair
+from sfm_nerf_tpu_torch.models.nerf import NeRF, NeRFPair, bf16_compute, layer_shapes
 from sfm_nerf_tpu_torch.ops.rays import image_rays, sample_ray_batch
 from sfm_nerf_tpu_torch.ops.render import (
     merge_sorted, render_rays, render_rays_chunked, render_rays_chunked_aux,
@@ -356,19 +366,19 @@ def make_loss_fn(cfg: NeRFPipelineConfig, n_rays: Optional[int] = None):
     n_rays = n_rays if n_rays is not None else cfg.train.n_rays_batch
     n_imp = rcfg.n_importance
     fused = fused_train_supported(cfg)
-    if not fused and cfg.train.compute_dtype != "float32":
-        raise NotImplementedError("the nn.Module training path is float32 only")
+    # the nn.Module route: float32, or the JAX trainer's bf16 compute cast
+    net = bf16_compute if cfg.train.compute_dtype == "bfloat16" else (lambda m: m)
 
     def loss_fn(model, generator, images, poses, K, draws=None, u=None, u_pdf=None):
         _check_model(cfg, model)
         o, d, target = sample_ray_batch(images, poses, K, n_rays, generator, draws)
         if not fused and n_imp > 0:
             rgb_f, rgb_c = render_rays_hierarchical(
-                model.coarse, model.fine, o, d, rcfg, n_imp, generator, u, u_pdf)
+                net(model.coarse), net(model.fine), o, d, rcfg, n_imp, generator, u, u_pdf)
             return _mse(rgb_f, target) + _mse(rgb_c, target)
         z = stratified_samples(n_rays, rcfg, generator, o.device, u)
         if not fused:
-            return _mse(render_rays(model, o, d, rcfg, z_vals=z), target)
+            return _mse(render_rays(net(model), o, d, rcfg, z_vals=z), target)
         # the CUDA kernels take bf16-packed weights; the plain version on the
         # CPU packs in float32 unless compute_dtype asks for bf16
         bf16 = o.device.type == "cuda" or cfg.train.compute_dtype == "bfloat16"
@@ -504,7 +514,8 @@ class NeRFTrainer:
     def try_resume(self) -> bool:
         """Load the newest checkpoint: an interrupted sharded run's shards
         when they are newer than every whole checkpoint and agree (then
-        written whole first), else the newest whole file."""
+        written whole first), else the newest whole file; with neither, a
+        reference .pth to fine-tune (``_try_resume_pth``)."""
         ck = self.cfg.checkpoint_path
         path = ckpt_lib.latest_checkpoint(ck)
         state = ckpt_lib.load_checkpoint(path) if path is not None else None
@@ -520,7 +531,7 @@ class NeRFTrainer:
                     ckpt_lib.save_checkpoint(ck, whole[2], whole[0], whole[1])
                 self._barrier()
         if state is None:
-            return False
+            return shards is None and self._try_resume_pth()
         params, opt_state, step = state
         try:
             load_params_from_jax(self.model, params)
@@ -535,6 +546,38 @@ class NeRFTrainer:
         for group in self.optimizer.param_groups:
             group["lr"] = self._schedule(done)
         self.start_iter = step + 1
+        return True
+
+    def _try_resume_pth(self) -> bool:
+        """Fine-tune from a reference .pth in ``checkpoint_path`` (none: False):
+        its converted weights at step 0 under a fresh Adam and StepLR (a
+        state dict carries no iteration).  A file whose layers do not match
+        the configured network raises; a coarse/fine pair cannot take a
+        one-network file, and trains from scratch with a note."""
+        pth = latest_pth(self.cfg.checkpoint_path)
+        if pth is None:
+            return False
+        params, mcfg = convert_pth(pth)
+        if isinstance(self.model, NeRFPair):
+            print(f"note: ignoring {pth} — it holds one network but --n_importance > 0 "
+                  "trains a coarse/fine pair; starting from scratch")
+            return False
+        expected = layer_shapes(self.cfg.model)
+        if set(params) != set(expected) or any(
+                params[n]["w"].shape != (fi, fo) or params[n]["b"].shape != (fo,)
+                for n, (fi, fo) in expected.items()):
+            raise ValueError(
+                f"{pth} serializes a different architecture than the configured model "
+                f"({mcfg}); pass the matching --arch/--n_pos_freq/--hidden_size flags to "
+                "fine-tune it")
+        load_params_from_jax(self.model, params)
+        self.optimizer.state.clear()
+        self.scheduler.last_epoch = 0
+        for group in self.optimizer.param_groups:
+            group["lr"] = self._schedule(0)
+        self.start_iter = 0
+        if self.rank0:
+            print(f"Fine-tuning from converted {pth}")
         return True
 
     def save(self, step: int, loss, final: bool = False) -> Optional[str]:

@@ -120,7 +120,7 @@ def test_cli_train_mode_then_test_mode(setup, route, capsys):
     flags = ["--device", "cpu", "--data_path", data, "--checkpoint_path", str(ck),
              "--n_sample", "16", "--n_rays_batch", "64", "--lrate", "5e-3",
              "--log_every", "1", "--val_every", "10", "--save_ckpt_iter", "5",
-             *_model_flags(), *route]
+             "--logs_path", str(root / "logs"), *_model_flags(), *route]
     stats = main(["--mode", "train", "--max_iters", "12", *flags])
     losses = [v for _, v in stats["losses"]]
     assert stats["steps"] == 12 and stats["start_iter"] == 0 and len(losses) == 12

@@ -151,7 +151,8 @@ def test_wrapper_trains_and_tests_tiny_on_the_cpu(tmp_path):
     common = ["--data_path", data + "/", "--checkpoint_path", str(tmp_path / "ck") + "/",
               "--n_sample", "16", "--n_pos_freq", "4", "--n_dirc_freq", "2", "--device", "cpu"]
     stats = wrapper.main(["--mode", "train", *common, "--n_rays_batch", "64",
-                          "--max_iters", "12", "--save_ckpt_iter", "0"])
+                          "--max_iters", "12", "--save_ckpt_iter", "0",
+                          "--logs_path", str(tmp_path / "logs")])
     assert stats["steps"] == 12 and np.isfinite(stats["final_loss"])
     cfg = cli_nerf.build_config(wrapper.delegated_args(
         wrapper.config_parser().parse_args(["--mode", "train", *common])))

@@ -65,7 +65,7 @@ def test_cli_trains_validates_and_tests_an_out_of_envelope_network(tmp_path):
              "--checkpoint_path", str(tmp_path / "ckpt"), "--hidden_size", "40",
              "--n_pos_freq", "4", "--n_dirc_freq", "2", "--n_sample", "16"]
     stats = main(["--mode", "train", *flags, "--n_rays_batch", "64", "--max_iters", "3",
-                  "--log_every", "1", "--val_every", "1"])
+                  "--log_every", "1", "--val_every", "1", "--logs_path", str(tmp_path / "logs")])
     assert stats["val"] and all(np.isfinite(v) for _, _, v in stats["val"])
     records = main(["--mode", "test", *flags, "--images_path", str(tmp_path / "images")])
     assert len(records) == 5 and all(np.isfinite(r["psnr"]) for r in records)

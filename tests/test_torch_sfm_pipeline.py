@@ -349,6 +349,6 @@ def test_cli_nerf_trains_on_the_export(ring, torch_run):
                   "--near", "auto", "--far", "auto", "--hidden_size", "32",
                   "--n_pos_freq", "4", "--n_dirc_freq", "2", "--n_sample", "16",
                   "--n_rays_batch", "64", "--max_iters", "4", "--log_every", "1",
-                  "--val_every", "0"])
+                  "--val_every", "0", "--logs_path", str(root / "logs")])
     losses = [v for _, v in stats["losses"]]
     assert stats["steps"] == 4 and np.isfinite(losses).all()

@@ -622,20 +622,22 @@ def test_the_loss_reaches_the_host_only_at_log_every(tiny, tmp_path):
 
 
 def test_unported_options_raise(tiny, tmp_path):
-    """The bf16 nn.Module path is not ported and says so; hierarchical
-    sampling is (tests/test_torch_hier_train.py): the trainer builds a
-    coarse/fine pair for it.  The orbax backend is ported
+    """Options once unported.  The bf16 nn.Module path is ported: its loss
+    and grads match JAX's bf16 XLA loss (tests/test_torch_interop.py's
+    rule).  Hierarchical sampling is (tests/test_torch_hier_train.py): the
+    trainer builds a coarse/fine pair for it.  The orbax backend is ported
     (train/async_ckpt.py, held by tests/test_torch_aux.py): the trainer
     takes it, and refuses a backend it does not know."""
     from sfm_nerf_tpu_torch.models.nerf import NeRFPair
     from sfm_nerf_tpu_torch.train.async_ckpt import AsyncCheckpointer
+    from test_torch_interop import _bf16_case, assert_bf16_matches_jax
 
     args = (tiny["images"], tiny["poses"], tiny["K"])
     hier = NeRFTrainer(_port_cfg(tiny["jcfg"], render=dict(n_importance=8)), *args, device="cpu")
     assert isinstance(hier.model, NeRFPair)
     assert callable(make_loss_fn(_port_cfg(tiny["jcfg"], render=dict(n_importance=8))))
-    with pytest.raises(NotImplementedError):
-        make_loss_fn(_port_cfg(tiny["jcfg"], train=dict(compute_dtype="bfloat16")))
+    assert callable(make_loss_fn(_port_cfg(tiny["jcfg"], train=dict(compute_dtype="bfloat16"))))
+    assert_bf16_matches_jax(_bf16_case(hier=False, n_rays=N_RAYS))
     orbax = NeRFTrainer(_port_cfg(tiny["jcfg"], checkpoint_path=str(tmp_path),
                                   train=dict(ckpt_backend="orbax")), *args, device="cpu")
     assert isinstance(orbax._async, AsyncCheckpointer)
