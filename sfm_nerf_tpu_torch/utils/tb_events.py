@@ -1,8 +1,12 @@
 """TensorBoard event files without tensorboard: the training CLI's log.
 
 ``SummaryWriter(log_dir)`` writes what ``tensorboardX.SummaryWriter`` writes
-for ``add_scalar`` and ``add_image`` (the machine that trains the port has
-neither tensorboard nor tensorboardX):
+for ``add_scalar`` and ``add_image``.  The port depends on neither
+tensorboardX nor tensorboard, and ``torch.utils.tensorboard`` is no way
+round them: it needs tensorboard, its import loads TensorFlow wherever
+TensorFlow is installed (seconds, and TensorFlow may bring JAX into the
+process), and its record writer computes the same per-byte pure-Python
+CRC32C as this module.  What it writes:
 
 - one file ``events.out.tfevents.{seconds}.{host}.{pid}.{n}`` per writer
   (``n`` counts the writers this process opened, so two in one second do
