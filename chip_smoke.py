@@ -21,6 +21,12 @@ training step; hierarchical: 256 coarse + 128 importance samples):
 4. gif: ``cli.nerf --mode gif`` (2 legacy-compositor frames, then one
    chair800 frame on a white background), each held against the plain
    version;
+4b. figures: the serve phase's five figure_{i}.png read back (900 x 1800,
+   the right panel against test_{i}_pred.png resampled into its box, each
+   figure's host seconds), then ``cli.wrapper --mode gif --plot_rays`` on
+   synth800 (the gif phase's legacy turntable cut to one frame): one K1
+   launch, the frame held against the plain version, ray_plot_1.png at
+   1200 x 1200 and its host seconds;
 5. train: ``cli.nerf --mode train`` on synth800 from a seeded init, K2
    (fused_mse_loss) as the step: ms per step, train rays/s, the logged
    losses (the last ten must average below the first ten), peak memory;
@@ -69,6 +75,10 @@ training step; hierarchical: 256 coarse + 128 importance samples):
 13. sfm_ops: F-RANSAC, PnP RANSAC and five BA steps on the card against
    the same calls on the CPU, given the same draws;
 14. sfm_scale: the same pipeline on 48 cameras x 8,000 points;
+14b. sfm_figures: every figure file the JAX pipeline writes, in sfm's and
+   sfm_scale's output (the PNGs at their pixel sizes, the four overlays
+   baseline JPEGs of 800 x 600), and each writer's host seconds in
+   sfm_scale;
 15. dp_train: ``cli.nerf --mode train`` under a one-rank torchrun
    environment (NCCL, started in this process: the code a multi-GPU user
    runs), 20 flat steps and 5 hierarchical ones through the data-parallel
@@ -220,6 +230,41 @@ def emit(phase, **kw):
     print(json.dumps({"phase": phase, **kw}), flush=True)
 
 
+@contextlib.contextmanager
+def timed_calls(module, names, seconds):
+    """While open, each call of ``module.<name>`` appends its host seconds
+    to ``seconds[name]`` (the figure writers' time on their real path)."""
+    saved = {n: getattr(module, n) for n in names}
+
+    def timed(name, fn):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                seconds.setdefault(name, []).append(time.perf_counter() - t0)
+        return call
+
+    for n, fn in saved.items():
+        setattr(module, n, timed(n, fn))
+    try:
+        yield seconds
+    finally:
+        for n, fn in saved.items():
+            setattr(module, n, fn)
+
+
+# ---- figures (slice 13) ----------------------------------------------------
+FIGURE_PSNR = 30.0       # figure_{i}.png's right panel vs its prediction, resampled
+SFM_FIGURES = {"x_vs_z_triangulation.png": (2400, 3000), "3d_points_visualization.png":
+               (2400, 3000), "complete_reconstruction.png": (2400, 3000),
+               "topdown_view.png": (1000, 1000), "feature_matches_1_2.png": (600, 1600)}
+SFM_OVERLAYS = ["Frame1 - lineartriangulation.jpg", "Frame2 - lineartriangulation.jpg",
+                "Frame1 - nonlineartriangulation.jpg", "Frame2 -non lineartriangulation.jpg"]
+FIGURE_WRITERS = ["save_match_visualization", "save_x_vs_z_plot", "save_3d_points_plot",
+                  "save_projection_overlays", "save_reconstruction_plot", "save_topdown_plot"]
+
+
 # ---- Phase 1 SfM -----------------------------------------------------------
 SFM_CAMS, SFM_POINTS, SFM_WINDOW = 12, 4000, 4
 SCALE_CAMS, SCALE_POINTS, SCALE_WINDOW, SCALE_F_ITERS = 48, 8000, 8, 4000
@@ -352,12 +397,16 @@ def run_sfm_phases(phase, out_root):
     """The Phase 1 phases: sfm (cli.sfm at the SfMConfig defaults on a
     12-camera ring, then its NeRF export read back), sfm_ops (F-RANSAC,
     PnP RANSAC and five BA steps on the card against the same calls on the
-    CPU, given the same draws), sfm_scale (48 cameras x 8,000 points)."""
+    CPU, given the same draws), sfm_scale (48 cameras x 8,000 points),
+    sfm_figures (the figures of sfm and sfm_scale), and the phases after."""
     import numpy as np
     import torch
 
     from sfm_nerf_tpu_torch.cli import sfm as cli_sfm
+    from sfm_nerf_tpu_torch.io import artifacts as art
     from sfm_nerf_tpu_torch.io.blender import load_blender_dataset
+    from sfm_nerf_tpu_torch.io.jpeg import sof0_size
+    from sfm_nerf_tpu_torch.io.png import png_size
     from sfm_nerf_tpu_torch.ops import ba as ba_ops
     from sfm_nerf_tpu_torch.ops import epipolar as ep
     from sfm_nerf_tpu_torch.ops import pnp as pnp_ops
@@ -509,11 +558,38 @@ def run_sfm_phases(phase, out_root):
         emit("sfm_ops", **rec)
 
     def sfm_scale():
-        _, _, _, rec = reconstruct(
-            "sfm_scale", SCALE_CAMS, SCALE_POINTS, SCALE_WINDOW,
-            ["--ransac_iters", str(SCALE_F_ITERS), "--ba_interval", "12"])
+        with timed_calls(art, FIGURE_WRITERS, state.setdefault("writer_s", {})):
+            _, _, _, rec = reconstruct(
+                "sfm_scale", SCALE_CAMS, SCALE_POINTS, SCALE_WINDOW,
+                ["--ransac_iters", str(SCALE_F_ITERS), "--ba_interval", "12"])
         state["sfm_scale_rec"] = rec
         emit("sfm_scale", **rec)
+
+    def sfm_figures():
+        """Every figure the JAX pipeline writes, in sfm's and sfm_scale's
+        output: the PNGs at their sizes, the overlays baseline JPEGs of the
+        frames' 800 x 600; each writer's host seconds at sfm_scale's size."""
+        out = {}
+        for tag in ("sfm", "sfm_scale"):
+            d = os.path.join(out_root, f"{tag}_out")
+            names = sorted(n for n in os.listdir(d) if n.endswith((".png", ".jpg")))
+            if names != sorted([*SFM_FIGURES, *SFM_OVERLAYS]):
+                raise AssertionError(f"{tag}: figures {names}")
+            for name, (h, w) in SFM_FIGURES.items():
+                got = png_size(os.path.join(d, name))
+                if got != (w, h):
+                    raise AssertionError(f"{tag}/{name}: {got}, want {(w, h)}")
+            for name in SFM_OVERLAYS:
+                if sof0_size(os.path.join(d, name)) != (800, 600):
+                    raise AssertionError(f"{tag}/{name}: SOF0 {sof0_size(os.path.join(d, name))}")
+            out[tag] = {"files": len(names),
+                        "bytes": sum(os.path.getsize(os.path.join(d, n)) for n in names)}
+        secs = state["writer_s"]
+        if sorted(secs) != sorted(FIGURE_WRITERS):
+            raise AssertionError(f"sfm_scale's writers timed: {sorted(secs)}")
+        emit("sfm_figures", **out, writer_s_sfm_scale=secs,
+             figures_s_sfm_scale=sum(map(sum, secs.values())),
+             cams=SCALE_CAMS, points=SCALE_POINTS)
 
     def sfm_global():
         """sfm_scale's scene and flags plus the global initialisation, the
@@ -815,6 +891,7 @@ def run_sfm_phases(phase, out_root):
     phase(sfm_ops)
     phase(sfm_sharded)
     phase(sfm_scale)
+    phase(sfm_figures)
     phase(sfm_global)
     phase(sfm_global_ops)
 
@@ -1624,10 +1701,12 @@ def main():
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         fr.reset_launch_counts()
-        records = cli.main([
-            "--mode", "test", "--data_path", data, "--checkpoint_path", ckpt_root,
-            "--images_path", os.path.join(OUT, "test"), "--n_sample", "256"])
+        with timed_calls(cli, ["save_test_figure"], state.setdefault("figure_s", {})):
+            records = cli.main([
+                "--mode", "test", "--data_path", data, "--checkpoint_path", ckpt_root,
+                "--images_path", os.path.join(OUT, "test"), "--n_sample", "256"])
         launches = dict(fr.LAUNCHES)
+        state["serve_records"] = records
         peak = torch.cuda.max_memory_allocated()
         if launches["fused_render_rays"] < 1:
             raise AssertionError(f"serve path launched no K1: {launches}")
@@ -1714,6 +1793,70 @@ def main():
                          "frame_min": float(first.min()), "frame_std": float(first.std()),
                          "ms": [round(r["ms"], 2) for r in records], "max_abs": max(errs)}
         emit("gif", **out)
+
+    # ---- 4b. figures: figure_{i}.png of the serve phase, --plot_rays -----
+    def figures():
+        from sfm_nerf_tpu_torch.cli import wrapper as cli_wrapper
+        from sfm_nerf_tpu_torch.io.figure import Canvas
+
+        test_dir = os.path.join(OUT, "test", "synth800")
+        panels = []
+        for i, rec in enumerate(state["serve_records"]):
+            fig = read_png(os.path.join(test_dir, f"figure_{i}.png"))
+            gt8 = read_png(os.path.join(test_dir, f"test_{i}_gt.png"))
+            pred8 = read_png(os.path.join(test_dir, f"test_{i}_pred.png"))
+            if fig.shape != (900, 1800, 3):
+                raise AssertionError(f"figure_{i}.png: shape {fig.shape}")
+            # the right panel against test_{i}_pred.png resampled into its box
+            box = cli.build_test_figure(gt8, pred8, rec["mse"]).axes[1].active_box(1800, 900)
+            cv = Canvas(1800, 900)
+            cv.image(pred8 / 255.0, box)
+            want = cv.to_uint8()
+            c0, c1 = int(np.ceil(box[0])) + 1, int(np.floor(box[2])) - 1
+            r0, r1 = 900 - int(np.floor(box[3])) + 1, 900 - int(np.ceil(box[1])) - 1
+            p = psnr(fig[r0:r1, c0:c1] / 255.0, want[r0:r1, c0:c1] / 255.0)
+            if p < FIGURE_PSNR:
+                raise AssertionError(f"figure_{i}.png: right panel at {p:.2f} dB")
+            panels.append({"view": rec["view"], "panel_box": [round(v, 2) for v in box],
+                           "psnr": round(p, 2)})
+        # --plot_rays: one synth800 frame through K1 and its ray fan
+        out_dir = os.path.join(OUT, "plot_rays")
+        shutil.rmtree(out_dir, ignore_errors=True)
+        secs = {}
+        fr.reset_launch_counts()
+        with timed_calls(cli, ["save_ray_plot"], secs):
+            # the gif phase's turntable, which faces the scene, cut to one frame
+            records = cli_wrapper.main([
+                "--mode", "gif", "--plot_rays", *GIF_LEGACY_FLAGS, "--n_frames", "1",
+                "--data_path", data, "--checkpoint_path", ckpt_root, "--images_path", out_dir,
+                "--no_perturb", "--n_sample", "256"])
+        launches = dict(fr.LAUNCHES)
+        if launches != {"fused_render_rays": 1, "fused_render_rays_weights": 0} \
+                or len(records) != 1:
+            raise AssertionError(f"plot_rays: launches {launches}, {len(records)} frames")
+        paths["plot_rays"] = {"fused_render_rays": launches["fused_render_rays"]}
+        plot = read_png(os.path.join(out_dir, "ray_plot_1.png"))
+        fan = plot.astype(float).std(-1) > 30          # the coloured segments
+        if plot.shape != (1200, 1200, 3) or fan.mean() < 0.01:
+            raise AssertionError(f"ray_plot_1.png: {plot.shape}, fan share {fan.mean()}")
+        cam_g = load_camera_info(data, "train")
+        og, dg = image_rays(torch.as_tensor(cam_g.camera_matrix, device=dev),
+                            torch.as_tensor(records[0]["pose"], dtype=torch.float32,
+                                            device=dev), cam_g.height, cam_g.width)
+        rc = RenderConfig(n_sample=256, perturb=False, near=1.0, far=10.0, variant="legacy")
+        zg = stratified_samples(og.shape[0], rc, None, dev)
+        k1 = check_plain("plot_rays frame", packed, og, dg, zg, rc)
+        frame = read_png(records[0]["path"]) / 255.0
+        if frame.std() < 0.02:
+            raise AssertionError(f"plot_rays: a blank frame (std {frame.std()})")
+        ys, xs = np.nonzero(fan)
+        emit("figures", figure_i=panels, figure_s=state["figure_s"]["save_test_figure"],
+             plot_rays={"launches": launches, "kernel_vs_plain": {"rays": SUBSET, **k1},
+                        "frame_ms": records[0]["ms"], "frame_std": float(frame.std()),
+                        "ray_plot_s": secs["save_ray_plot"],
+                        "rays_drawn": -(-cam_g.height * cam_g.width // 50),
+                        "fan_bbox": [int(xs.min()), int(ys.min()), int(xs.max()),
+                                     int(ys.max())]})
 
     # ---- 5. train: the CLI's train mode through K2 ------------------------
     train_ckpt = os.path.join(OUT, "train_ckpt")
@@ -2531,6 +2674,8 @@ def main():
     phase(serve)
     phase(aux)
     phase(gif)
+    if "serve" not in failed:
+        phase(figures)
     phase(train)
     if not failed:
         phase(train_two_kernel)

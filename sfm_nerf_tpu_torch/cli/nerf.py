@@ -27,13 +27,16 @@ must match ``--arch``, ``--hidden_size`` and the frequency flags.
 ``--mode test`` is ``Phase2/train.py --mode test``: the same flags (those
 that act on rendering) and defaults, the same choice of 5 views from
 ``--seed``, the same ``test_{i}_{gt,pred,comparison}.png`` artifacts (and
-``test_{i}_{depth,disp,acc}.png`` with ``--save_depth``) and the same
-printed MSE / PSNR / SSIM lines.  ``--mode gif`` is ``Phase2/Wrapper.py
+``test_{i}_{depth,disp,acc}.png`` with ``--save_depth``), the same titled
+side-by-side ``figure_{i}.png`` (1800 x 900, drawn by io/figure.py) and the
+same printed MSE / PSNR / SSIM lines.  ``--mode gif`` is ``Phase2/Wrapper.py
 --mode gif``: ``n_frames`` turntable frames ``image_{count}.png`` through
 the legacy compositor (near 1, far 10 by default), written channel-swapped
 as the reference's cv2.imwrite did unless ``--rgb_frames``; it renders the
 npz checkpoint, else a reference ``.pth`` (``load_any_checkpoint``), whose
-architecture it reads from the file.  The flags of
+architecture it reads from the file.  ``cli.wrapper --mode gif --plot_rays``
+also writes each frame's ray fan, ``ray_plot_{count}.png`` (1200 x 1200);
+this parser has no such flag, as ``Phase2/train.py`` has none.  The flags of
 each mode keep the names and defaults of the matching JAX parser; the port
 adds ``--device`` (default cuda).
 
@@ -55,8 +58,7 @@ package.
 ``--ckpt_backend orbax`` writes the same npz files from a background thread
 (train/async_ckpt.py), not orbax's step directories.
 
-Not ported: ``figure_{i}.png`` and ``--plot_rays`` (matplotlib),
-``--steps_per_call`` (an XLA dispatch amortisation).
+Not ported: ``--steps_per_call`` (an XLA dispatch amortisation).
 """
 
 from __future__ import annotations
@@ -367,6 +369,7 @@ def run_test(args) -> List[dict]:
         write_png(os.path.join(out_dir, f"test_{i}_pred.png"), pred8)
         write_png(os.path.join(out_dir, f"test_{i}_comparison.png"),
                   np.concatenate([gt8, pred8], axis=1))
+        save_test_figure(os.path.join(out_dir, f"figure_{i}.png"), gt8, pred8, mse_val)
         psnr = psnr_from_mse(mse_val)
         ssim_val = ssim(pred, gt)
         print(f"  MSE {mse_val:.6f}  PSNR {psnr:.2f} dB  SSIM {ssim_val:.4f}")
@@ -375,6 +378,50 @@ def run_test(args) -> List[dict]:
     print(f"Testing complete. Average loss: {total / n_test:.6f}")
     print(f"Results saved to {out_dir}")
     return records
+
+
+def build_test_figure(gt8: np.ndarray, pred8: np.ndarray, mse_val: float):
+    """The figure of ``save_test_figure``, laid out, not drawn."""
+    from sfm_nerf_tpu_torch.io.figure import Figure
+
+    fig = Figure((12, 6))
+    axes = fig.subplots(1, 2)
+    axes[0].imshow(gt8)
+    axes[0].set_title("Ground Truth")
+    axes[0].axis_off()
+    axes[1].imshow(pred8)
+    axes[1].set_title(f"Prediction (Loss: {mse_val:.6f})")
+    axes[1].axis_off()
+    fig.tight_layout()
+    return fig
+
+
+def save_test_figure(path: str, gt8: np.ndarray, pred8: np.ndarray, mse_val: float):
+    """figure_{i}.png of test mode (Phase2/train.py:269-279): the ground
+    truth and the prediction side by side, titled, axes off, figsize
+    (12, 6) under tight_layout, saved at 150 dpi (1800 x 900)."""
+    return build_test_figure(gt8, pred8, mse_val).savefig(path, dpi=150)
+
+
+def save_ray_plot(path: str, K, c2w, height: int, width: int):
+    """ray_plot_{count}.png of ``--plot_rays`` (Phase2/Wrapper.py:243-264):
+    every 50th ray of the frame (ops/rays.py:image_rays) as the segment
+    from its origin to origin + 6 dir, in the line colour cycle, on 3-D
+    axes labelled X, Y and Z; figsize (12, 12) at 100 dpi (1200 x 1200)."""
+    from sfm_nerf_tpu_torch.io.figure import Figure
+    from sfm_nerf_tpu_torch.ops.rays import image_rays
+
+    o, d = image_rays(K, c2w, height, width)
+    o = o.cpu().numpy()[::50].astype(np.float64)
+    p2 = o + 6.0 * d.cpu().numpy()[::50]
+    fig = Figure((12, 12))
+    ax = fig.add_subplot(projection="3d")
+    ax.set_xlabel("X")
+    ax.set_ylabel("Y")
+    ax.set_zlabel("Z")
+    for p1, p2i in zip(o, p2):
+        ax.plot([p1[0], p2i[0]], [p1[1], p2i[1]], [p1[2], p2i[2]])
+    return fig.savefig(path)
 
 
 def load_any_checkpoint(ckpt_dir: str):
@@ -464,6 +511,10 @@ def run_gif(args) -> List[dict]:
         else:
             c2w = pose_spherical(float(th), float(args.orbit_elev), float(args.orbit_radius))
         pose = torch.as_tensor(c2w, dtype=torch.float32, device=device)
+        if getattr(args, "plot_rays", False):
+            out = os.path.join(args.images_path, f"ray_plot_{count}.png")
+            save_ray_plot(out, K, pose, height, width)
+            print(f"wrote {out}")
         timer.start()
         img = render(model, K, pose, height, width, generator)
         ms = timer.stop()

@@ -7,12 +7,16 @@
 (``calibration.txt``, ``matching{i}.txt``, ``{i}.png``), refines every pair
 by F-RANSAC, initialises from two views, registers the other cameras by PnP
 RANSAC + LM, re-triangulates and runs the pruned global BA, all in float64
-on ``--device`` (default cuda).  Writes ``reconstruction.ply`` and
-``sfm_stats.json`` to ``--output_dir``; with ``--export_nerf E`` also a
-NeRF dataset that ``cli.nerf --data_path E/ --near auto --far auto`` trains
-on.  The flags keep Wrapper.py's names, defaults and choices; the
-figures, ``--platform``, ``--runs``, ``--bucket_floor`` (XLA compile reuse)
-and ``--float64`` (the port is always float64) are not here.
+on ``--device`` (default cuda).  Writes ``reconstruction.ply``,
+``sfm_stats.json`` and the JAX pipeline's figures (the init pair's
+``feature_matches_{a}_{b}.png``, ``x_vs_z_triangulation.png``,
+``3d_points_visualization.png``, the four ``Frame*.jpg`` overlays,
+``complete_reconstruction.png`` and ``topdown_view.png``) to
+``--output_dir``; with ``--export_nerf E`` also a NeRF dataset that
+``cli.nerf --data_path E/ --near auto --far auto`` trains on.  The flags
+keep Wrapper.py's names, defaults and choices; ``--platform``, ``--runs``,
+``--bucket_floor`` (XLA compile reuse) and ``--float64`` (the port is
+always float64) are not here.
 
 ``--ransac_devices N`` shards each pair's F-RANSAC hypotheses, and
 ``--ba_devices N`` the global BA's points, over N devices: N distinct

@@ -5,10 +5,11 @@
         --data_path ... --checkpoint_path ... [--device cpu]
 
 The flags and defaults are ``Phase2/Wrapper.py``'s (``configParser``),
-less ``--plot_rays`` (matplotlib) and ``--platform`` (a JAX backend
-switch), plus ``--device`` (default cuda).
+less ``--platform`` (a JAX backend switch), plus ``--device`` (default
+cuda).
 
-``--mode gif`` is ``cli.nerf``'s gif mode.  ``--mode train|test`` hands
+``--mode gif`` is ``cli.nerf``'s gif mode; ``--plot_rays`` adds each
+frame's ray fan, ``ray_plot_{count}.png`` (drawn by io/figure.py).  ``--mode train|test`` hands
 the run to ``cli.nerf``'s train or test mode as the JAX Wrapper hands it to
 ``Phase2/train.py``: that parser's defaults, overwritten by every flag of
 this one that it also has and that is not None, then the legacy loop's
@@ -75,6 +76,12 @@ def config_parser() -> argparse.ArgumentParser:
     p.add_argument('--no_perturb', action='store_true', help="deterministic mid-bin samples")
     p.add_argument('--white_bkgd', action='store_true',
                    help="composite onto a white background")
+    p.add_argument('--plot_rays', action='store_true',
+                   help="write a 3-D ray-fan debug plot per gif frame "
+                        "(ray_plot_{count}.png; the reference's "
+                        "plot_rays, Wrapper.py:428-442,494, calls "
+                        "plt.show() which blocks headless runs — same "
+                        "fix as display_matches: save, don't show)")
     p.add_argument('--modern_schedule', action='store_true',
                    help="train.py's StepLR(50000, 0.1) instead of the legacy StepLR(1000, 0.1)")
     p.add_argument('--modern_render', action='store_true',

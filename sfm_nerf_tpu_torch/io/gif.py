@@ -1,7 +1,7 @@
 """GIF89a writer and reader on struct and numpy alone.
 
-The machine that serves the port has no imageio, cv2 or PIL (see
-io/png.py), so the turntable's frames are stitched here.
+The port imports no imageio, cv2 or PIL (see io/png.py), so the
+turntable's frames are stitched here.
 
 Writer: every frame (H, W, 3) uint8 of one size is mapped to one global
 palette of at most 256 colours, made by median cut over the frames'

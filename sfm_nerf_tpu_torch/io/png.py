@@ -1,7 +1,8 @@
 """PNG reader and writer on zlib, struct and numpy alone.
 
-The machine that serves the port has no imageio, cv2, PIL or matplotlib, so
-the port reads its datasets and writes its artifacts through this module.
+The port imports no imageio, cv2, PIL or matplotlib (the machine that serves
+it lacks all of them but PIL), so it reads its datasets and writes its PNG
+artifacts through this module.
 
 Reader: 8-bit grey, grey+alpha, RGB and RGBA, non-interlaced, all five row
 filters.  The Average and Paeth filters make every byte depend on its left,

@@ -19,7 +19,10 @@ stops each RANSAC on its confidence bound (an adaptive run scores a prefix
 of the fixed run's draws).  ``ransac_devices > 1`` runs each pair's F-RANSAC
 with its hypotheses sharded over that many devices, ``ba_devices > 1`` the
 global BA with its points sharded (parallel/), as the JAX pipeline routes
-them.  The figures of the JAX package are not written.
+them.  The figures are written where the JAX pipeline writes them
+(io/artifacts.py): the init pair's feature matches, the two-view plots and
+reprojection overlays, and the reconstruction and top-down plots before
+and after the global BA.
 """
 
 from __future__ import annotations
@@ -29,14 +32,14 @@ import functools
 import json
 import os
 import time
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from sfm_nerf_tpu_torch import DEFAULT_DEVICE
 from sfm_nerf_tpu_torch.config import SfMConfig
-from sfm_nerf_tpu_torch.io.artifacts import save_ply
+from sfm_nerf_tpu_torch.io import artifacts as art
 from sfm_nerf_tpu_torch.io.sfm_data import (
     load_calibration,
     load_images,
@@ -78,6 +81,8 @@ from sfm_nerf_tpu_torch.ops.translation_avg import (
 )
 from sfm_nerf_tpu_torch.ops.triangulation import (
     disambiguate_pose,
+    project,
+    projection_matrix_RC,
     relative_pose_pairs,
     reprojection_errors,
     triangulate_nonlinear,
@@ -139,6 +144,7 @@ class TwoViewResult:
     R: np.ndarray
     X: np.ndarray                      # refined 3D points (N, 3)
     X_linear: np.ndarray
+    all_candidate_points: np.ndarray   # (4, N, 3) for the x-vs-z plot
     mean_error_linear: float           # mean px error over both frames
     mean_error_nonlinear: float
     per_frame_linear: Tuple[float, float]
@@ -214,10 +220,16 @@ class SfMPipeline:
         return refined, all_feature_points, visibility
 
     # ------------------------------------------------------------------
-    def two_view_reconstruct(self, K, F, R1, C1, pts1, pts2) -> TwoViewResult:
+    def two_view_reconstruct(
+        self, K, F, R1, C1, pts1, pts2,
+        images: Optional[Tuple[np.ndarray, np.ndarray]] = None,
+        emit_artifacts: bool = False,
+    ) -> TwoViewResult:
         """F -> E -> 4 poses -> batched DLT -> cheirality -> batched LM
         refinement (the reference's ``triangulate``, Wrapper.py:397-594),
-        then optionally a two-camera BA with camera 1 fixed."""
+        then optionally a two-camera BA with camera 1 fixed.  With
+        ``emit_artifacts`` it writes the x-vs-z and 3-D points plots, and
+        with ``images`` the pair's reprojection overlays."""
         cfg = self.cfg
         Kt = self._t(K)
         R1t, C1t = self._t(R1), self._t(np.asarray(C1).reshape(3))
@@ -231,7 +243,7 @@ class SfMPipeline:
         if cfg.essential_cleanup:
             E = cleanup_essential(E)
         Cs, Rs = decompose_essential(E, cfg.center_convention)
-        X_lin, C2, R2, _, _ = disambiguate_pose(
+        X_lin, C2, R2, all_pts, _ = disambiguate_pose(
             Kt, Cs, Rs, p1t, p2t, R1=R1t, T1=-(R1t @ C1t))
         e1_lin = torch.sqrt(reprojection_errors(Kt, R1t, C1t, X_lin, p1t))
         e2_lin = torch.sqrt(reprojection_errors(Kt, R2, C2, X_lin, p2t))
@@ -281,6 +293,7 @@ class SfMPipeline:
         e1l, e2l, e1n, e2n = host[12 + 6 * n:].reshape(4, n)
         result = TwoViewResult(
             C=host[:3], R=host[3:12].reshape(3, 3), X=X_n, X_linear=X_lin_n,
+            all_candidate_points=all_pts.cpu().numpy(),
             mean_error_linear=float((e1l.mean() + e2l.mean()) / 2),
             mean_error_nonlinear=float((e1n.mean() + e2n.mean()) / 2),
             per_frame_linear=(float(e1l.mean()), float(e2l.mean())),
@@ -291,6 +304,19 @@ class SfMPipeline:
               f"{result.mean_error_linear}")
         print("Mean Reprojection error after non linear triangulation error: "
               f"{result.mean_error_nonlinear}")
+        if emit_artifacts:
+            art.save_x_vs_z_plot(result.all_candidate_points, cfg.output_dir)
+            art.save_3d_points_plot(result.X_linear, result.C, result.X, cfg.output_dir)
+            if images is not None:
+                P1 = projection_matrix_RC(Kt, R1t, C1t)
+                P2 = projection_matrix_RC(Kt, self._t(result.R), self._t(result.C))
+                for stage_name, Xs in (("lineartriangulation", result.X_linear),
+                                       ("nonlineartriangulation", result.X)):
+                    Xt = self._t(Xs)
+                    art.save_projection_overlays(
+                        images[0], images[1], project(P1, Xt).cpu().numpy(),
+                        project(P2, Xt).cpu().numpy(), pts1, pts2, stage_name,
+                        cfg.output_dir)
         return result
 
     # ------------------------------------------------------------------
@@ -855,9 +881,17 @@ class SfMPipeline:
             else (1, 2)
         a, b = init_pair
         F12, m12 = refined[init_pair]
+        # unreadable frames are None placeholders; both must have decoded
+        have_imgs = (len(images) >= max(a, b) and images[a - 1] is not None
+                     and images[b - 1] is not None)
+        if have_imgs:
+            art.save_match_visualization(images[a - 1], images[b - 1], m12, cfg.output_dir,
+                                         name=f"feature_matches_{a}_{b}.png")
         camera_info = {a: {"R": np.eye(3), "C": np.zeros(3)}}
-        tv = self.two_view_reconstruct(K, F12, camera_info[a]["R"], camera_info[a]["C"],
-                                       m12[:, 0:2], m12[:, 2:4])
+        tv = self.two_view_reconstruct(
+            K, F12, camera_info[a]["R"], camera_info[a]["C"], m12[:, 0:2], m12[:, 2:4],
+            images=(images[a - 1], images[b - 1]) if have_imgs else None,
+            emit_artifacts=True)
         camera_info[b] = {"R": tv.R, "C": tv.C}
         self.stats["two_view"] = {
             "linear": tv.per_frame_linear, "nonlinear": tv.per_frame_nonlinear,
@@ -874,8 +908,14 @@ class SfMPipeline:
             self._global_init(K, refined, tracks, camera_info, fidx_to_3d)
         stage("global_init")
 
+        all_points = np.asarray(list(fidx_to_3d.values()))
+        art.save_reconstruction_plot(all_points, camera_info, cfg.output_dir)
+        art.save_topdown_plot(all_points, camera_info, cfg.output_dir)
         print("Bundle adjustment...")
         self._global_ba(K, camera_info, fidx_to_3d, tracks)
+        all_points = np.asarray(list(fidx_to_3d.values()))
+        art.save_reconstruction_plot(all_points, camera_info, cfg.output_dir)
+        art.save_topdown_plot(all_points, camera_info, cfg.output_dir)
 
         # coloured cloud: each feature's pixel in its first decoded view
         # (the images are RGB, so no channel swap)
@@ -891,8 +931,7 @@ class SfMPipeline:
                     c = (int(r), int(g), int(bl))
                     break
             colors.append(c)
-        all_points = np.asarray(list(fidx_to_3d.values()))
-        save_ply(all_points, np.asarray(colors, np.uint8), cfg.output_dir)
+        art.save_ply(all_points, np.asarray(colors, np.uint8), cfg.output_dir)
         stage("ba+artifacts")
 
         self.stats["elapsed_s"] = time.time() - t_start

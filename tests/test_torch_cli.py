@@ -76,8 +76,9 @@ def test_cli_test_mode(setup, route, capsys):
     out = capsys.readouterr().out
     assert len(records) == 5 and out.count("  MSE ") == 5 and "PSNR" in out
     names = sorted(os.path.basename(p) for p in glob.glob(str(images_path / "scene" / "*.png")))
-    assert names == sorted(f"test_{i}_{k}.png" for i in range(5)
-                           for k in ("gt", "pred", "comparison", "depth", "disp", "acc"))
+    assert names == sorted([f"test_{i}_{k}.png" for i in range(5)
+                            for k in ("gt", "pred", "comparison", "depth", "disp", "acc")]
+                           + [f"figure_{i}.png" for i in range(5)])
     images, poses, cam = load_blender_dataset(data, "test", use_native=False)
     idxs = np.random.default_rng(0).choice(len(images), 5, replace=False)
     assert [r["view"] for r in records] == [int(i) for i in idxs]

@@ -61,14 +61,14 @@ def _load_script(rel, name):
 
 
 def test_wrapper_flags_and_defaults_match_jax():
-    """Every flag of Phase2/Wrapper.py but --plot_rays and --platform, with
-    its default, and --device besides."""
+    """Every flag of Phase2/Wrapper.py but --platform, with its default, and
+    --device besides."""
     ours = {a.dest: a.default for a in wrapper.config_parser()._actions if a.dest != "help"}
     theirs = {a.dest: a.default
               for a in _load_script("Phase2/Wrapper.py", "_jw").configParser()._actions
               if a.dest != "help"}
     assert ours.pop("device") == "cuda"
-    assert set(ours) == set(theirs) - {"plot_rays", "platform"}
+    assert set(ours) == set(theirs) - {"platform"}
     for k, v in ours.items():
         assert v == theirs[k], f"--{k}: {v!r} vs JAX {theirs[k]!r}"
 

@@ -578,7 +578,11 @@ def test_cli_hierarchical_train_then_test_then_gif(tmp_path, route, capsys):
     images_path = str(tmp_path / "img")
     records = main(["--mode", "test", *flags, "--images_path", images_path, "--save_depth"])
     assert len(records) == 5 and all(np.isfinite(r["mse"]) for r in records)
-    assert len(os.listdir(os.path.join(images_path, "scene"))) == 30
+    # per view: gt, pred, comparison, depth, disp, acc and figure_{i}.png
+    assert sorted(os.listdir(os.path.join(images_path, "scene"))) == sorted(
+        [f"test_{i}_{k}.png" for i in range(5)
+         for k in ("gt", "pred", "comparison", "depth", "disp", "acc")]
+        + [f"figure_{i}.png" for i in range(5)])
     assert "PSNR" in capsys.readouterr().out
     with pytest.raises(ValueError, match="n_importance"):
         main(["--mode", "test", *[f for f in flags if f not in ("--n_importance", "8")],

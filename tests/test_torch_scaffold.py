@@ -1,6 +1,8 @@
 """The port's package stands alone: importing it and all its submodules,
 or running chip_smoke.py, loads no jax, nothing of sfm_nerf_tpu and nothing
-of native/, and its entry points default to the card."""
+of native/, nor any of the image libraries the card's machine lacks
+(matplotlib, cv2, PIL, imageio), and its entry points default to the
+card."""
 
 import os
 import subprocess
@@ -75,6 +77,29 @@ def test_chip_smoke_imports_no_jax():
     out = _run(_SMOKE_PROBE)
     assert out.returncode == 0, out.stdout + out.stderr
     assert '"ok"' not in out.stdout, out.stdout
+
+
+# the figures are drawn and encoded by the port itself (io/figure.py,
+# io/jpeg.py, io/png.py): neither the package nor chip_smoke.py loads an
+# image library, even where one is installed
+_NO_IMAGE_LIBS = r"""
+import importlib, pkgutil, sys
+import sfm_nerf_tpu_torch as pkg
+for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+    importlib.import_module(m.name)
+import chip_smoke
+assert chip_smoke.main() == 2
+assert "sfm_nerf_tpu_torch.io.figure" in sys.modules and "sfm_nerf_tpu_torch.io.jpeg" in sys.modules
+bad = sorted(k for k in sys.modules
+             if k.split(".")[0] in ("matplotlib", "mpl_toolkits", "cv2", "PIL", "imageio"))
+print(bad)
+assert not bad, bad
+"""
+
+
+def test_port_and_chip_smoke_import_no_image_library():
+    out = _run(_NO_IMAGE_LIBS)
+    assert out.returncode == 0, out.stdout + out.stderr
 
 
 def test_entry_points_default_to_cuda():

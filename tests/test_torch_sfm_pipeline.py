@@ -130,6 +130,21 @@ def test_artifacts_written(ring, torch_run):
     assert f"element vertex {stats['n_points_total']}" in head
 
 
+def test_figures_match_jax(ring, jax_run, torch_run):
+    """The port writes every figure the JAX pipeline writes (the init pair's
+    matches, the two-view plots and overlays, the reconstruction and
+    top-down plots), under the same names and at the same pixel sizes."""
+    import cv2
+
+    root, _, _ = ring
+    figures = {}
+    for tag in ("jax_out", "torch_out"):
+        names = sorted(n for n in os.listdir(root / tag) if n.endswith((".png", ".jpg")))
+        figures[tag] = {n: cv2.imread(str(root / tag / n)).shape for n in names}
+    assert figures["torch_out"] == figures["jax_out"]
+    assert len(figures["jax_out"]) == 9, sorted(figures["jax_out"])
+
+
 def test_point_colours_match_jax(ring, jax_run, torch_run):
     """Both clouds colour each point by its feature's pixel in its first
     view: the port reads RGB, the JAX package swaps cv2's BGR, so the two
