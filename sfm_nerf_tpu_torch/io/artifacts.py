@@ -176,14 +176,13 @@ def save_ply(
     return path
 
 
-def match_visualization(img1: np.ndarray, img2: np.ndarray, matches: np.ndarray,
-                        seed: int = 0) -> np.ndarray:
+def match_visualization(img1: np.ndarray, img2: np.ndarray, matches: np.ndarray) -> np.ndarray:
     """cv2.drawMatches with NOT_DRAW_SINGLE_POINTS, in numpy: the two RGB
     images side by side on a black canvas of (max h, w1 + w2), each match a
     circle of radius 3 around both keypoints and the line between them,
     antialiased, 1 px wide.  cv2 picks each match's colour from its
     process-global RNG, which no other program can reproduce; here the
-    colours come from ``np.random.default_rng(seed)``."""
+    colours come from ``np.random.default_rng(0)``."""
     img1, img2 = np.asarray(img1), np.asarray(img2)
     h1, w1 = img1.shape[:2]
     h2, w2 = img2.shape[:2]
@@ -194,7 +193,7 @@ def match_visualization(img1: np.ndarray, img2: np.ndarray, matches: np.ndarray,
     cv = Canvas(canvas.shape[1], canvas.shape[0])
     cv.rgb[:] = canvas.astype(np.float32) / 255
     if len(m):
-        colors = np.random.default_rng(seed).integers(0, 256, (len(m), 3)) / 255.0
+        colors = np.random.default_rng(0).integers(0, 256, (len(m), 3)) / 255.0
         # cv2's pixel (x, y) is centred at display (x + .5, h - y - .5)
         p1 = np.column_stack([m[:, 0] + 0.5, cv.h - m[:, 1] - 0.5])
         p2 = np.column_stack([np.minimum(m[:, 2] + w1, cv.w - 1) + 0.5, cv.h - m[:, 3] - 0.5])

@@ -9,19 +9,20 @@ geometry, not the same pixels:
 - 2-D plots: the axes frame within 3 px of the one found in JAX's PNG, the
   ink centroid of each series and camera marker (located by its colour and
   its tints over white) within 1 % of the width;
-- 3-D plots: each camera marker's centroid within 1.5 % of the width, the
-  blue cloud's ink bounding box within 2 %;
+- 3-D plots: each camera marker's centroid within 1.5 % of the width, each
+  point series' ink bounding box (blue, and red where it is drawn) within 2 %;
 - overlays: the array before encoding equal, bit for bit, to what
   cv2.circle draws in the JAX writer's order; the two JPEGs, each decoded by
   cv2, at >= 35 dB of each other;
 - write_jpeg: a baseline (SOF0) file that cv2 decodes to >= 40 dB of its
   source at quality 95;
 - the match figure: shape (max h, w1 + w2), each half equal to its input
-  away from the drawn circles and lines;
+  away from the drawn circles and lines, ink on both circles of every match;
 - figure_{i}.png and ray_plot_{count}.png against figures built with the
   JAX code's own matplotlib calls: the same shape, each panel's box within
   2 % of the width and its content at >= 30 dB, the ray fan's ink bounding
-  box within 2 % of the width.
+  box within 2 % of the width, each tab10 colour's ink centroid within 1 %
+  of the width and its ink within 5 % of JAX's.
 
 Skipped where matplotlib or cv2 is missing (the card's machine has neither).
 """
@@ -174,7 +175,7 @@ def test_topdown_plot(tmp_path):
 # the 3-D plots
 # ---------------------------------------------------------------------------
 
-def _check_3d(ja, ta, cameras):
+def _check_3d(ja, ta, cameras, clouds):
     w = ta.shape[1]
     # colours are located on every other pixel: the limits are 45 and 60 px
     ja, ta = ja[::2, ::2], ta[::2, ::2]
@@ -183,23 +184,26 @@ def _check_3d(ja, ta, cameras):
         mt = _tint_mask(ta, colour, t_min=0.9, tol=12)
         d = np.linalg.norm(_centroid(mt, 2) - _centroid(mj, 2))
         assert d <= 0.015 * w, (colour, d)
-    bj = _bbox(_tint_mask(ja, "blue", tol=20), 2)
-    bt = _bbox(_tint_mask(ta, "blue", tol=20), 2)
-    assert np.abs(bt - bj).max() <= 0.02 * w, (bt, bj)
+    # each point series' ink bounding box (its tints over white)
+    for colour in clouds:
+        bj = _bbox(_tint_mask(ja, colour, tol=20), 2)
+        bt = _bbox(_tint_mask(ta, colour, tol=20), 2)
+        assert np.abs(bt - bj).max() <= 0.02 * w, (colour, bt, bj)
 
 
 def test_3d_points_plot(tmp_path):
     _, X, X_opt, C = _two_view()
     [(ja, ta)] = _write_both(tmp_path, "save_3d_points_plot", X, C, X_opt)
     assert ta.shape == (2400, 3000, 3)
-    _check_3d(ja, ta, ["green", "purple"])
+    # blue: 'Linear Triangulation', red: 'Non-Linear Optimization'
+    _check_3d(ja, ta, ["green", "purple"], ["blue", "red"])
 
 
 def test_reconstruction_plot(tmp_path):
     X, cams = _ring()
     [(ja, ta)] = _write_both(tmp_path, "save_reconstruction_plot", X, cams)
     assert ta.shape == (2400, 3000, 3)
-    _check_3d(ja, ta, [f"C{i}" for i in cams])
+    _check_3d(ja, ta, [f"C{i}" for i in cams], ["blue"])
 
 
 @pytest.mark.parametrize("writer,args,name,shape", [
@@ -331,6 +335,11 @@ def test_match_visualization(tmp_path):
                       np.minimum(np.abs(np.linalg.norm(px[:, None] - a[None], axis=-1) - 3).min(1),
                                  np.abs(np.linalg.norm(px[:, None] - b[None], axis=-1) - 3).min(1)))
     assert len(px) > 0 and near.max() <= 2.5, near.max()
+    # every match is drawn: ink on the radius-3 circle (within 1 px) around
+    # each of its two keypoints
+    for kp in (a, b):
+        ring = np.abs(np.linalg.norm(px[:, None] - kp[None], axis=-1) - 3) <= 1
+        assert ring.any(0).all(), np.flatnonzero(~ring.any(0))
 
 
 # ---------------------------------------------------------------------------
@@ -446,6 +455,15 @@ def test_plot_rays(ray_setup):
     # the fan: the saturated pixels (panes, grid and text are grey)
     fan_r, fan_g = _bbox(ref.std(-1) > 30), _bbox(got.std(-1) > 30)
     assert np.abs(fan_g - fan_r).max() <= 0.02 * 1200, (fan_g, fan_r)
+    # the segments cycle through tab10 (200 rays, 20 a colour): each colour's
+    # ink centroid within 1 % of the width, its ink within 5 % of JAX's (one
+    # segment of 20 is ~5 %)
+    for colour in [f"C{i}" for i in range(10)]:
+        mr = _tint_mask(ref, colour, t_min=0.6, tol=25)
+        mg = _tint_mask(got, colour, t_min=0.6, tol=25)
+        d = np.linalg.norm(_centroid(mg) - _centroid(mr))
+        assert d <= 0.01 * 1200, (colour, d)
+        assert abs(int(mg.sum()) - int(mr.sum())) <= 0.05 * mr.sum(), (colour, mg.sum(), mr.sum())
 
 
 def test_no_plot_rays_writes_no_ray_plot(ray_setup):
