@@ -1,0 +1,14 @@
+"""mfu.serve: the views' least operations (one forward of every ray x
+sample, counts.py) over the device's own span of the traced slice (its
+first kernel or copy's start to its last one's end, from the trace), against
+the card's dense bf16 peak, in %."""
+
+from benchmark import counts
+
+SPANS = []
+
+
+def read(view):
+    if view.units == 0 or view.span_s <= 0:
+        return None
+    return 100.0 * view.units * view.unit_flops / view.span_s / counts.PEAK_BF16
