@@ -1537,6 +1537,7 @@ def main():
     from sfm_nerf_tpu_torch.train.nerf_trainer import (
         make_render_image, make_render_image_aux,
     )
+    from sfm_nerf_tpu_torch.utils import profiling
     from sfm_nerf_tpu_torch.utils.metrics import psnr, ssim
 
     if not torch.cuda.is_available():
@@ -1609,13 +1610,13 @@ def main():
         return compare(name, rgb, fr.fused_render_rays_reference(*args))
 
     def split_times(run):
-        """One more call of a split-step wrapper with its launches timed: ms
-        per launch class (forward, reverse, gradient, reduction)."""
-        ft.time_launches(True)
-        run()
-        times = ft.launch_times()
-        ft.time_launches(False)
-        return {k: round(v, 3) for k, v in times.items()}
+        """One more call of a split-step wrapper with its spans recorded:
+        device ms per launch class (k2.stash, k2.walk, k2.gemm, k2.reduce)."""
+        with profiling.recording():
+            run()
+        torch.cuda.synchronize()
+        spans = profiling.summary()["spans"]
+        return {k: round(v["device_ms"], 3) for k, v in spans.items() if k.startswith("k2.")}
 
     def grads_cmp(name, packed_, got, ref, f64, tc=None):
         """A kernel's (gw, gb) against the plain version's, per parameter

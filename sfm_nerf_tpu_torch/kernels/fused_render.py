@@ -40,6 +40,7 @@ from sfm_nerf_tpu_torch.config import NeRFModelConfig, RenderConfig
 from sfm_nerf_tpu_torch.models.nerf import NeRF, layer_shapes
 from sfm_nerf_tpu_torch.ops.encoding import positional_encoding, trig_constants
 from sfm_nerf_tpu_torch.ops.render import sample_dists
+from sfm_nerf_tpu_torch.utils.profiling import count, span
 
 CHUNK = 128          # sample points per chunk of the plain version and the training kernels
 REF_RAY_CHUNK = 1024  # rays per step of the plain version (bounds its memory)
@@ -310,7 +311,10 @@ def render_tile_image(packed: PackedNeRF) -> torch.Tensor:
     the packing's device; built once per PackedNeRF."""
     if "image" not in packed.tile_cache:
         plan = render_plan(packed)
-        idx = torch.from_numpy(_image_index(packed, plan)).to(packed.weights.device)
+        host = _image_index(packed, plan)
+        count("upload_bytes", host.nbytes)
+        with span("upload.tile_index"):
+            idx = torch.from_numpy(host).to(packed.weights.device)
         src = torch.cat([packed.weights, packed.weights.new_zeros(1)])
         packed.tile_cache["image"] = src[torch.where(idx < 0, src.numel() - 1, idx)].contiguous()
     return packed.tile_cache["image"]

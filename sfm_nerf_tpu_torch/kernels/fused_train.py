@@ -29,6 +29,9 @@ weight gradient, sum over points of A^T D per layer, a wgmma GEMM over both
 stashes (csrc/grad_gemm.cu); then two fixed-order reductions add the
 group's partials to the grads.  Under g = (rgb - target) * 2 / (3 N) the
 backward of ``fused_render_train`` is the MSE step's launches, bit for bit.
+The step's launch classes are spans of utils/profiling.py: ``k2.stash``
+(1), ``k2.walk`` (2), ``k2.gemm`` (3 and its partials' reduction) and
+``k2.reduce`` (the reverse walk's partials' reduction).
 
 All are ``torch.autograd.Function``s over the parameters of the module the
 weights were packed from (``PackedNeRF.model``): the packed grads go back to
@@ -77,6 +80,7 @@ from sfm_nerf_tpu_torch.kernels.fused_render import (
     render_plan,
 )
 from sfm_nerf_tpu_torch.ops.render import sample_dists
+from sfm_nerf_tpu_torch.utils.profiling import span
 
 IMG_ROWS = 64                   # points per stash record: the render kernel's warpgroup tile
 IMG_BLOCK = IMG_ROWS * TILE_K   # bf16 elements of one 64-row x 64-column stash block
@@ -92,43 +96,10 @@ LAUNCHES: Dict[str, int] = {
     "fused_mse_loss": 0, "fused_mse_loss_weights": 0, "fused_render_train": 0,
     "fused_render_train_backward": 0}
 
-# Per-launch-class times of the split step, recorded only while
-# ``time_launches(True)``: CUDA event pairs by class ('forward', 'reverse',
-# 'gradient', 'reduction'), read (after a synchronize) by launch_times().
-_TIMING = {"on": False, "events": []}
-
 
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-
-
-def time_launches(on: bool) -> None:
-    """Start (and clear) or stop recording the split step's launch times."""
-    _TIMING["on"] = on
-    _TIMING["events"] = []
-
-
-def launch_times() -> Dict[str, float]:
-    """ms per launch class summed over the launches recorded since
-    time_launches(True); synchronizes the device."""
-    if _TIMING["events"]:
-        torch.cuda.synchronize()
-    out: Dict[str, float] = {}
-    for cls, e0, e1 in _TIMING["events"]:
-        out[cls] = out.get(cls, 0.0) + e0.elapsed_time(e1)
-    return out
-
-
-def _timed(cls: str, fn):
-    if not _TIMING["on"]:
-        return fn()
-    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    e0.record()
-    out = fn()
-    e1.record()
-    _TIMING["events"].append((cls, e0, e1))
-    return out
 
 
 def _check(rcfg: RenderConfig) -> None:
@@ -834,9 +805,10 @@ def _weight_grad(packed: PackedNeRF, act, cot, n_rec: int, gw) -> None:
     ``act`` and ``cot`` and the fixed-order reduction that adds its partials
     to ``gw`` (float32, the packed weights' layout first; rgb1's direction
     rows get nothing)."""
-    part = _gemm_partials(packed, n_rec, act.device)
-    _timed("gradient", lambda: _gemm_launch(packed, act, cot, n_rec, part))
-    _timed("reduction", lambda: _reduce_add(part, part.shape[0], part.shape[1], gw, gw))
+    with span("k2.gemm"):
+        part = _gemm_partials(packed, n_rec, act.device)
+        _gemm_launch(packed, act, cot, n_rec, part)
+        _reduce_add(part, part.shape[0], part.shape[1], gw, gw)
 
 
 def _scratch(shape, dtype, device) -> torch.Tensor:
@@ -855,11 +827,12 @@ def _split_forward(packed: PackedNeRF, rcfg: RenderConfig, o, d, z, rgb, w, tb, 
     ip, fp, _fp_keep = _fr._render_kernel_args(packed, rcfg)
     image = _fr.render_tile_image(packed)
     stream = torch.cuda.current_stream(o.device).cuda_stream
-    _raise(lib, _timed("forward", lambda: lib.sfm_fused_render_stash(
-        o.data_ptr(), d.data_ptr(), z.data_ptr(), n, S, image.data_ptr(),
-        packed.biases.data_ptr(), ctypes.cast(ip, ctypes.c_void_p), fp, rgb.data_ptr(),
-        _ptr(w), int(w is not None), act.data_ptr(), pt.data_ptr(), tb.data_ptr(), stream)),
-        "split-step forward sweep")
+    with span("k2.stash"):
+        err = lib.sfm_fused_render_stash(
+            o.data_ptr(), d.data_ptr(), z.data_ptr(), n, S, image.data_ptr(),
+            packed.biases.data_ptr(), ctypes.cast(ip, ctypes.c_void_p), fp, rgb.data_ptr(),
+            _ptr(w), int(w is not None), act.data_ptr(), pt.data_ptr(), tb.data_ptr(), stream)
+    _raise(lib, err, "split-step forward sweep")
 
 
 def _split_backward(packed: PackedNeRF, rcfg: RenderConfig, o, d, z, t, rgb, tb, act, pt,
@@ -884,16 +857,19 @@ def _split_backward(packed: PackedNeRF, rcfg: RenderConfig, o, d, z, t, rgb, tb,
     lay_ints = (ctypes.c_int * (4 + len(packed.layers)))(*lay.ints())
     mse = g is None
     stream = torch.cuda.current_stream(dev).cuda_stream
-    _raise(lib, _timed("reverse", lambda: lib.sfm_reverse_walk(
-        d.data_ptr(), z.data_ptr(), rgb.data_ptr() if mse else None,
-        t.data_ptr() if mse else None, None if mse else g.data_ptr(), gscale, n, S,
-        packed.weights.data_ptr(), ctypes.cast(ip, ctypes.c_void_p), fp, tb.data_ptr(),
-        act.data_ptr(), pt.data_ptr(), cot.data_ptr(), ctypes.cast(lay_ints, ctypes.c_void_p),
-        rev_part.data_ptr(), n_blocks, dir_n + n_b, stream)),
-        "split-step reverse walk")
+    with span("k2.walk"):
+        err = lib.sfm_reverse_walk(
+            d.data_ptr(), z.data_ptr(), rgb.data_ptr() if mse else None,
+            t.data_ptr() if mse else None, None if mse else g.data_ptr(), gscale, n, S,
+            packed.weights.data_ptr(), ctypes.cast(ip, ctypes.c_void_p), fp, tb.data_ptr(),
+            act.data_ptr(), pt.data_ptr(), cot.data_ptr(),
+            ctypes.cast(lay_ints, ctypes.c_void_p), rev_part.data_ptr(), n_blocks,
+            dir_n + n_b, stream)
+    _raise(lib, err, "split-step reverse walk")
     _weight_grad(packed, act, cot, n_rec, grads)
-    _timed("reduction", lambda: _reduce_add(
-        rev_part, n_blocks, dir_n, grads[rgb1.w_off + packed.hidden * rgb1.n:], grads[n_w:]))
+    with span("k2.reduce"):
+        _reduce_add(rev_part, n_blocks, dir_n, grads[rgb1.w_off + packed.hidden * rgb1.n:],
+                    grads[n_w:])
 
 
 def _split_step(packed: PackedNeRF, origins, directions, z_vals, target, rcfg: RenderConfig,
@@ -1044,10 +1020,10 @@ def fused_render_train_forward(packed: PackedNeRF, origins, directions, z_vals,
     image = _fr.render_tile_image(packed)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        _raise(lib, _timed("forward", lambda: lib.sfm_fused_render_tb(
+        _raise(lib, lib.sfm_fused_render_tb(
             o.data_ptr(), d.data_ptr(), z.data_ptr(), n, S, image.data_ptr(),
             packed.biases.data_ptr(), ctypes.cast(ip, ctypes.c_void_p), fp, rgb.data_ptr(),
-            tb.data_ptr(), stream)), "fused_render_train forward")
+            tb.data_ptr(), stream), "fused_render_train forward")
     LAUNCHES["fused_render_train"] += 1
     return rgb, tb
 

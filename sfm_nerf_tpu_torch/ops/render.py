@@ -30,6 +30,7 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from sfm_nerf_tpu_torch.config import RenderConfig
+from sfm_nerf_tpu_torch.utils.profiling import count, span
 
 ModelFn = Callable[[torch.Tensor, torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
 
@@ -210,7 +211,9 @@ def sample_pdf(
         u = (slots + u.to(dev, cdf.dtype)) / n_importance
     else:
         # stop * (i / (NI - 1)): the arithmetic of jnp.linspace from 0
-        top = torch.tensor(1.0 - 1e-5, dtype=cdf.dtype, device=dev)
+        count("upload_bytes", cdf.element_size())
+        with span("upload.pdf_top"):
+            top = torch.tensor(1.0 - 1e-5, dtype=cdf.dtype, device=dev)
         u = (top * (slots / max(n_importance - 1, 1)))[None, :].expand(n, n_importance)
     u = u.contiguous()
     # bins aligned to the cdf's length: cut, or the last edge repeated

@@ -80,6 +80,11 @@ in torch, then the fine pass over the union through
 ``fused_render_rays`` (the same rgb, no weights written) when not.
 
 Nothing catches a kernel error and carries on down the other path.
+
+While recording is on (utils/profiling.py), a step records the span
+``train.step`` around ``train.sample``, ``train.pack``, ``train.loss``,
+``train.backward`` and ``train.optimizer``, in the order they run; a view
+of ``make_render_image`` records ``render.view`` around ``render.rays``.
 """
 
 from __future__ import annotations
@@ -114,6 +119,7 @@ from sfm_nerf_tpu_torch.ops.render import (
 )
 from sfm_nerf_tpu_torch.train import checkpoint as ckpt_lib
 from sfm_nerf_tpu_torch.utils.metrics import mse as host_mse
+from sfm_nerf_tpu_torch.utils.profiling import span
 
 
 class UpdateGuard:
@@ -197,7 +203,8 @@ def _fused_hierarchical_render(packed_c, packed_f, o, d, rcfg, generator, want_w
     fused pass over the union, with _hierarchical_body's sampling (interior
     bin weights, stratified importance draws, sorted union).  Returns
     (rgb_fine (N, 3), weights_fine (N, S+I) or None, z_all (N, S+I))."""
-    z_c = stratified_samples(o.shape[0], rcfg, generator, o.device)
+    with span("render.rays"):
+        z_c = stratified_samples(o.shape[0], rcfg, generator, o.device)
     _, w_c = fused_render_rays_weights(packed_c, o, d, z_c, rcfg)
     mids = 0.5 * (z_c[..., 1:] + z_c[..., :-1])
     z_fine = sample_pdf(mids, w_c[..., 1:-1], rcfg.n_importance, generator)
@@ -236,7 +243,8 @@ def make_render_rays(cfg: NeRFPipelineConfig):
             return _fused_hierarchical_render(
                 packed_c(model.coarse), packed(model.fine), o, d, rcfg, generator, False)[0]
         if fused:
-            z = stratified_samples(o.shape[0], rcfg, generator, o.device)
+            with span("render.rays"):
+                z = stratified_samples(o.shape[0], rcfg, generator, o.device)
             return fused_render_rays(packed(model), o, d, z, rcfg)
         if hier:
             return render_rays_hierarchical_chunked(
@@ -255,8 +263,10 @@ def make_render_image(cfg: NeRFPipelineConfig):
 
     def render_image(model, K, pose: torch.Tensor, height: int, width: int,
                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        o, d = image_rays(K, pose, height, width)
-        return render_rays_of(model, o, d, generator).reshape(height, width, 3)
+        with span("render.view"):
+            with span("render.rays"):
+                o, d = image_rays(K, pose, height, width)
+            return render_rays_of(model, o, d, generator).reshape(height, width, 3)
 
     return render_image
 
@@ -371,14 +381,18 @@ def make_loss_fn(cfg: NeRFPipelineConfig, n_rays: Optional[int] = None):
 
     def loss_fn(model, generator, images, poses, K, draws=None, u=None, u_pdf=None):
         _check_model(cfg, model)
-        o, d, target = sample_ray_batch(images, poses, K, n_rays, generator, draws)
+        with span("train.sample"):
+            o, d, target = sample_ray_batch(images, poses, K, n_rays, generator, draws)
+            if fused or n_imp == 0:
+                z = stratified_samples(n_rays, rcfg, generator, o.device, u)
         if not fused and n_imp > 0:
-            rgb_f, rgb_c = render_rays_hierarchical(
-                net(model.coarse), net(model.fine), o, d, rcfg, n_imp, generator, u, u_pdf)
-            return _mse(rgb_f, target) + _mse(rgb_c, target)
-        z = stratified_samples(n_rays, rcfg, generator, o.device, u)
+            with span("train.loss"):
+                rgb_f, rgb_c = render_rays_hierarchical(
+                    net(model.coarse), net(model.fine), o, d, rcfg, n_imp, generator, u, u_pdf)
+                return _mse(rgb_f, target) + _mse(rgb_c, target)
         if not fused:
-            return _mse(render_rays(net(model), o, d, rcfg, z_vals=z), target)
+            with span("train.loss"):
+                return _mse(render_rays(net(model), o, d, rcfg, z_vals=z), target)
         # the CUDA kernels take bf16-packed weights; the plain version on the
         # CPU packs in float32 unless compute_dtype asks for bf16
         bf16 = o.device.type == "cuda" or cfg.train.compute_dtype == "bfloat16"
@@ -386,18 +400,25 @@ def make_loss_fn(cfg: NeRFPipelineConfig, n_rays: Optional[int] = None):
         if n_imp > 0:
             # the coarse step kernel emits the weight histogram; importance
             # sampling and the sort run in torch between the two launches
-            loss_c, weights = fused_mse_loss_weights(
-                pack_nerf_params(model.coarse, mcfg, pdt), o, d, z, target, rcfg)
-            mids = 0.5 * (z[..., 1:] + z[..., :-1])
-            z_fine = sample_pdf(mids, weights[..., 1:-1], n_imp, generator, u_pdf)
-            z_all = merge_sorted(z, z_fine)
-            loss_f = fused_mse_loss(
-                pack_nerf_params(model.fine, mcfg, pdt), o, d, z_all, target, rcfg)
+            with span("train.pack"):
+                packed_c = pack_nerf_params(model.coarse, mcfg, pdt)
+            with span("train.loss"):
+                loss_c, weights = fused_mse_loss_weights(packed_c, o, d, z, target, rcfg)
+            with span("train.sample"):
+                mids = 0.5 * (z[..., 1:] + z[..., :-1])
+                z_fine = sample_pdf(mids, weights[..., 1:-1], n_imp, generator, u_pdf)
+                z_all = merge_sorted(z, z_fine)
+            with span("train.pack"):
+                packed_f = pack_nerf_params(model.fine, mcfg, pdt)
+            with span("train.loss"):
+                loss_f = fused_mse_loss(packed_f, o, d, z_all, target, rcfg)
             return loss_f + loss_c
-        packed = pack_nerf_params(model, mcfg, pdt)
-        if rcfg.fused_merged_step:
-            return fused_mse_loss(packed, o, d, z, target, rcfg)
-        return _mse(fused_render_train(packed, o, d, z, rcfg), target)
+        with span("train.pack"):
+            packed = pack_nerf_params(model, mcfg, pdt)
+        with span("train.loss"):
+            if rcfg.fused_merged_step:
+                return fused_mse_loss(packed, o, d, z, target, rcfg)
+            return _mse(fused_render_train(packed, o, d, z, rcfg), target)
 
     return loss_fn
 
@@ -411,13 +432,16 @@ def make_train_step(cfg: NeRFPipelineConfig, optimizer, scheduler,
     guard = guard or UpdateGuard()
 
     def train_step(model, generator, images, poses, K) -> torch.Tensor:
-        optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(model, generator, images, poses, K)
-        loss.backward()
-        guard.hold()
-        optimizer.step()
-        scheduler.step()
-        return loss.detach()
+        with span("train.step"):
+            optimizer.zero_grad(set_to_none=True)
+            loss = loss_fn(model, generator, images, poses, K)
+            with span("train.backward"):
+                loss.backward()
+            guard.hold()
+            with span("train.optimizer"):
+                optimizer.step()
+                scheduler.step()
+            return loss.detach()
 
     return train_step
 

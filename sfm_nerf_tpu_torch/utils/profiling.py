@@ -1,16 +1,36 @@
 """Profiling and tracing hooks, the counterpart of
 sfm_nerf_tpu/utils/profiling.py: a trace of arbitrary code, a step timer
 that keeps the first (building, warming) call apart from steady state,
-device memory telemetry, and ``profile_summary``, which reads a trace into
-the device's busy and idle share and its kernels by time.
+device memory telemetry, ``profile_summary``, which reads a trace into
+the device's busy and idle share and its kernels by time, and the
+program's own spans and counters.
+
+Spans and counters.  ``span(name)`` marks a stretch of the program (a
+training step, one launch class of a kernel, an upload) and ``count(name,
+n)`` adds to a named counter.  Both record only while recording is on:
+while a ``torch.profiler`` profile is active (so ``trace`` and any other
+profile of the program turn it on) or inside ``recording()``.  A span then
+opens a ``record_function`` range named ``sfm:<name>``, on the profiler's
+timeline beside the device's kernels and copies; takes the device time of
+the work it queued, by a pair of CUDA events on the current stream (the
+host clock where no card is visible); and keeps in memory its name, host
+start and end, its parent and the root span it belongs to (``train.step``
+n, ``render.view`` n).  The record holds the latest recording window: it
+is cleared when a span or counter first finds recording on after finding
+it off, and when ``recording()`` is entered.  ``summary()`` reads it, after
+the caller has synchronized the device.  Off, a span costs one test of
+the profiler's flag and returns a shared no-op context: no range, no
+event, no allocation, no synchronize.  Spans are recorded from the thread
+that drives the work.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import os
 import time
-from typing import Dict, Iterator, List, Optional
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -158,3 +178,163 @@ def profile_summary(prof, top: int = 10) -> dict:
         "top_kernels": [{"name": name, "launches": n, "ms": us / 1e3}
                         for name, (n, us) in ranked],
     }
+
+
+# ---------------------------------------------------------------------------
+# spans and counters inside the program
+# ---------------------------------------------------------------------------
+
+_profiler_enabled = torch.autograd._profiler_enabled
+_OFF = contextlib.nullcontext()
+
+
+@dataclasses.dataclass
+class SpanRecord:
+    """One span of the recording window."""
+    name: str
+    parent: Optional[int]           # index of the enclosing span in the window's record
+    root: Tuple[str, int]           # the root span's name and its index among that name's roots
+    start_ns: int                   # host clock (perf_counter_ns)
+    end_ns: int = 0                 # 0 while the span is open
+    events: Optional[tuple] = None  # (start, end) CUDA events where a card is visible
+
+
+class _Window:
+    """The latest recording window: the spans in the order they opened,
+    the counters, the spans open now and the roots of each name."""
+
+    def __init__(self):
+        self.forced = 0       # depth of recording() blocks
+        self.live = False     # recording was found on since it was last found off
+        self.spans: List[SpanRecord] = []
+        self.counters: Dict[str, int] = {}
+        self.open: List[int] = []
+        self.roots: Dict[str, int] = {}
+        self.cuda = False
+
+    def begin(self) -> None:
+        self.spans, self.counters, self.open, self.roots = [], {}, [], {}
+        self.cuda = torch.cuda.is_available()
+        self.live = True
+
+
+_WINDOW = _Window()
+
+
+class _Span:
+    __slots__ = ("name", "rec", "spans", "rf")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        w = _WINDOW
+        if not w.live:
+            w.begin()
+        parent = w.open[-1] if w.open else None
+        if parent is None:
+            n = w.roots.get(self.name, 0)
+            w.roots[self.name] = n + 1
+            root = (self.name, n)
+        else:
+            root = w.spans[parent].root
+        self.rf = torch.profiler.record_function("sfm:" + self.name)
+        self.rf.__enter__()
+        rec = SpanRecord(self.name, parent, root, time.perf_counter_ns())
+        if w.cuda:
+            rec.events = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            rec.events[0].record()
+        self.rec, self.spans = rec, w.spans
+        w.open.append(len(w.spans))
+        w.spans.append(rec)
+        return self
+
+    def __exit__(self, *exc):
+        rec = self.rec
+        if rec.events is not None:
+            rec.events[1].record()
+        rec.end_ns = time.perf_counter_ns()
+        self.rf.__exit__(*exc)
+        w = _WINDOW
+        if w.spans is self.spans and w.open:
+            w.open.pop()
+        return False
+
+
+def span(name: str):
+    """A context manager that records the block as span ``name`` while
+    recording is on, and does nothing otherwise."""
+    w = _WINDOW
+    if not (w.forced or _profiler_enabled()):
+        w.live = False
+        return _OFF
+    return _Span(name)
+
+
+def count(name: str, n: int) -> None:
+    """Adds ``n`` to the counter ``name`` while recording is on."""
+    w = _WINDOW
+    if not (w.forced or _profiler_enabled()):
+        w.live = False
+        return
+    if not w.live:
+        w.begin()
+    w.counters[name] = w.counters.get(name, 0) + n
+
+
+@contextlib.contextmanager
+def recording() -> Iterator[None]:
+    """Records spans and counters inside the block, with or without a
+    profiler; the record is cleared on entry and kept after the block."""
+    w = _WINDOW
+    w.begin()
+    w.forced += 1
+    try:
+        yield
+    finally:
+        w.forced -= 1
+        w.live = False
+
+
+def records() -> List[SpanRecord]:
+    """The closed spans of the latest recording window, in the order they
+    opened."""
+    return [r for r in _WINDOW.spans if r.end_ns]
+
+
+def summary() -> Dict[str, Dict]:
+    """The latest recording window: ``spans``, by name, ``calls``,
+    ``host_ms``, ``self_host_ms`` (the spans less their children's host
+    time), ``device_ms`` (the work they queued, or the host clock where no
+    card is visible) and ``roots`` (how many root spans they ran under);
+    ``counters`` by name.  Call it after synchronizing the device: it
+    raises where a recorded event has not completed, and never waits."""
+    spans = _WINDOW.spans
+    child_ns = [0] * len(spans)
+    for r in spans:
+        if r.end_ns and r.parent is not None:
+            child_ns[r.parent] += r.end_ns - r.start_ns
+    out: Dict[str, Dict] = {}
+    roots: Dict[str, set] = {}
+    for i, r in enumerate(spans):
+        if not r.end_ns:
+            continue
+        host_ns = r.end_ns - r.start_ns
+        if r.events is None:
+            device_ms = host_ns / 1e6
+        elif not r.events[1].query():
+            raise RuntimeError(f"span {r.name}: the device has not finished its work; "
+                               "synchronize before summary()")
+        else:
+            device_ms = r.events[0].elapsed_time(r.events[1])
+        row = out.setdefault(r.name, {"calls": 0, "host_ms": 0.0, "self_host_ms": 0.0,
+                                      "device_ms": 0.0, "roots": 0})
+        row["calls"] += 1
+        row["host_ms"] += host_ns / 1e6
+        row["self_host_ms"] += (host_ns - child_ns[i]) / 1e6
+        row["device_ms"] += device_ms
+        roots.setdefault(r.name, set()).add(r.root)
+    for name, row in out.items():
+        row["roots"] = len(roots[name])
+    return {"spans": out, "counters": dict(_WINDOW.counters)}
