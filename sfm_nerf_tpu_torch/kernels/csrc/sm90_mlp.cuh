@@ -13,7 +13,9 @@
 //   n columns, stored as n rows of 64 k-values (128 bytes), swizzled the
 //   same way.  The host lays every tile out once (kernels/fused_render.py,
 //   `render_plan` / `render_tile_image`), so the producer moves a tile with
-//   one cp.async.bulk and no tensor map.
+//   one cp.async.bulk and no tensor map.  Read MN-major (desc_sw128_mn), a
+//   tile's rows are W^T's: the reverse walk (fused_train.cu) multiplies by
+//   W^T from the same image.
 //
 // A plan lists the products of one chunk in order (passes), each as its
 // tiles in order; every chunk walks the same tiles, so the producer warp
@@ -247,6 +249,16 @@ __device__ __forceinline__ void stmatrix_x4(uint32_t addr, uint32_t r0, uint32_t
                : "memory");
 }
 
+// the inverse of stmatrix_x4: the same four 8x8 tiles, from the same lane
+// addresses, into the same registers
+__device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t& r0, uint32_t& r1, uint32_t& r2,
+                                            uint32_t& r3) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(addr)
+               : "memory");
+}
+
 // bf16x2 of (relu(a), relu(b)), a in the low half: one instruction
 __device__ __forceinline__ uint32_t relu_bf16x2(float a, float b) {
   uint32_t v;
@@ -290,8 +302,9 @@ __device__ __forceinline__ uint64_t desc_sw128_mn(uint32_t addr, uint32_t mn_str
 // bf16 in shared memory.  Thread t of the warpgroup holds rows
 // 16 (t / 32) + (t % 32) / 4 (+ 8) and columns 8 j + 2 (t % 4) (+ 1):
 // d[4j], d[4j+1] on the first row, d[4j+2], d[4j+3] on the second.
-// TRANS = 1 reads both operands MN-major (desc_sw128_mn), 0 K-major.
-template <int N, int TRANS = 0>
+// TRANS_A / TRANS_B = 1 reads that operand MN-major (desc_sw128_mn), 0
+// K-major.
+template <int N, int TRANS_A = 0, int TRANS_B = TRANS_A>
 struct Wgmma;
 
 template <>
@@ -308,8 +321,26 @@ struct Wgmma<16> {
   }
 };
 
-template <>
-struct Wgmma<128> {
+template <int TA, int TB>
+struct Wgmma<64, TA, TB> {
+  static __device__ __forceinline__ void mma(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+        :
+          "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+  }
+};
+
+template <int TA, int TB>
+struct Wgmma<128, TA, TB> {
   static __device__ __forceinline__ void mma(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
@@ -318,7 +349,7 @@ struct Wgmma<128> {
         "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
         "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
         "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
         :
           "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
@@ -328,12 +359,12 @@ struct Wgmma<128> {
           "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
           "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
           "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(da), "l"(db), "r"(scale_d));
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
   }
 };
 
-template <int TRANS>
-struct Wgmma<256, TRANS> {
+template <int TA, int TB>
+struct Wgmma<256, TA, TB> {
   static __device__ __forceinline__ void mma(float (&d)[128], uint64_t da, uint64_t db, int scale_d) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
@@ -346,7 +377,7 @@ struct Wgmma<256, TRANS> {
         "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
         "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
         "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-        "}, %128, %129, p, 1, 1, %131, %131;\n}\n"
+        "}, %128, %129, p, 1, 1, %131, %132;\n}\n"
         :
           "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
@@ -364,7 +395,7 @@ struct Wgmma<256, TRANS> {
           "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
           "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
           "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-        : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS));
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
   }
 };
 

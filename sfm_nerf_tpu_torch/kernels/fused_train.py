@@ -24,7 +24,8 @@ layer input, the per-point density and colours and tb to a stash
 (``stash_layout``); (2) the reverse walk (csrc/fused_train.cu), which
 makes the cotangent (the MSE's from rgb and the target, or takes the
 caller's g), writes every layer's output cotangent to a second stash and
-keeps the bias and direction-row grads in per-block partials; (3) the
+keeps the bias and direction-row grads in per-warpgroup partials (its
+products read the render tile image's weights as W^T, ``walk_plan``); (3) the
 weight gradient, sum over points of A^T D per layer, a wgmma GEMM over both
 stashes (csrc/grad_gemm.cu); then two fixed-order reductions add the
 group's partials to the grads.  Under g = (rgb - target) * 2 / (3 N) the
@@ -89,6 +90,9 @@ IMG_BLOCK = IMG_ROWS * TILE_K   # bf16 elements of one 64-row x 64-column stash 
 # 3.0 GB at 1,024 x 256 samples.  Rounds run in ray order and their partial
 # grads are summed in that order, so the grads do not depend on timing.
 RAY_GROUP = 1024
+# weight columns per ring slot of the reverse walk: a slot of 4 x WALK_KC x
+# 128 bytes at hidden 256
+WALK_KC = 32
 _GEMM_TASK_INTS = 13            # grad_gemm.cu Task
 _GEMM_MAX_TASKS = 64
 
@@ -758,6 +762,60 @@ def gemm_tasks(packed: PackedNeRF) -> List[List[int]]:
     return tasks
 
 
+@dataclasses.dataclass(frozen=True)
+class WalkStage:
+    """One ring slot of the reverse walk: columns [k0, k0 + kc) of packed
+    layer ``layer``'s weight (kc a multiple of 16, at most TILE_K) for every
+    64-row tile of the rows the walk multiplies, read from the render tile
+    image as they are.  A tile of the image holds its weight columns as rows
+    of 64 weight-row values (render_plan), so piece p, rows [k0 - col0,
+    k0 - col0 + kc) of the layer's p-th tile at element ``offs[p]``, is the
+    MN-major (desc_sw128_mn) image of W^T rows [k0, k0 + kc) x columns
+    [64 p, 64 p + 64)."""
+    layer: int
+    k0: int
+    kc: int
+    offs: Tuple[int, ...]
+
+
+def walk_plan(packed: PackedNeRF) -> Tuple[WalkStage, ...]:
+    """The reverse walk's weight stages in the order it multiplies them:
+    layers from the last to the second (fc1 passes no cotangent on), each
+    as its output columns in steps of WALK_KC, the density/feature head's
+    feature columns before its density columns.  The rows are the ones the
+    cotangent reaches: the previous layer's output (the skip layer's
+    encoding rows and rgb1's direction rows are left out)."""
+    plan = render_plan(packed)
+    stages = []
+    for li in range(len(packed.layers) - 1, 0, -1):
+        name = packed.layers[li].name
+        passes = sorted((p for p in plan.passes if p.layer == name), key=lambda p: p.tiles[0].col0)
+        for p in passes:
+            tiles = [t for t in p.tiles if t.src == "act"]
+            for c0 in range(0, p.n, WALK_KC):
+                stages.append(WalkStage(li, tiles[0].col0 + c0, min(WALK_KC, p.n - c0),
+                                        tuple(t.off + c0 * TILE_K for t in tiles)))
+    return tuple(stages)
+
+
+_WALK_INTS: Dict[tuple, ctypes.Array] = {}
+
+
+def _walk_ints(packed: PackedNeRF) -> ctypes.Array:
+    """The reverse walk's layout argument (fused_train.cu parse_walk):
+    StashLayout.ints(), the stage count, then (layer, k0, kc, pieces,
+    4 piece offsets) per stage; cached per layout."""
+    key = (packed.layers, packed.hidden, packed.pos_pad, packed.dir_dim)
+    if key not in _WALK_INTS:
+        ints = stash_layout(packed).ints()
+        stages = walk_plan(packed)
+        ints.append(len(stages))
+        for s in stages:
+            ints += [s.layer, s.k0, s.kc, len(s.offs), *s.offs, *[0] * (4 - len(s.offs))]
+        _WALK_INTS[key] = (ctypes.c_int * len(ints))(*ints)
+    return _WALK_INTS[key]
+
+
 def _gemm_partials(packed: PackedNeRF, n_rec: int, dev) -> torch.Tensor:
     """Zeroed float32 partials of the weight GEMM over ``n_rec`` records:
     one row of the packed weights' length per point slice, as many slices
@@ -848,28 +906,31 @@ def _split_backward(packed: PackedNeRF, rcfg: RenderConfig, o, d, z, t, rgb, tb,
     lay = stash_layout(packed)
     n_w, n_b = packed.weights.numel(), packed.biases.numel()
     dir_n = packed.dir_dim * RGB_HIDDEN
-    n_blocks = min(torch.cuda.get_device_properties(dev).multi_processor_count, n)
+    # a block per SM, two rays at a time (one per consumer warpgroup), a
+    # partial row per warpgroup
+    n_blocks = min(torch.cuda.get_device_properties(dev).multi_processor_count, -(-n // 2))
     cot = _scratch((n_rec, lay.rec_cot), torch.bfloat16, dev)
-    rev_part = torch.zeros(n_blocks, dir_n + n_b, device=dev, dtype=torch.float32)
+    rev_part = torch.zeros(2 * n_blocks, dir_n + n_b, device=dev, dtype=torch.float32)
     rgb1 = {s.name: s for s in packed.layers}["rgb1"]
     lib = _kernel_lib()
     ip, fp, _fp_keep = _kernel_args(packed, rcfg)
-    lay_ints = (ctypes.c_int * (4 + len(packed.layers)))(*lay.ints())
+    walk_ints = _walk_ints(packed)
+    image = _fr.render_tile_image(packed)
     mse = g is None
     stream = torch.cuda.current_stream(dev).cuda_stream
     with span("k2.walk"):
         err = lib.sfm_reverse_walk(
             d.data_ptr(), z.data_ptr(), rgb.data_ptr() if mse else None,
             t.data_ptr() if mse else None, None if mse else g.data_ptr(), gscale, n, S,
-            packed.weights.data_ptr(), ctypes.cast(ip, ctypes.c_void_p), fp, tb.data_ptr(),
+            image.data_ptr(), ctypes.cast(ip, ctypes.c_void_p), fp, tb.data_ptr(),
             act.data_ptr(), pt.data_ptr(), cot.data_ptr(),
-            ctypes.cast(lay_ints, ctypes.c_void_p), rev_part.data_ptr(), n_blocks,
+            ctypes.cast(walk_ints, ctypes.c_void_p), rev_part.data_ptr(), n_blocks,
             dir_n + n_b, stream)
     _raise(lib, err, "split-step reverse walk")
     _weight_grad(packed, act, cot, n_rec, grads)
     with span("k2.reduce"):
-        _reduce_add(rev_part, n_blocks, dir_n, grads[rgb1.w_off + packed.hidden * rgb1.n:],
-                    grads[n_w:])
+        _reduce_add(rev_part, rev_part.shape[0], dir_n,
+                    grads[rgb1.w_off + packed.hidden * rgb1.n:], grads[n_w:])
 
 
 def _split_step(packed: PackedNeRF, origins, directions, z_vals, target, rcfg: RenderConfig,

@@ -27,7 +27,8 @@ SYNTH800 = os.path.join(CKPTS, "synth800", "final_model.ckpt.npz")
 
 def _packed_model(name):
     """bf16 packing on the card of a committed checkpoint ('synth800',
-    'synth800_nope') or of a seeded model ('legacy', 'hidden64')."""
+    'synth800_nope') or of a seeded model ('legacy', 'hidden64',
+    'hidden48', 'legacy48')."""
     from sfm_nerf_tpu_torch.config import NeRFModelConfig
     from sfm_nerf_tpu_torch.models.nerf import NeRF
 
@@ -37,6 +38,7 @@ def _packed_model(name):
         return fr.pack_nerf_params(params_from_jax(params, mcfg, "cuda"), mcfg, torch.bfloat16)
     mcfg = {"legacy": NeRFModelConfig(arch="legacy"),
             "hidden64": NeRFModelConfig(hidden=64, n_pos_freq=6, n_dir_freq=2),
+            "hidden48": NeRFModelConfig(hidden=48, n_pos_freq=5, n_dir_freq=3),
             "legacy48": NeRFModelConfig(arch="legacy", hidden=48, n_pos_freq=5,
                                         n_dir_freq=3)}[name]
     return fr.pack_nerf_params(NeRF(mcfg, device="cuda", seed=1), mcfg, torch.bfloat16)
@@ -311,16 +313,21 @@ def test_weight_grad_gemm_matches_plain_version(model, n_rec):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n_rays,n_sample", [(300, 384), (1024, 256)])
-def test_split_backward_on_the_plain_forward_stash(n_rays, n_sample):
-    """The split step's two halves apart, on the batches of the K4 test.
+@pytest.mark.parametrize("model,n_rays,n_sample", [
+    pytest.param("synth800", 300, 384, id="300-384"),
+    pytest.param("synth800", 1024, 256, id="1024-256"),
+    pytest.param("hidden48", 300, 384, id="hidden48-300-384")])
+def test_split_backward_on_the_plain_forward_stash(model, n_rays, n_sample):
+    """The split step's two halves apart, on the batches of the K4 test
+    and on a hidden-48 net (the walk's narrowest slices, a ragged last ray
+    pair).
 
     Backward: the reverse walk and the weight GEMM on the card, fed the
     plain version's forward (split_forward_reference: its rgb, tb and stash
     in the kernels' layout), give the plain version's grads, and fed the
     card's own forward sweep they give split_backward_reference's float64
     grads on that same stash: every parameter's grad within 1e-3 of the
-    reference's norm both ways.
+    reference's norm both ways; a second run is bit-equal.
 
     Forward: the card's stash against the plain one, layer input by layer
     input: the encoding bit-equal; each layer's outputs within 1e-3 of
@@ -331,7 +338,7 @@ def test_split_backward_on_the_plain_forward_stash(n_rays, n_sample):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
-    packed = _packed_model("synth800")
+    packed = _packed_model(model)
     o, d, z, target = _train_batch(n_rays, n_sample, seed=n_sample + 1)
     rcfg = RenderConfig(n_sample=n_sample)
     gscale = 2.0 / (3.0 * n_rays)
@@ -361,6 +368,9 @@ def test_split_backward_on_the_plain_forward_stash(n_rays, n_sample):
     ref64 = ft.split_backward_reference(packed, d, z, rcfg, krgb.double(), target, ktb.double(),
                                         {"act": act, "pt": pt.double()}, gscale)
     figures["on_own_stash_vs_f64"] = close(grads, [t.float() for t in ref64])
+    again = torch.zeros_like(grads)
+    ft._split_backward(packed, rcfg, o, d, z, target, krgb, ktb, act, pt, gscale, again)
+    assert torch.equal(grads, again)
     lay = ft.stash_layout(packed)
     rows = ft._points(n_rays, n_sample, 0, 0, n_sample, "cuda")
     widths = [("encoding", 0, packed.pos_pad)] + [
@@ -381,7 +391,7 @@ def test_split_backward_on_the_plain_forward_stash(n_rays, n_sample):
     dens_k, dens_p = pt[rows, 0], stash["pt"][rows, 0]
     figures["density_rel_norm"] = (dens_k - dens_p).norm().item() / dens_p.norm().item()
     assert figures["density_rel_norm"] <= 1e-3
-    print(json.dumps({"split_stash_figures": [n_rays, n_sample], **figures}))
+    print(json.dumps({"split_stash_figures": [model, n_rays, n_sample], **figures}))
 
 
 @pytest.mark.gpu

@@ -266,3 +266,62 @@ def test_weight_gemm_plain_version_is_each_layers_product():
     assert bool((cover[dir_rows] == 0).all())
     cover[dir_rows] = 1
     assert bool((cover == 1).all())
+
+
+@pytest.mark.parametrize("mcfg", [
+    dict(arch="active"), dict(arch="legacy", hidden=48, n_pos_freq=5, n_dir_freq=3),
+    dict(arch="active", hidden=32, n_pos_freq=4, n_dir_freq=2),
+    dict(arch="active", hidden=192, pos_encoding=False)], ids=["active", "legacy48", "active32",
+                                                                "active192_nope"])
+def test_walk_plan_reads_back_every_transposed_weight_once(mcfg):
+    """The reverse walk's ring slots (walk_plan), read MN-major from the
+    render tile image as the kernel's wgmma reads them (row kk of a piece:
+    weight column k0 + kk, its 16-byte chunk c at c ^ (kk % 8)), give W^T of
+    every layer but fc1 over the rows the cotangent reaches (the previous
+    output: the skip layer's encoding rows and rgb1's direction rows left
+    out), each element exactly once, zeros past the real rows; the slots run
+    from the last layer to the second, each layer's columns in order;
+    _walk_ints is the stash layout then the slots."""
+    from sfm_nerf_tpu_torch.models.nerf import NeRF
+
+    cfg = NeRFModelConfig(**mcfg)
+    packed = tfr.pack_nerf_params(NeRF(cfg, device="cpu", seed=2), cfg, torch.bfloat16)
+    plan = tfr.render_plan(packed)
+    index = tfr._image_index(packed, plan)
+    image = tfr.render_tile_image(packed)
+    stages = tft.walk_plan(packed)
+    h, nl = packed.hidden, len(packed.layers)
+    assert [s.layer for s in stages] == sorted((s.layer for s in stages), reverse=True)
+    assert {s.layer for s in stages} == set(range(1, nl))
+    cover = np.zeros(packed.weights.numel(), np.int64)
+    for li in range(1, nl):
+        spec = packed.layers[li]
+        rows = tfr.RGB_HIDDEN if spec.kind == "rgb2" else h
+        mine = [s for s in stages if s.layer == li]
+        assert [s.k0 for s in mine] == list(np.cumsum([0] + [s.kc for s in mine[:-1]]))
+        assert sum(s.kc for s in mine) == spec.n
+        wt = torch.zeros(spec.n, 64 * len(mine[0].offs), dtype=packed.weights.dtype)
+        for s in mine:
+            assert s.k0 % 16 == 0 and s.kc % 16 == 0 and s.kc <= tfr.TILE_K
+            assert len(s.offs) == -(-rows // tfr.TILE_K)
+            # the pass's tiles side by side: the kernel takes the first offset and a stride
+            assert s.offs == tuple(s.offs[0] + p * (s.offs[-1] - s.offs[0]) // max(1, len(s.offs) - 1)
+                                   for p in range(len(s.offs)))
+            kk, mm = np.meshgrid(np.arange(s.kc), np.arange(64), indexing="ij")
+            for p, off in enumerate(s.offs):
+                el = off + tfr.swizzle128(kk, mm)
+                want = np.where(64 * p + mm < rows,
+                                spec.w_off + (64 * p + mm) * spec.n + s.k0 + kk, -1)
+                assert np.array_equal(index[el], want), (spec.name, s.k0, p)
+                np.add.at(cover, index[el][index[el] >= 0], 1)
+                wt[s.k0:s.k0 + s.kc, 64 * p:64 * p + 64] = image[torch.from_numpy(el)]
+        assert torch.equal(wt[:, :rows], packed.w(spec)[:rows].t())
+        assert bool((wt[:, rows:] == 0).all())
+    for spec in packed.layers:
+        rows = (0 if spec.kind == "fc1" else tfr.RGB_HIDDEN if spec.kind == "rgb2" else h)
+        block = cover[spec.w_off:spec.w_off + spec.k_rows * spec.n].reshape(spec.k_rows, spec.n)
+        assert (block[:rows] == 1).all() and (block[rows:] == 0).all(), spec.name
+    ints = list(tft._walk_ints(packed))
+    lay = tft.stash_layout(packed).ints()
+    assert ints[:len(lay)] == lay and ints[len(lay)] == len(stages)
+    assert len(ints) == len(lay) + 1 + 8 * len(stages) and len(stages) <= 160
