@@ -61,6 +61,19 @@ training step; hierarchical: 256 coarse + 128 importance samples):
    16,384 rays of a view the hierarchical render route stage by stage
    against the plain route; the full kernel frame against the float32
    nn.Module hierarchical frame; the times of the frame's parts;
+10b. mip: a seeded mip-NeRF network at its published widths (8 x 256, 16 + 4
+   octaves) on one real batch of 8,192 cones x 128 intervals: the cone K4
+   (fused_mse_loss_cones_grads with the weights) over the coarse edges,
+   resample_edges, the cone K2 over the fine edges, each against its plain
+   version (rgb, loss, the weights, every grad tensor) under the grad rule,
+   which the plain version fed bf16-rounded edges, origins and directions
+   (a bf16 encoding's inputs) must fail; K4 against itself, against K2 and
+   against the cone K5 (bit-equal); the autograd wrappers
+   fused_mse_loss_cones(_weights) against the grads they were held by; one
+   make_loss_fn step (one launch of each, ipe_points 2 x rays x
+   intervals); then an 800x800 frame through make_render_image (one cone
+   K5, the resampler, one cone K1), against the float32 nn.Module frame,
+   and the route stage by stage on SUBSET rays against the plain version;
 11. kernels: the render kernel's shared memory, its L2 weight traffic per
    frame by arithmetic and a cuBLAS yardstick for its products; then one
    JSON line with every kernel's launches on its path, its error against
@@ -222,6 +235,14 @@ NOPE_GAIN = 2.0          # the no-PE net's weight scale: plain rgb std 9.1e-2, n
 GIF_LEGACY_FLAGS = ["--orbit", "lookat", "--orbit_elev", "30", "--orbit_target", "0,-0.2,0",
                     "--n_frames", "2"]
 N_IMPORTANCE = 128       # importance samples of the hierarchical phases
+MIP_INTERVALS, MIP_SEED = 128, 19   # the mip phase: intervals a level, network seed
+# the mip phase's grad rule (rel, max), tighter than GRAD_REL_TOL /
+# GRAD_MAX_TOL, which the plain version fed bf16-rounded edges, origins and
+# directions meets over 8,192 rays.  On the card (NVIDIA H100 80GB HBM3,
+# 700 W) the cone K4's worst tensor reads 1.17e-4 / 7.2e-5, the plain
+# version's float32-vs-float64 spread 4.5e-4 / 3.0e-4, and that control
+# 1.83e-2 / 9.2e-3 (fc1.weight): the rule sits near the geometric means
+MIP_GRAD_TOL = (1.5e-3, 1e-3)
 PEAK_BF16 = 989e12       # H100 SXM dense bf16 FLOP/s (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12     # H100 SXM HBM3 bytes/s
 
@@ -1289,7 +1310,7 @@ def run_tool_phases(phase, data, train_flags, state):
             t0 = time.perf_counter()
             frame = render(model, K, pose, H, W).cpu()
             view_host_ms = (time.perf_counter() - t0) * 1e3
-        if dict(fr.LAUNCHES) != {"fused_render_rays": 1, "fused_render_rays_weights": 0}:
+        if dict(fr.LAUNCHES) != {k: int(k == "fused_render_rays") for k in fr.LAUNCHES}:
             raise AssertionError(f"profile: view launches {fr.LAUNCHES}")
         view = prof.profile_summary(p, top=20)
         k1_ms = _named_ms(view, K1_KERNELS)
@@ -1430,7 +1451,7 @@ def run_tool_phases(phase, data, train_flags, state):
                                 "--checkpoint_path", ck, "--images_path",
                                 os.path.join(OUT, "wrapper_test")])
         launches = dict(fr.LAUNCHES)
-        if launches != {"fused_render_rays": WRAPPER_VIEWS, "fused_render_rays_weights": 0} \
+        if launches != {k: WRAPPER_VIEWS * (k == "fused_render_rays") for k in launches} \
                 or len(records) != WRAPPER_VIEWS or not all(np.isfinite(r["mse"]) for r in records):
             raise AssertionError(f"wrapper test: launches {launches}, views {records}")
         emit("wrapper", train={
@@ -1618,10 +1639,10 @@ def main():
         spans = profiling.summary()["spans"]
         return {k: round(v["device_ms"], 3) for k, v in spans.items() if k.startswith("k2.")}
 
-    def grads_cmp(name, packed_, got, ref, f64, tc=None):
+    def grads_cmp(name, packed_, got, ref, f64, tc=None, tol=(GRAD_REL_TOL, GRAD_MAX_TOL)):
         """A kernel's (gw, gb) against the plain version's, per parameter
-        tensor: within GRAD_REL_TOL of the tensor's norm and GRAD_MAX_TOL of
-        its largest value, or within the plain version's float32-vs-float64
+        tensor: within tol[0] (GRAD_REL_TOL) of the tensor's norm and tol[1]
+        (GRAD_MAX_TOL) of its largest value, or within the plain version's float32-vs-float64
         spread where that is larger; raises past them.  ``tc``: the plain
         version's grads with its forward summed in the render kernel's
         order (tc_order); a tensor may meet the rule against those in place
@@ -1642,8 +1663,8 @@ def main():
                     "spread_max": e64.abs().max().item() / mr}
 
         def within(row):
-            return (row["rel"] <= max(GRAD_REL_TOL, row["spread_rel"])
-                    and row["max"] <= max(GRAD_MAX_TOL, row["spread_max"]))
+            return (row["rel"] <= max(tol[0], row["spread_rel"])
+                    and row["max"] <= max(tol[1], row["spread_max"]))
 
         for k in ref:
             if not ref[k].any():        # a layer the forward never reads (density_fc)
@@ -1832,7 +1853,7 @@ def main():
                 "--data_path", data, "--checkpoint_path", ckpt_root, "--images_path", out_dir,
                 "--no_perturb", "--n_sample", "256"])
         launches = dict(fr.LAUNCHES)
-        if launches != {"fused_render_rays": 1, "fused_render_rays_weights": 0} \
+        if launches != {k: int(k == "fused_render_rays") for k in launches} \
                 or len(records) != 1:
             raise AssertionError(f"plot_rays: launches {launches}, {len(records)} frames")
         paths["plot_rays"] = {"fused_render_rays": launches["fused_render_rays"]}
@@ -2136,7 +2157,8 @@ def main():
             "--images_path", os.path.join(OUT, "test_hier"), "--n_sample", "256", *hier_flags])
         launches = dict(fr.LAUNCHES)
         peak = torch.cuda.max_memory_allocated()
-        if launches != {"fused_render_rays_weights": 2, "fused_render_rays": 2}:
+        if launches != {k: 2 * (k in ("fused_render_rays", "fused_render_rays_weights"))
+                        for k in launches}:
             raise AssertionError(f"serve_hier: launches {launches} for 2 views")
         if len(records) != 2 or not all(np.isfinite(r["psnr"]) for r in records):
             raise AssertionError(f"serve_hier: views {records}")
@@ -2145,7 +2167,7 @@ def main():
         aux_ms, (rgb, depth, disp, acc) = event_ms(
             lambda: make_render_image_aux(hcfg)(pair, K, pose, H, W))
         aux_launches, aux_peak = dict(fr.LAUNCHES), torch.cuda.max_memory_allocated()
-        if aux_launches != {"fused_render_rays_weights": 2, "fused_render_rays": 0}:
+        if aux_launches != {k: 2 * (k == "fused_render_rays_weights") for k in aux_launches}:
             raise AssertionError(f"serve_hier aux: launches {aux_launches}")
         if not all(bool(torch.isfinite(t).all()) for t in (rgb, depth, disp, acc)):
             raise AssertionError("serve_hier aux: maps not finite")
@@ -2299,6 +2321,178 @@ def main():
                     "parts_peak_mem_gib": round(peak / 2**30, 3),
                     "kernel_vs_module": {"psnr": round(p_mod, 2), "module_ms": round(mod_ms, 2)}})
 
+
+    # ---- 10b. mip: the cone kernels, the mip step and a mip frame -----------
+    def mip():
+        from sfm_nerf_tpu_torch.config import NeRFModelConfig
+        from sfm_nerf_tpu_torch.models.nerf import NeRF
+        from sfm_nerf_tpu_torch.ops.rays import image_cones
+        from sfm_nerf_tpu_torch.ops.render import cone_edges, resample_edges
+        from sfm_nerf_tpu_torch.train.nerf_trainer import make_loss_fn
+
+        m_cfg = NeRFModelConfig(arch="mip", n_pos_freq=16, n_dir_freq=4,
+                                density_bias_init=-1.0)
+        net = NeRF(m_cfg, device=dev, seed=MIP_SEED)
+        m_rcfg = RenderConfig(n_sample=MIP_INTERVALS, near=2.0, far=6.0, perturb=True,
+                              use_fused_kernel=True, white_background=True)
+        m_pipe = NeRFPipelineConfig(model=m_cfg, render=m_rcfg)
+        pk = fr.pack_nerf_params(net, m_cfg, torch.bfloat16)
+        tr_images, tr_poses, tr_cam = load_blender_dataset(data, "train")
+        f32 = dict(dtype=torch.float32, device=dev)
+        imgs, pss = torch.as_tensor(tr_images, **f32), torch.as_tensor(tr_poses, **f32)
+        Kt = torch.as_tensor(tr_cam.camera_matrix, **f32)
+        gen = torch.Generator(device=dev).manual_seed(MIP_SEED)
+        n = 8192
+        bo, bd, bc, bt = sample_ray_batch(imgs, pss, Kt, n, gen, cones=True)
+        t_c = cone_edges(n, m_rcfg, gen, dev)
+
+        def mids(t):
+            return 0.5 * (t[:, 1:] + t[:, :-1])
+
+        inf = float("inf")
+
+        def vs_plain(name, t, weights):
+            """The cone step kernel on the edges t against its plain version:
+            times, rgb, loss and weight errors, the grad rule."""
+            ms, out = event_ms(lambda: ft.fused_mse_loss_cones_grads(
+                pk, bo, bd, bc, t, bt, m_rcfg, emit_weights=weights), reps=3)
+            plain_ms, ref = event_ms(lambda: ft.fused_mse_loss_weights_reference(
+                pk, bo, bd, t, bt, m_rcfg, cones=bc))
+            f64 = ft.fused_mse_loss_weights_reference(
+                pk, bo.double(), bd.double(), t.double(), bt.double(), m_rcfg, cones=bc.double())
+            loss_k = ((out[0] - bt) ** 2).mean().item()
+            loss_p = ((ref[0] - bt) ** 2).mean().item()
+            r = dict(ms=ms, plain_ms=plain_ms, loss=loss_k, plain_loss=loss_p)
+            if weights:
+                r["vs_plain"] = compare(name, out[0], ref[0], (out[1], ref[1], f64[1]), mids(t))
+            else:
+                r["vs_plain"] = compare(name, out[0], ref[0])
+            if abs(loss_k - loss_p) > LOSS_REL_TOL * loss_p:
+                raise AssertionError(f"{name}: loss {loss_k} vs {loss_p}")
+            r["worst"], r["grads[rel,max,spread_rel,spread_max]"], r["grad_max_abs"] = grads_cmp(
+                name, pk, out[-2:], ref[-2:], f64[-2:], tol=(inf, inf))
+            emit("mip_grads", of=name, worst=r["worst"],
+                 per=r["grads[rel,max,spread_rel,spread_max]"])
+            grads_cmp(name, pk, out[-2:], ref[-2:], f64[-2:], tol=MIP_GRAD_TOL)
+            r["ms_by_launch"] = split_times(lambda: ft.fused_mse_loss_cones_grads(
+                pk, bo, bd, bc, t, bt, m_rcfg, emit_weights=weights))
+            return out, ref, f64, r
+
+        # the coarse level: the cone K4 against plain, itself, K2 and K5
+        k4_out, k4_ref, k4_64, k4 = vs_plain("cone K4", t_c, True)
+        rgb4, w4, gw4, gb4 = k4_out
+        again = ft.fused_mse_loss_cones_grads(pk, bo, bd, bc, t_c, bt, m_rcfg, emit_weights=True)
+        rgb2, _, gw2, gb2 = ft.fused_mse_loss_cones_grads(pk, bo, bd, bc, t_c, bt, m_rcfg)
+        rgb5, w5 = fr.fused_render_cones_weights(pk, bo, bd, bc, t_c, m_rcfg)
+        k4["bit_equal_two_runs"] = all(torch.equal(a, b) for a, b in zip(k4_out, again))
+        k4["bit_equal_to_K2"] = (torch.equal(rgb4, rgb2) and torch.equal(gw4, gw2)
+                                 and torch.equal(gb4, gb2))
+        k4["bit_equal_to_K5"] = torch.equal(rgb4, rgb5) and torch.equal(w4, w5)
+        if not (k4["bit_equal_two_runs"] and k4["bit_equal_to_K2"] and k4["bit_equal_to_K5"]):
+            raise AssertionError(f"cone K4 bit-equality: {k4}")
+        del again, rgb2, gw2, gb2, rgb5, w5
+        # the control: the plain version on a bf16 encoding's inputs fails the
+        # grad rule the kernel meets
+        ctl = ft.fused_mse_loss_weights_reference(
+            pk, *(x.bfloat16().float() for x in (bo, bd, t_c)), bt, m_rcfg, cones=bc)
+        k4["bf16_encoding_control"] = dict(zip(
+            ("worst", "grads[rel,max,spread_rel,spread_max]"),
+            grads_cmp("control", pk, ctl[-2:], k4_ref[-2:], k4_64[-2:], tol=(inf, inf))[:2]))
+        emit("mip_grads", of="bf16 encoding control", **k4["bf16_encoding_control"])
+        try:
+            grads_cmp("bf16 encoding control", pk, ctl[-2:], k4_ref[-2:], k4_64[-2:],
+                      tol=MIP_GRAD_TOL)
+            control_fails = False
+        except AssertionError:
+            control_fails = True
+        if not control_fails:
+            raise AssertionError("the bf16 encoding control meets the grad rule")
+        del ctl, k4_ref, k4_64
+        # the resampler, then the fine level: the cone K2 against plain
+        resample_ms, t_f = event_ms(lambda: resample_edges(t_c, w4, m_rcfg, gen), reps=10)
+        if t_f.shape != t_c.shape or not bool((t_f.diff(dim=-1) >= 0).all()):
+            raise AssertionError("resample_edges: the fine edges are not sorted")
+        k2_out, _, _, k2 = vs_plain("cone K2", t_f, False)
+        # the autograd wrappers carry the grads held above
+        ft.reset_launch_counts()
+        loss_c, w_c = ft.fused_mse_loss_cones_weights(pk, bo, bd, bc, t_c, bt, m_rcfg)
+        loss_f = ft.fused_mse_loss_cones(pk, bo, bd, bc, t_f, bt, m_rcfg)
+        wrap_launches = dict(ft.LAUNCHES)
+        if wrap_launches != {k: int(k in ("fused_mse_loss_cones", "fused_mse_loss_cones_weights"))
+                             for k in ft.LAUNCHES}:
+            raise AssertionError(f"mip wrappers: launches {wrap_launches}")
+        net.zero_grad(set_to_none=True)
+        (0.1 * loss_c + loss_f).backward()
+        g_c, g_f = ft.unpack_grads(pk, gw4, gb4), ft.unpack_grads(pk, *k2_out[-2:])
+        wrap_ok = (torch.equal(loss_c, ((rgb4 - bt) ** 2).mean()) and torch.equal(w_c, w4)
+                   and torch.equal(loss_f, ((k2_out[0] - bt) ** 2).mean())
+                   and all(torch.allclose(p.grad, 0.1 * g_c[k] + g_f[k], rtol=1e-6, atol=0)
+                           for k, p in net.named_parameters()))
+        if not wrap_ok:
+            raise AssertionError("mip wrappers: loss, weights or grads differ from the held ones")
+        net.zero_grad(set_to_none=True)
+        del k4_out, k2_out, w4, gw4, gb4, w_c, g_c, g_f
+        # one step as make_loss_fn runs it: a launch of each, the counter
+        loss_fn = make_loss_fn(m_pipe)
+        loss_fn(net, gen, imgs, pss, Kt).backward()
+        ft.reset_launch_counts()
+        with profiling.recording():
+            step_ms, loss = event_ms(lambda: loss_fn(net, gen, imgs, pss, Kt))
+            torch.cuda.synchronize()
+            ipe = profiling.summary()["counters"].get("ipe_points")
+        step_launches = dict(ft.LAUNCHES)
+        paths["mip_train"] = step_launches
+        if step_launches != wrap_launches or ipe != 2 * n * MIP_INTERVALS \
+                or not bool(torch.isfinite(loss)):
+            raise AssertionError(f"mip step: launches {step_launches}, ipe_points {ipe}, "
+                                 f"loss {loss}")
+        net.zero_grad(set_to_none=True)
+        del imgs
+
+        # a frame: one cone K5, the resampler, one cone K1; against the
+        # float32 nn.Module frame, and stage by stage on SUBSET rays
+        f_pipe = NeRFPipelineConfig(model=m_cfg, render=dataclasses.replace(m_rcfg,
+                                                                            perturb=False))
+        net.eval()
+        fr.reset_launch_counts()
+        frame_ms, frame = event_ms(lambda: make_render_image(f_pipe)(net, K, pose, H, W))
+        frame_launches = dict(fr.LAUNCHES)
+        paths["mip_frame"] = frame_launches
+        if frame_launches != {k: int(k in ("fused_render_cones", "fused_render_cones_weights"))
+                              for k in fr.LAUNCHES}:
+            raise AssertionError(f"mip frame: launches {frame_launches}")
+        mod_pipe = dataclasses.replace(f_pipe, render=dataclasses.replace(
+            f_pipe.render, use_fused_kernel=False))
+        mod_ms, mod = event_ms(lambda: make_render_image(mod_pipe)(net, K, pose, H, W))
+        p_mod = psnr(frame, mod)
+        if p_mod < PSNR_MODULE:
+            raise AssertionError(f"mip kernel vs nn.Module frame PSNR {p_mod:.2f} dB")
+        fo, fd, fc = image_cones(K, pose, H, W)
+        i = torch.linspace(0, fo.shape[0] - 1, SUBSET, device=dev).long()
+        so, sd, sc = fo[i], fd[i], fc[i]
+        st = cone_edges(SUBSET, f_pipe.render, None, dev)
+        rgb_c, w_c = fr.fused_render_cones_weights(pk, so, sd, sc, st, f_pipe.render)
+        rr_c, wr_c = fr.fused_render_rays_reference(pk, so, sd, st, f_pipe.render,
+                                                    emit_weights=True, cones=sc)
+        w64_c = fr.fused_render_rays_reference(pk, so.double(), sd.double(), st.double(),
+                                               f_pipe.render, emit_weights=True,
+                                               cones=sc.double())[1]
+        coarse = compare("mip coarse pass", rgb_c, rr_c, (w_c, wr_c, w64_c), mids(st))
+        sf = resample_edges(st, w_c, f_pipe.render)
+        rgb_f = fr.fused_render_cones(pk, so, sd, sc, sf, f_pipe.render)
+        fine = compare("mip fine pass", rgb_f, fr.fused_render_rays_reference(
+            pk, so, sd, sf, f_pipe.render, cones=sc))
+        if not torch.equal(rgb_f, fr.fused_render_cones_weights(pk, so, sd, sc, sf,
+                                                                f_pipe.render)[0]):
+            raise AssertionError("mip fine pass: the cone K1's rgb differs from the cone K5's")
+        emit("mip", rays=n, intervals=[MIP_INTERVALS, MIP_INTERVALS], seed=MIP_SEED,
+             K4=k4, resample_ms=resample_ms, K2=k2,
+             wrappers={"launches": wrap_launches, "loss_weights_grads_held": wrap_ok},
+             step={"ms": step_ms, "launches": step_launches, "ipe_points": ipe},
+             frame={"rays": H * W, "ms": frame_ms, "launches": frame_launches,
+                    "kernel_vs_module": {"psnr": round(p_mod, 2), "module_ms": round(mod_ms, 2)},
+                    "route_on_subset": {"rays": SUBSET, "coarse_pass": coarse,
+                                        "fine_pass": fine}})
 
     # ---- slice 12: reference .pth files, bf16 nn.Module compute, the log ----
     def pth_interop():
@@ -2685,6 +2879,7 @@ def main():
     if not failed:
         phase(serve_hier)
         phase(hier_kernels)
+    phase(mip)
     if not failed:
         phase(pth_interop)
     phase(bf16_module)

@@ -55,6 +55,13 @@ non-zero, as does a world whose process group cannot start.  Tensor
 parallelism is reached through ``ParallelConfig.tp`` only, as in the JAX
 package.
 
+mip-NeRF (train and test; gif reads it from the checkpoint): ``--mipnerf``
+sets the published configuration, each of its flags unless given itself:
+``--arch mip --n_pos_freq 16 --n_dirc_freq 4 --n_sample
+128`` (intervals a level, two levels through one network), and in train
+mode ``--density_bias_init -1 --lr_schedule loglinear --lrate_final 5e-6
+--lr_anneal_steps 1000000``.  Blender scenes add ``--white_bkgd``.
+
 ``--ckpt_backend orbax`` writes the same npz files from a background thread
 (train/async_ckpt.py), not orbax's step directories.
 
@@ -126,7 +133,9 @@ def config_parser(mode: str = "test") -> argparse.ArgumentParser:
         p.add_argument('--far', default=6.0, type=_bound, help="far bound, or 'auto'")
         p.add_argument('--chunk_size', default=1024 * 32, type=int)
         p.add_argument('--render_variant', default='train', help="train|legacy compositor")
-        p.add_argument('--arch', default='active', help="active|legacy MLP architecture")
+        p.add_argument('--arch', default='active', help="active|legacy|mip MLP architecture")
+        p.add_argument('--mipnerf', action='store_true',
+                       help="mip-NeRF's configuration (the flags it sets are in the module doc)")
         p.add_argument('--no_pos_encoding', action='store_true')
         p.add_argument('--lindisp', action='store_true')
         p.add_argument('--n_importance', default=0, type=int,
@@ -163,6 +172,11 @@ def config_parser(mode: str = "test") -> argparse.ArgumentParser:
                        help="read the loss back every this many steps")
         p.add_argument('--val_every', default=1000, type=int,
                        help="render the validation views every this many steps (0: never)")
+        p.add_argument('--lr_schedule', default='step', choices=['step', 'loglinear'],
+                       help="staircase decay, or mip-NeRF's log-linear annealing")
+        p.add_argument('--lrate_final', default=5e-6, type=float,
+                       help="loglinear: the learning rate at --lr_anneal_steps")
+        p.add_argument('--lr_anneal_steps', default=1000000, type=int)
         p.add_argument('--two_kernel_step', action='store_true',
                        help="train through fused_render_train's forward and "
                             "backward kernels instead of the merged step kernel")
@@ -218,6 +232,8 @@ def _train_config(args):
         n_rays_batch=int(args.n_rays_batch), max_iters=int(args.max_iters),
         save_ckpt_iter=int(args.save_ckpt_iter), log_every=int(args.log_every),
         val_every=int(args.val_every), seed=int(args.seed), ckpt_backend=args.ckpt_backend,
+        lr_schedule=args.lr_schedule, lrate_final=float(args.lrate_final),
+        lr_anneal_steps=int(args.lr_anneal_steps),
     )
 
 
@@ -476,6 +492,7 @@ def run_gif(args) -> List[dict]:
         mcfg = ckpt_lib.infer_model_config(params)
     model = params_from_jax(params, mcfg, device).eval()
     print(f"Checkpoint {path} loaded")
+    mip = mcfg.arch == "mip"     # cones over intervals, the 'train' compositor
     cfg = NeRFPipelineConfig(
         model=mcfg,
         render=RenderConfig(
@@ -483,7 +500,7 @@ def run_gif(args) -> List[dict]:
             near=1.0 if args.near is None else float(args.near),
             far=10.0 if args.far is None else float(args.far),
             perturb=not args.no_perturb,
-            variant="train" if args.train_variant else "legacy",
+            variant="train" if args.train_variant or mip else "legacy",
             use_fused_kernel=bool(args.fused),
             white_background=bool(args.white_bkgd),
         ),
@@ -538,7 +555,24 @@ def main(argv: Optional[List[str]] = None):
     if mode not in ("train", "test", "gif"):
         raise SystemExit(f"--mode {mode!r} is not implemented (use train, test or gif)")
     args = config_parser(mode).parse_args(argv)
+    if getattr(args, "mipnerf", False):
+        _mipnerf_preset(args, argv)
     return {"train": run_train, "test": run_test, "gif": run_gif}[mode](args)
+
+
+# --mipnerf: (flag, value) of mip-NeRF's published configuration
+MIPNERF = (("arch", "mip"), ("n_pos_freq", 16), ("n_dirc_freq", 4), ("n_sample", 128),
+           ("density_bias_init", -1.0), ("lr_schedule", "loglinear"),
+           ("lrate_final", 5e-6), ("lr_anneal_steps", 1000000))
+
+
+def _mipnerf_preset(args, argv: List[str]) -> None:
+    """Sets each of MIPNERF's flags that the mode has and the command line
+    does not give."""
+    given = {a.split("=")[0][2:] for a in argv if a.startswith("--")}
+    for flag, value in MIPNERF:
+        if hasattr(args, flag) and flag not in given:
+            setattr(args, flag, value)
 
 
 if __name__ == "__main__":

@@ -22,7 +22,13 @@ class NeRFModelConfig:
     encoding, 3 more layers, softplus density head, feature layer, 2-layer
     rgb head.  ``arch='legacy'``: fc1, ``n_block1_layers`` hidden layers, an
     optional skip layer, block2 ending in a (hidden+1)-wide ReLU layer whose
-    channel 0 is the density, and the same rgb head.
+    channel 0 is the density, and the same rgb head.  ``arch='mip'``
+    (mip-NeRF, Barron et al. 2021): fc1 over the integrated positional
+    encoding of a conical frustum's Gaussian (``n_pos_freq`` octaves, no
+    identity), 4 hidden layers, the skip layer, 2 more, softplus density
+    head, a linear bottleneck (``feature``) and the rgb head over
+    [bottleneck ++ PE(viewdir)], its sigmoid widened to ``1.002 s - 0.001``.
+    It renders through cone casting (see ``RenderConfig``).
     """
 
     n_pos_freq: int = 10
@@ -37,6 +43,8 @@ class NeRFModelConfig:
 
     @property
     def pos_dim(self) -> int:
+        if self.arch == "mip":
+            return 6 * self.n_pos_freq
         return 3 * (2 * self.n_pos_freq + 1) if self.pos_encoding else 3
 
     @property
@@ -51,6 +59,13 @@ class RenderConfig:
     ``variant='train'``: midpoint-jittered linspace bins, 1e-3 tail
     distance, exclusive transmittance.  ``variant='legacy'`` (the gif
     renderer): per-bin jitter, 1.0 tail distance, inclusive transmittance.
+
+    A model of arch 'mip' (mip-NeRF) casts cones: each pixel casts a cone,
+    ``n_sample`` intervals between ``n_sample + 1`` edges a level, two
+    levels through one network: the coarse edges jittered as mip-NeRF
+    jitters them, the fine edges drawn from the coarse weights after a
+    2-tap max blur and a 0.01 floor; compositing over the interval
+    lengths, exclusive transmittance.
     """
 
     n_sample: int = 256
@@ -69,9 +84,16 @@ class RenderConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
+    """``lr_schedule='step'``: ``lrate * lrate_decay ** (step //
+    lrate_decay_steps)``.  ``'loglinear'`` (mip-NeRF): log-linear from
+    ``lrate`` to ``lrate_final`` over ``lr_anneal_steps``, then flat."""
+
     lrate: float = 5e-4
     lrate_decay: float = 0.1
     lrate_decay_steps: int = 50000
+    lr_schedule: str = "step"
+    lrate_final: float = 5e-6
+    lr_anneal_steps: int = 1000000
     n_rays_batch: int = 8192
     max_iters: int = 200001
     save_ckpt_iter: int = 1000

@@ -47,6 +47,17 @@
 // chunk the stash record of mlp_chunk (bulk copies of the encoding and of
 // every layer input, see sm90_mlp.cuh) and per point (density, r, g, b) f32.
 //
+// MIP (the mip arch, kernels/fused_render.py:fused_render_cones and the
+// cone training step): each ray is a cone, (radius, |d|) in ``cones``, over
+// S intervals between S + 1 edges (z's row holds S + 1 values).  The
+// encoder threads turn each interval into its conical frustum's Gaussian
+// (nerf_device.cuh frustum_gaussian) and write its integrated encoding,
+// exp(-cov 4^l / 2) sin(mean 2^l) and the same at + pi/2 (accurate expf
+// and sinf, the sines skipped where the factor is 0): 16 octaves are 96
+// columns, two encoding blocks.  The view direction is d / |d| under
+// mip-NeRF's encoding; the bottleneck is linear (P_LIN); the rgb head is
+// widened; a sample's distance is (t1 - t0) |d|, with no tail.
+//
 // The numerics of the TPU kernel are kept: exact f32 encoding phase and
 // accurate sinf (encode() of nerf_device.cuh), bf16 rounding of the
 // encoding and hidden activations, f32 biases and heads, 1 - alpha as
@@ -68,13 +79,45 @@ using nerf::KParams;
 // sin(fl(x_j pi 2^l) + pi/2) (exact f32 phase, accurate sinf); task l = -1
 // writes x and the zero pad.  The same values as encode() of
 // nerf_device.cuh, without its divisions and its indexed local array.
+//
+// MIP: a task is one row (interval si, clamped to the last, of edges z_ray
+// [si], z_ray[si + 1]) and one octave l, whose six columns 3 l + j and
+// 3 L + 3 l + j are e_j sin(y_j) and e_j sin(y_j + pi/2), y = mean 2^l,
+// e = exp(-cov 4^l / 2); octave 0 also writes the zero pad.
+template <bool MIP>
 __device__ __forceinline__ void encode_chunk(const KParams& P, char* enc_p, const float* o,
-                                             const float* d, const float* __restrict__ z_ray,
-                                             int S, int c0, int e) {
-  const int n_freq = (P.pos_dim - 3) / 6;
+                                             const float* d, float radius,
+                                             const float* __restrict__ z_ray, int S, int c0,
+                                             int e) {
   auto put = [&](int row, int c, float v) {
     *reinterpret_cast<__nv_bfloat16*>(enc_p + sm90::sw128(row, c)) = __float2bfloat16_rn(v);
   };
+  if constexpr (MIP) {
+    const int n_oct = P.pos_dim / 6;
+    for (int task = e; task < sm90::ROWS * n_oct; task += sm90::ENCODERS) {
+      const int row = task & (sm90::ROWS - 1), l = task / sm90::ROWS;
+      const int si = c0 + row < S ? c0 + row : S - 1;
+      float mean[3], cov[3];
+      nerf::frustum_gaussian(o, d, radius, z_ray[si], z_ray[si + 1], mean, cov);
+      const float f = P.pos_freq[l], f2 = __fmul_rn(f, f);
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        const float y = __fmul_rn(mean[j], f);
+        const float ef = expf(__fmul_rn(__fmul_rn(cov[j], f2), -0.5f));
+        float sn = 0.0f, cs = 0.0f;
+        if (ef != 0.0f) {   // far octaves: exp underflows, the product is 0 whatever the sine
+          sn = sinf(y);
+          cs = sinf(__fadd_rn(y, P.half_pi));
+        }
+        put(row, 3 * l + j, __fmul_rn(ef, sn));
+        put(row, 3 * n_oct + 3 * l + j, __fmul_rn(ef, cs));
+      }
+      if (l == 0)
+        for (int c = P.pos_dim; c < P.pos_pad; ++c) put(row, c, 0.0f);
+    }
+    return;
+  }
+  const int n_freq = (P.pos_dim - 3) / 6;
   for (int task = e; task < sm90::ROWS * (n_freq + 1); task += sm90::ENCODERS) {
     const int row = task & (sm90::ROWS - 1), l = task / sm90::ROWS - 1;
     const int si = c0 + row;
@@ -103,21 +146,31 @@ __device__ __forceinline__ void encode_chunk(const KParams& P, char* enc_p, cons
 
 // The distances of samples [c0, c0 + 64) of a ray (threads 0..63); the
 // layer chain's barriers publish them before the compositing reads them.
+// MIP: the interval lengths (t1 - t0) |d|, no tail.
+template <bool MIP>
 __device__ __forceinline__ void chunk_dists(const KParams& P, const sm90::Wg& w,
-                                            const float* __restrict__ z_ray, int S, int c0) {
+                                            const float* __restrict__ z_ray, int S, int c0,
+                                            float norm) {
   if (w.tid < sm90::ROWS) {
     const int si = c0 + w.tid;
-    w.dist[w.tid] = si >= S ? 0.0f : si < S - 1 ? z_ray[si + 1] - z_ray[si] : P.tail;
+    if constexpr (MIP)
+      w.dist[w.tid] = si >= S ? 0.0f : __fmul_rn(__fsub_rn(z_ray[si + 1], z_ray[si]), norm);
+    else
+      w.dist[w.tid] = si >= S ? 0.0f : si < S - 1 ? z_ray[si + 1] - z_ray[si] : P.tail;
   }
 }
 
 // Per ray: the encoded direction (rounded to bf16) and the direction head,
 // bf16(encoded d) @ rgb1's direction rows, once; thread t owns column t.
+// MIP: d is the unit view direction, under mip-NeRF's encoding.
+template <bool MIP>
 __device__ __forceinline__ void setup_ray(const KParams& P, const __nv_bfloat16* __restrict__ wd,
                                           const sm90::Wg& w, const float* d) {
   sm90::wg_sync(w.g);   // the previous ray's rgb1 epilogue is done with dirpart
   if (w.tid < P.dir_dim)
-    w.dext[w.tid] = nerf::bf16_round(nerf::encode(d, w.tid, P.dir_dim, P.dir_freq, P.half_pi));
+    w.dext[w.tid] = nerf::bf16_round(
+        MIP ? nerf::encode_view_mip(d, w.tid, P.dir_dim, P.dir_freq, P.half_pi)
+            : nerf::encode(d, w.tid, P.dir_dim, P.dir_freq, P.half_pi));
   sm90::wg_sync(w.g);
   float acc = 0.0f;
   for (int k = 0; k < P.dir_dim; ++k)
@@ -179,10 +232,11 @@ struct StashOut {
   float* tb;
 };
 
-template <bool EMIT_WEIGHTS, bool WIDE, bool TB, bool STASH>
+template <bool EMIT_WEIGHTS, bool WIDE, bool TB, bool STASH, bool MIP>
 __global__ void __launch_bounds__(sm90::THREADS, 1)
 fused_render_kernel(const float* __restrict__ origins, const float* __restrict__ dirs,
-                    const float* __restrict__ z, int n_rays, int n_sample,
+                    const float* __restrict__ z, const float* __restrict__ cones, int n_rays,
+                    int n_sample,
                     const __nv_bfloat16* __restrict__ img, const float* __restrict__ B,
                     const __grid_constant__ KParams P, const __grid_constant__ sm90::Plan plan,
                     float* __restrict__ rgb_out, float* __restrict__ w_out,
@@ -213,6 +267,7 @@ fused_render_kernel(const float* __restrict__ origins, const float* __restrict__
   __syncthreads();
 
   const int S = n_sample;
+  const int zs = MIP ? S + 1 : S;   // a ray's row of z: depths, or the edges of its intervals
   // samples walked: TB rounds up to whole 128-sample chunks
   const int S_run = TB ? (S + 127) / 128 * 128 : S;
   const int n_chunks = (S_run + sm90::ROWS - 1) / sm90::ROWS;
@@ -242,8 +297,8 @@ fused_render_kernel(const float* __restrict__ origins, const float* __restrict__
             sm90::mbar_wait(enc_bars + 8 * (sm90::CONSUMERS + wg), (k[wg] & 1) ^ 1);
             const float o[3] = {origins[ray * 3], origins[ray * 3 + 1], origins[ray * 3 + 2]};
             const float d[3] = {dirs[ray * 3], dirs[ray * 3 + 1], dirs[ray * 3 + 2]};
-            encode_chunk(P, base + plan.enc + wg * plan.enc_kb * sm90::KB_BYTES, o, d,
-                         z + (size_t)ray * S, S, c0, e);
+            encode_chunk<MIP>(P, base + plan.enc + wg * plan.enc_kb * sm90::KB_BYTES, o, d,
+                              MIP ? cones[ray * 2] : 0.0f, z + (size_t)ray * zs, S, c0, e);
             sm90::fence_proxy_async();
             sm90::mbar_arrive(enc_bars + 8 * wg);
             ++k[wg];
@@ -278,24 +333,27 @@ fused_render_kernel(const float* __restrict__ origins, const float* __restrict__
         for (int c = 0; c < n_chunks; ++c) sm90::skip_chunk(plan, w, ring, q);
         continue;
       }
-      const float d[3] = {dirs[ray * 3], dirs[ray * 3 + 1], dirs[ray * 3 + 2]};
-      const float* z_ray = z + (size_t)ray * S;
+      const float norm = MIP ? cones[ray * 2 + 1] : 1.0f;
+      const float d[3] = {MIP ? __fdiv_rn(dirs[ray * 3], norm) : dirs[ray * 3],
+                          MIP ? __fdiv_rn(dirs[ray * 3 + 1], norm) : dirs[ray * 3 + 1],
+                          MIP ? __fdiv_rn(dirs[ray * 3 + 2], norm) : dirs[ray * 3 + 2]};
+      const float* z_ray = z + (size_t)ray * zs;
       float* w_ray = EMIT_WEIGHTS ? w_out + (size_t)ray * S : nullptr;
-      setup_ray(P, wd, w, d);
+      setup_ray<MIP>(P, wd, w, d);
       float T = 1.0f, acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
       for (int c0 = 0; c0 < S_run; c0 += sm90::ROWS) {
-        chunk_dists(P, w, z_ray, S, c0);
+        chunk_dists<MIP>(P, w, z_ray, S, c0, norm);
         if (TB && c0 % 128 == 0 && w.tid == 0)
           st.tb[(size_t)ray * (n_chunks / 2) + c0 / 128] = T;
         if constexpr (STASH) {
           const size_t ch = (size_t)ray * n_chunks + c0 / sm90::ROWS;
-          sm90::mlp_chunk<WIDE, true>(plan, B, P.density_softplus, w, ring, q, k++,
-                                      st.act + ch * rec);
+          sm90::mlp_chunk<WIDE, true, MIP>(plan, B, P.density_softplus, w, ring, q, k++,
+                                           st.act + ch * rec);
           if (w.tid < sm90::ROWS)
             st.pt[ch * sm90::ROWS + w.tid] = make_float4(
                 w.dens[w.tid], w.rgb[w.tid * 3], w.rgb[w.tid * 3 + 1], w.rgb[w.tid * 3 + 2]);
         } else {
-          sm90::mlp_chunk<WIDE>(plan, B, P.density_softplus, w, ring, q, k++);
+          sm90::mlp_chunk<WIDE, false, MIP>(plan, B, P.density_softplus, w, ring, q, k++);
         }
         composite_chunk<EMIT_WEIGHTS>(P, w, S, c0, w_ray, T, acc_r, acc_g, acc_b);
       }
@@ -310,11 +368,12 @@ fused_render_kernel(const float* __restrict__ origins, const float* __restrict__
   }
 }
 
-template <bool EMIT, bool WIDE, bool TB, bool STASH>
-int launch(const float* o, const float* d, const float* z, int n_rays, int n_sample,
-           const void* img, const float* b, const KParams& P, const sm90::Plan& plan, float* rgb,
-           float* wts, const StashOut& st, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(fused_render_kernel<EMIT, WIDE, TB, STASH>,
+template <bool EMIT, bool WIDE, bool TB, bool STASH, bool MIP>
+int launch(const float* o, const float* d, const float* z, const float* cones, int n_rays,
+           int n_sample, const void* img, const float* b, const KParams& P,
+           const sm90::Plan& plan, float* rgb, float* wts, const StashOut& st,
+           cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(fused_render_kernel<EMIT, WIDE, TB, STASH, MIP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, plan.total);
   if (err != cudaSuccess) return err;
   int dev = 0, sms = 0;
@@ -323,39 +382,53 @@ int launch(const float* o, const float* d, const float* z, int n_rays, int n_sam
     return err;
   const int pairs = (n_rays + sm90::CONSUMERS - 1) / sm90::CONSUMERS;
   const int grid = pairs < sms ? pairs : sms;
-  fused_render_kernel<EMIT, WIDE, TB, STASH><<<grid, sm90::THREADS, plan.total, stream>>>(
-      o, d, z, n_rays, n_sample, static_cast<const __nv_bfloat16*>(img), b, P, plan, rgb, wts, st);
+  fused_render_kernel<EMIT, WIDE, TB, STASH, MIP><<<grid, sm90::THREADS, plan.total, stream>>>(
+      o, d, z, cones, n_rays, n_sample, static_cast<const __nv_bfloat16*>(img), b, P, plan, rgb,
+      wts, st);
   return cudaGetLastError();
 }
 
 // out: what the kernel writes beside rgb (and the weights)
 enum Out { OUT_NONE = 0, OUT_TB = 1, OUT_STASH = 2 };
 
-int run(const float* origins, const float* dirs, const float* z, int n_rays, int n_sample,
-        const void* weights, const float* biases, const int* iparams, const float* fparams,
-        float* rgb_out, float* w_out, int emit_weights, Out out, const StashOut& st,
-        void* stream) {
+using Launch = decltype(&launch<false, false, false, false, false>);
+
+// the instantiation for the run; the mip arch has no TB (two-kernel) route
+template <bool MIP>
+Launch pick(Out out, bool emit, bool wide) {
+  if (out == OUT_STASH)
+    return emit ? (wide ? launch<true, true, true, true, MIP> : launch<true, false, true, true, MIP>)
+                : (wide ? launch<false, true, true, true, MIP> : launch<false, false, true, true, MIP>);
+  if (out == OUT_TB) {   // the forward of fused_render_train: no weights
+    if constexpr (MIP) return nullptr;
+    else return wide ? launch<false, true, true, false, false> : launch<false, false, true, false, false>;
+  }
+  return emit ? (wide ? launch<true, true, false, false, MIP> : launch<true, false, false, false, MIP>)
+              : (wide ? launch<false, true, false, false, MIP> : launch<false, false, false, false, MIP>);
+}
+
+int run(const float* origins, const float* dirs, const float* z, const float* cones,
+        int n_rays, int n_sample, const void* weights, const float* biases,
+        const int* iparams, const float* fparams, float* rgb_out, float* w_out,
+        int emit_weights, Out out, const StashOut& st, void* stream) {
   KParams P;
   cudaError_t err = nerf::parse_params(iparams, fparams, &P);
   if (err != cudaSuccess) return err;
   sm90::Plan plan;
-  if ((err = sm90::parse_plan(iparams + 8 + 5 * P.n_layers, &plan)) != cudaSuccess) return err;
+  if ((err = sm90::parse_plan(nerf::plan_ints(iparams, P), &plan)) != cudaSuccess) return err;
   if (P.dir_dim > nerf::RGB1_N || P.pos_pad > 64 * plan.enc_kb) return cudaErrorInvalidValue;
+  if (P.mip && (!cones || !P.variant_train)) return cudaErrorInvalidValue;
   bool wide = true;
   for (int i = 0; i < plan.n_passes; ++i)
-    if (plan.passes[i].kind == sm90::P_RELU && plan.passes[i].n != 256) wide = false;
+    if ((plan.passes[i].kind == sm90::P_RELU || plan.passes[i].kind == sm90::P_LIN) &&
+        plan.passes[i].n != 256)
+      wide = false;
   if (n_rays <= 0) return cudaSuccess;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  decltype(&launch<false, false, false, false>) go;
-  if (out == OUT_STASH)
-    go = emit_weights ? (wide ? launch<true, true, true, true> : launch<true, false, true, true>)
-                      : (wide ? launch<false, true, true, true> : launch<false, false, true, true>);
-  else if (out == OUT_TB)   // the forward of fused_render_train: no weights
-    go = wide ? launch<false, true, true, false> : launch<false, false, true, false>;
-  else
-    go = emit_weights ? (wide ? launch<true, true, false, false> : launch<true, false, false, false>)
-                      : (wide ? launch<false, true, false, false> : launch<false, false, false, false>);
-  return go(origins, dirs, z, n_rays, n_sample, weights, biases, P, plan, rgb_out, w_out, st, s);
+  const Launch go = P.mip ? pick<true>(out, emit_weights, wide) : pick<false>(out, emit_weights, wide);
+  if (!go) return cudaErrorInvalidValue;
+  return go(origins, dirs, z, cones, n_rays, n_sample, weights, biases, P, plan, rgb_out, w_out,
+            st, s);
 }
 
 }  // namespace
@@ -363,15 +436,16 @@ int run(const float* origins, const float* dirs, const float* z, int n_rays, int
 extern "C" {
 
 // weights: the tile image of kernels/fused_render.py:render_tile_image.
-// iparams: parse_params (nerf_device.cuh), then at 8 + 5 * n_layers the
-// plan (sm90::parse_plan).  fparams: see parse_params.
-// Returns 0 or a cudaError_t code.
-int sfm_fused_render(const float* origins, const float* dirs, const float* z,
+// iparams: parse_params (nerf_device.cuh), then at HEAD_INTS + 5 *
+// n_layers the plan (sm90::parse_plan).  fparams: see parse_params.
+// cones: (n_rays, 2) radius and |d| for the mip arch (z then holds
+// n_sample + 1 edges a ray), else null.  Returns 0 or a cudaError_t code.
+int sfm_fused_render(const float* origins, const float* dirs, const float* z, const float* cones,
                      int n_rays, int n_sample, const void* weights,
                      const float* biases, const int* iparams, const float* fparams,
                      float* rgb_out, float* w_out, int emit_weights, void* stream) {
-  return run(origins, dirs, z, n_rays, n_sample, weights, biases, iparams, fparams, rgb_out,
-             w_out, emit_weights, OUT_NONE, StashOut{}, stream);
+  return run(origins, dirs, z, cones, n_rays, n_sample, weights, biases, iparams, fparams,
+             rgb_out, w_out, emit_weights, OUT_NONE, StashOut{}, stream);
 }
 
 // The forward of fused_render_train: sfm_fused_render (rgb only) plus tb
@@ -381,20 +455,20 @@ int sfm_fused_render_tb(const float* origins, const float* dirs, const float* z,
                         int n_sample, const void* weights, const float* biases,
                         const int* iparams, const float* fparams, float* rgb_out, float* tb,
                         void* stream) {
-  return run(origins, dirs, z, n_rays, n_sample, weights, biases, iparams, fparams, rgb_out,
-             nullptr, 0, OUT_TB, StashOut{nullptr, nullptr, tb}, stream);
+  return run(origins, dirs, z, nullptr, n_rays, n_sample, weights, biases, iparams, fparams,
+             rgb_out, nullptr, 0, OUT_TB, StashOut{nullptr, nullptr, tb}, stream);
 }
 
 // The forward sweep of the split training step: sfm_fused_render plus the
 // stash (StashOut; kernels/fused_train.py:stash_layout describes it).
 int sfm_fused_render_stash(const float* origins, const float* dirs, const float* z,
-                           int n_rays, int n_sample, const void* weights,
+                           const float* cones, int n_rays, int n_sample, const void* weights,
                            const float* biases, const int* iparams, const float* fparams,
                            float* rgb_out, float* w_out, int emit_weights, void* stash_act,
                            void* stash_pt, float* tb, void* stream) {
   const StashOut st{static_cast<__nv_bfloat16*>(stash_act), static_cast<float4*>(stash_pt), tb};
-  return run(origins, dirs, z, n_rays, n_sample, weights, biases, iparams, fparams, rgb_out,
-             w_out, emit_weights, OUT_STASH, st, stream);
+  return run(origins, dirs, z, cones, n_rays, n_sample, weights, biases, iparams, fparams,
+             rgb_out, w_out, emit_weights, OUT_STASH, st, stream);
 }
 
 // The plan's shared-memory layout: out[0] bytes of dynamic shared memory a
@@ -405,7 +479,7 @@ int sfm_fused_render_layout(const int* iparams, const float* fparams, int* out) 
   cudaError_t err = nerf::parse_params(iparams, fparams, &P);
   if (err != cudaSuccess) return err;
   sm90::Plan plan;
-  if ((err = sm90::parse_plan(iparams + 8 + 5 * P.n_layers, &plan)) != cudaSuccess) return err;
+  if ((err = sm90::parse_plan(nerf::plan_ints(iparams, P), &plan)) != cudaSuccess) return err;
   out[0] = plan.total;
   out[1] = plan.stages;
   out[2] = plan.stage_bytes;

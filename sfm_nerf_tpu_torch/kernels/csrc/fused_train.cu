@@ -61,6 +61,12 @@
 // 1 - expf(-density), relu mask on the legacy arch; a white background
 // shifts q by -sum(g); cotangents are rounded to bf16 where they enter a
 // product, sums and biases stay f32.
+//
+// MIP (the mip arch, the cone step of kernels/fused_train.py): distances are
+// the interval lengths (t1 - t0) |d| over S + 1 edges a ray; the rgb head's
+// cotangent is 1.002 s (1 - s) with s = (c + 0.001) / 1.002 from the stashed
+// colour c; the bottleneck is linear, so rgb1's input cotangent takes no
+// ReLU mask; the direction rows read mip-NeRF's encoding of d / |d|.
 
 #include "nerf_device.cuh"
 #include "sm90_mlp.cuh"
@@ -94,6 +100,7 @@ struct Walk {
 
 struct RevArgs {
   const float *dirs, *z, *tb;
+  const float* cones;          // (rays, 2) radius, |d| for the mip arch, or null
   const float *rgb, *target;   // the MSE cotangent's inputs, when g_in is null
   const float* g_in;           // the caller's cotangent (rays, 3), or null
   const __nv_bfloat16* stash_act;   // the forward sweep's records (rays, 2 n_chunks, rec_act)
@@ -227,7 +234,9 @@ __device__ __forceinline__ uint32_t masked(float a, float b, uint32_t m) {
 // background, its sum): the cotangents of the rgb head's pre-sigmoid
 // outputs (drgb) and of the density head's pre-activation output (ddens),
 // both published by the caller's next barrier.  S_carry is the
-// suffix sum of q w over the later chunks.
+// suffix sum of q w over the later chunks.  MIP: the widened sigmoid's
+// derivative, from the colour c the stash holds.
+template <bool MIP>
 __device__ __forceinline__ void composite_backward(const KParams& P, const Wgs& w, float4 pt,
                                                    float dist, float T_in, const float (&g)[4],
                                                    float& S_carry) {
@@ -267,9 +276,20 @@ __device__ __forceinline__ void composite_backward(const KParams& P, const Wgs& 
   const float dsigma = dalpha * dist * e;
   const float dact = P.density_softplus ? 1.0f - expf(-pt.x) : (pt.x > 0.0f ? 1.0f : 0.0f);
   w.ddens()[w.tid] = dsigma * dact;
-  w.drgb()[w.tid * 3] = (wt * g[0]) * pt.y * (1.0f - pt.y);
-  w.drgb()[w.tid * 3 + 1] = (wt * g[1]) * pt.z * (1.0f - pt.z);
-  w.drgb()[w.tid * 3 + 2] = (wt * g[2]) * pt.w * (1.0f - pt.w);
+  if constexpr (MIP) {
+    const float c[3] = {pt.y, pt.z, pt.w};
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const float sg = __fdiv_rn(__fadd_rn(c[j], sm90::RGB_PAD), 1.0f + 2.0f * sm90::RGB_PAD);
+      w.drgb()[w.tid * 3 + j] =
+          __fmul_rn(__fmul_rn(__fmul_rn(__fmul_rn(wt, g[j]), 1.0f + 2.0f * sm90::RGB_PAD), sg),
+                    __fsub_rn(1.0f, sg));
+    }
+  } else {
+    w.drgb()[w.tid * 3] = (wt * g[0]) * pt.y * (1.0f - pt.y);
+    w.drgb()[w.tid * 3 + 1] = (wt * g[1]) * pt.z * (1.0f - pt.z);
+    w.drgb()[w.tid * 3 + 2] = (wt * g[2]) * pt.w * (1.0f - pt.w);
+  }
   S_carry += total;
 }
 
@@ -313,10 +333,13 @@ __device__ __forceinline__ void bwd_product(float (&acc)[NSL][NT / 2], const Wal
 // stmatrix writes, so it arrives in the accumulators' layout.  Columns past
 // the layer's width multiplied the tile image's zero rows: they get 0.
 // Every accumulator is read on every path (a read under a condition makes
-// ptxas serialize the wgmmas).
-template <int NT, int NSL>
+// ptxas serialize the wgmmas).  LIN: where ``mask`` is false the values go
+// in unmasked (the mip arch's linear bottleneck), selected without a branch.
+template <int NT, int NSL, bool LIN = false>
 __device__ __forceinline__ void epi_mask(const float (&acc)[NSL][NT / 2], uint32_t buf,
-                                         const Wgs& w) {
+                                         const Wgs& w, bool mask = true) {
+  // LIN: a mask word of all ones (two bf16 ones) where the mask is off
+  const uint32_t keep = mask ? 0u : 0x3f803f80u;
   const int tile = w.lane >> 3;
   const int row = 16 * w.warp + (w.lane & 7) + 8 * (tile & 1);
   const uint32_t row_addr = buf + row * 128;
@@ -328,6 +351,12 @@ __device__ __forceinline__ void epi_mask(const float (&acc)[NSL][NT / 2], uint32
       const uint32_t addr = row_addr + (chunk >> 3) * KB_BYTES + (((chunk & 7) ^ (row & 7)) << 4);
       uint32_t m0, m1, m2, m3;
       sm90::ldmatrix_x4(addr, m0, m1, m2, m3);
+      if constexpr (LIN) {
+        m0 = mask ? m0 : keep;
+        m1 = mask ? m1 : keep;
+        m2 = mask ? m2 : keep;
+        m3 = mask ? m3 : keep;
+      }
       sm90::stmatrix_x4(addr, masked(acc[s][4 * j], acc[s][4 * j + 1], m0),
                         masked(acc[s][4 * j + 2], acc[s][4 * j + 3], m1),
                         masked(acc[s][4 * j + 4], acc[s][4 * j + 5], m2),
@@ -440,7 +469,7 @@ struct Walker {
   // store has read it; it takes the input two layers down (or the next
   // record's first), and the other buffer, which holds layer li - 1's
   // output, becomes that layer's output cotangent.
-  template <int NT, int NSL>
+  template <int NT, int NSL, bool MIP>
   __device__ __forceinline__ void next_cotangent(const float (&acc)[NSL][NT / 2], int li,
                                                  size_t rec, int i, const float* ddens) {
     sm90::bulk_wait_read(lead);
@@ -452,7 +481,9 @@ struct Walker {
     const int o = u ^ 1;
     sm90::mbar_wait(w.full + 8 * o, (ph >> o) & 1);
     ph ^= 1u << o;
-    epi_mask<NT, NSL>(acc, w.buf + o * BUF_BYTES, w);
+    // MIP: the bottleneck (the density/feature head's output) is linear
+    epi_mask<NT, NSL, MIP>(acc, w.buf + o * BUF_BYTES, w,
+                           !(MIP && P.layers[li - 1].kind == nerf::K_DENSFEAT));
     if (P.layers[li - 1].kind == nerf::K_DENSFEAT) {
       sm90::wg_sync(w.g);   // the epilogue's zeros past the width come first
       head_cotangent(w, w.buf + o * BUF_BYTES, P.hidden, ddens);
@@ -465,7 +496,7 @@ struct Walker {
   // The MLP backward of record rec (the i-th walked, half hf of its chunk,
   // whose compositing cotangents are in drgb and ddens): every layer's
   // output cotangent to the cotangent stash, its bias grad to gB.
-  template <int NT, int NSL>
+  template <int NT, int NSL, bool MIP>
   __device__ __forceinline__ void walk_record(size_t rec, int hf, int i, float2& ddir) {
     const int nl = P.n_layers;
     sm90::bulk_wait_read(lead);   // the previous record's last store has read buf[u]
@@ -485,11 +516,11 @@ struct Walker {
       if (li == nl - 1) {
         float acc[1][64];
         bwd_product<128, 1>(acc, wk, li, w, dbuf, r, q);
-        next_cotangent<128, 1>(acc, li, rec, i, w.ddens() + 64 * hf);
+        next_cotangent<128, 1, MIP>(acc, li, rec, i, w.ddens() + 64 * hf);
       } else {
         float acc[NSL][NT / 2];
         bwd_product<NT, NSL>(acc, wk, li, w, dbuf, r, q);
-        next_cotangent<NT, NSL>(acc, li, rec, i, w.ddens() + 64 * hf);
+        next_cotangent<NT, NSL, MIP>(acc, li, rec, i, w.ddens() + 64 * hf);
       }
     }
   }
@@ -523,7 +554,7 @@ __device__ __forceinline__ void produce(const Walk& wk, const __nv_bfloat16* __r
 }
 
 // NT x NSL: the hidden width's 64-column pieces as wgmma slices (wk.nb of them)
-template <int NT, int NSL>
+template <int NT, int NSL, bool MIP>
 __global__ void __launch_bounds__(sm90::THREADS, 1)
 reverse_walk_kernel(const __nv_bfloat16* __restrict__ img, const __grid_constant__ KParams P,
                     const __grid_constant__ Walk wk, const __grid_constant__ RevArgs a) {
@@ -584,9 +615,15 @@ reverse_walk_kernel(const __nv_bfloat16* __restrict__ img, const __grid_constant
       for (int k = 0; k < nrec; ++k) wr.skip_record();
       continue;
     }
-    const float d[3] = {a.dirs[ray * 3], a.dirs[ray * 3 + 1], a.dirs[ray * 3 + 2]};
+    // MIP: the unit view direction d / |d| under mip-NeRF's encoding
+    const float norm = MIP ? a.cones[ray * 2 + 1] : 1.0f;
+    const float d[3] = {MIP ? __fdiv_rn(a.dirs[ray * 3], norm) : a.dirs[ray * 3],
+                        MIP ? __fdiv_rn(a.dirs[ray * 3 + 1], norm) : a.dirs[ray * 3 + 1],
+                        MIP ? __fdiv_rn(a.dirs[ray * 3 + 2], norm) : a.dirs[ray * 3 + 2]};
     if (w.tid < P.dir_dim)
-      w.dext()[w.tid] = nerf::bf16_round(nerf::encode(d, w.tid, P.dir_dim, P.dir_freq, P.half_pi));
+      w.dext()[w.tid] = nerf::bf16_round(
+          MIP ? nerf::encode_view_mip(d, w.tid, P.dir_dim, P.dir_freq, P.half_pi)
+              : nerf::encode(d, w.tid, P.dir_dim, P.dir_freq, P.half_pi));
     float gv[4];
 #pragma unroll
     for (int j = 0; j < 3; ++j)   // the caller's cotangent, or the MSE's from the sweep's rgb
@@ -594,16 +631,20 @@ reverse_walk_kernel(const __nv_bfloat16* __restrict__ img, const __grid_constant
     gv[3] = P.white_bg ? (gv[0] + gv[1]) + gv[2] : 0.0f;
     float2 ddir = make_float2(0.0f, 0.0f);
     float S_carry = 0.0f;
-    const float* z_ray = a.z + (size_t)ray * a.n_sample;
+    const float* z_ray = a.z + (size_t)ray * (MIP ? a.n_sample + 1 : a.n_sample);
     for (int c = a.n_chunks - 1; c >= 0; --c) {
       const size_t q0 = (size_t)ray * nrec + 2 * c;
       const int si = c * 128 + w.tid;
-      const float dist = si >= a.n_sample       ? 0.0f
-                         : si < a.n_sample - 1 ? z_ray[si + 1] - z_ray[si]
-                                               : P.tail;
-      composite_backward(P, w, a.stash_pt[q0 * 64 + w.tid], dist, a.tb[(size_t)ray * a.n_chunks + c],
-                         gv, S_carry);
-      for (int hf = 1; hf >= 0; --hf, ++i) wr.walk_record<NT, NSL>(q0 + hf, hf, i, ddir);
+      float dist;
+      if constexpr (MIP)
+        dist = si >= a.n_sample ? 0.0f : __fmul_rn(__fsub_rn(z_ray[si + 1], z_ray[si]), norm);
+      else
+        dist = si >= a.n_sample       ? 0.0f
+               : si < a.n_sample - 1 ? z_ray[si + 1] - z_ray[si]
+                                     : P.tail;
+      composite_backward<MIP>(P, w, a.stash_pt[q0 * 64 + w.tid], dist,
+                              a.tb[(size_t)ray * a.n_chunks + c], gv, S_carry);
+      for (int hf = 1; hf >= 0; --hf, ++i) wr.walk_record<NT, NSL, MIP>(q0 + hf, hf, i, ddir);
     }
     // rgb1's direction rows, once per ray: dext^T ddir, plain f32 FMAs
     if (w.tid < 64) {
@@ -633,14 +674,25 @@ __global__ void reduce_add_kernel(const float* __restrict__ partials, int n_bloc
   *dst += sum;
 }
 
-template <int NT, int NSL>
+template <int NT, int NSL, bool MIP>
 cudaError_t launch_walk(const __nv_bfloat16* img, const KParams& P, const Walk& wk,
                         const RevArgs& a, int n_blocks, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(reverse_walk_kernel<NT, NSL>,
+  cudaError_t err = cudaFuncSetAttribute(reverse_walk_kernel<NT, NSL, MIP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, wk.total);
   if (err != cudaSuccess) return err;
-  reverse_walk_kernel<NT, NSL><<<n_blocks, sm90::THREADS, wk.total, stream>>>(img, P, wk, a);
+  reverse_walk_kernel<NT, NSL, MIP><<<n_blocks, sm90::THREADS, wk.total, stream>>>(img, P, wk, a);
   return cudaGetLastError();
+}
+
+template <bool MIP>
+cudaError_t walk(const __nv_bfloat16* img, const KParams& P, const Walk& wk, const RevArgs& a,
+                 int n_blocks, cudaStream_t s) {
+  switch (wk.nb) {   // the hidden width in 64-column pieces
+    case 1: return launch_walk<64, 1, MIP>(img, P, wk, a, n_blocks, s);
+    case 2: return launch_walk<128, 1, MIP>(img, P, wk, a, n_blocks, s);
+    case 3: return launch_walk<64, 3, MIP>(img, P, wk, a, n_blocks, s);
+    default: return launch_walk<256, 1, MIP>(img, P, wk, a, n_blocks, s);
+  }
 }
 
 }  // namespace
@@ -651,6 +703,8 @@ extern "C" {
 // it is not null, else (rgb - target) * gscale.  weights: the render tile
 // image (kernels/fused_render.py:render_tile_image).  iparams and fparams:
 // see parse_params in nerf_device.cuh.  The caller allocates everything:
+// cones: (n_rays, 2) radius and |d| for the mip arch (z then holds
+// n_sample + 1 edges a ray), else null.
 //   tb        (n_rays, n_chunks) f32 and stash_act, stash_pt: the forward
 //             sweep's (layout: kernels/fused_train.py:_walk_ints, the
 //             stash layout then the walk's ring slots);
@@ -659,7 +713,8 @@ extern "C" {
 //             128 + the bias buffer's length (sfm_reduce_add sums them).
 // n_blocks must not exceed ceil(n_rays / 2); one block runs per SM.
 // Returns 0 or a cudaError_t.
-int sfm_reverse_walk(const float* dirs, const float* z, const float* rgb, const float* target,
+int sfm_reverse_walk(const float* dirs, const float* z, const float* cones, const float* rgb,
+                     const float* target,
                      const float* g_in, float gscale, int n_rays, int n_sample,
                      const void* weights, const int* iparams, const float* fparams,
                      const float* tb, const void* stash_act, const float* stash_pt,
@@ -670,13 +725,14 @@ int sfm_reverse_walk(const float* dirs, const float* z, const float* rgb, const 
   if (err != cudaSuccess) return err;
   if (n_rays <= 0) return cudaSuccess;
   if (n_blocks < 1 || n_blocks > (n_rays + 1) / 2 || P.hidden > 256 || P.hidden % 16 ||
-      !layout || (!g_in && (!rgb || !target)))
+      !layout || (!g_in && (!rgb || !target)) || (P.mip && !cones))
     return cudaErrorInvalidValue;
   Walk wk;
   if ((err = parse_walk(P, layout, &wk)) != cudaSuccess) return err;
   RevArgs a{};
   a.dirs = dirs;
   a.z = z;
+  a.cones = cones;
   a.tb = tb;
   a.rgb = rgb;
   a.target = target;
@@ -692,12 +748,7 @@ int sfm_reverse_walk(const float* dirs, const float* z, const float* rgb, const 
   a.gscale = gscale;
   const auto* img = static_cast<const __nv_bfloat16*>(weights);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (wk.nb) {   // the hidden width in 64-column pieces
-    case 1: return launch_walk<64, 1>(img, P, wk, a, n_blocks, s);
-    case 2: return launch_walk<128, 1>(img, P, wk, a, n_blocks, s);
-    case 3: return launch_walk<64, 3>(img, P, wk, a, n_blocks, s);
-    default: return launch_walk<256, 1>(img, P, wk, a, n_blocks, s);
-  }
+  return P.mip ? walk<true>(img, P, wk, a, n_blocks, s) : walk<false>(img, P, wk, a, n_blocks, s);
 }
 
 // dst += the sum over n_blocks partial rows of length stride, in block

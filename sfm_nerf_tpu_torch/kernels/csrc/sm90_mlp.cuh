@@ -32,6 +32,8 @@
 
 namespace sm90 {
 
+constexpr float RGB_PAD = 0.001f;   // the mip arch's widened sigmoid: s (1 + 2 p) - p
+
 constexpr int ROWS = 64;                  // rows (sample points) of one warpgroup tile
 constexpr int TILE_K = 64;                // weight rows per tile: one 128-byte swizzle atom
 constexpr int KB_BYTES = ROWS * 128;      // one 64-column block of an activation buffer
@@ -50,8 +52,9 @@ constexpr int SMEM_BUDGET = 232448;       // dynamic shared memory a block may u
 constexpr int SMALL_FLOATS = 576;         // per-warpgroup small arrays (see the kernel)
 constexpr int ENCODERS = 96;              // producer-warpgroup threads that encode (warps 1-3)
 
-// pass kinds: what the epilogue does with a product
-enum PassKind { P_RELU = 0, P_DENS = 1, P_RGB1 = 2, P_RGB2 = 3 };
+// pass kinds: what the epilogue does with a product (P_LIN: bf16 without
+// ReLU, the mip arch's bottleneck; a plan holds it only for that arch)
+enum PassKind { P_RELU = 0, P_DENS = 1, P_RGB1 = 2, P_RGB2 = 3, P_LIN = 4 };
 
 struct Pass {
   int kind, n, b_off;   // product width, bias offset
@@ -97,7 +100,8 @@ inline cudaError_t parse_plan(const int* ip, Plan* p) {
   for (int i = 0; i < p->n_passes; ++i, q += 6) {
     p->passes[i] = Pass{q[0], q[1], q[2], q[3], q[4], q[5]};
     const Pass& s = p->passes[i];
-    const bool width_ok = s.kind == P_RELU ? (s.n % 16 == 0 && s.n >= 16 && s.n <= 256)
+    const bool width_ok = (s.kind == P_RELU || s.kind == P_LIN)
+                              ? (s.n % 16 == 0 && s.n >= 16 && s.n <= 256)
                         : s.kind == P_RGB1 ? s.n == 128
                         : (s.kind == P_DENS || s.kind == P_RGB2) ? s.n == 16 : false;
     if (!width_ok || s.first != next || s.n_tiles < 1 || s.n_act < 0 || s.n_act > s.n_tiles)
@@ -490,11 +494,28 @@ __device__ __forceinline__ void init_bias(float (&acc)[NSL][NT / 2], int nsl,
   }
 }
 
+// bf16x2 of (a, b), a in the low half
+__device__ __forceinline__ uint32_t plain_bf16x2(float a, float b) {
+  uint32_t v;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(v) : "f"(b), "f"(a));
+  return v;
+}
+
 // relu(acc) rounded to bf16, into the same rows of the activation buffer,
 // four 8x8 tiles per stmatrix: rows 0-7 and 8-15 of this warp's 16 rows
-// for two neighbouring 8-column blocks
-template <int NT, int NSL>
-__device__ __forceinline__ void epi_relu(const float (&acc)[NSL][NT / 2], int nsl, const Wg& w) {
+// for two neighbouring 8-column blocks.  LIN: without the ReLU where
+// ``relu`` is false (the mip arch's bottleneck)
+template <int NT, int NSL, bool LIN = false>
+__device__ __forceinline__ void epi_relu(const float (&acc)[NSL][NT / 2], int nsl, const Wg& w,
+                                         bool relu = true) {
+  // no branch on ``relu`` beside the accumulators: a floor of 0 or -inf
+  const float lo = relu ? 0.0f : __int_as_float(0xff800000);
+  auto cvt = [lo](float a, float b) {
+    if constexpr (LIN)
+      return plain_bf16x2(fmaxf(a, lo), fmaxf(b, lo));
+    else
+      return relu_bf16x2(a, b);
+  };
   const int tile = w.lane >> 3;
   const int row = 16 * w.warp + (w.lane & 7) + 8 * (tile & 1);
   const uint32_t row_addr = w.act + row * 128;
@@ -506,10 +527,10 @@ __device__ __forceinline__ void epi_relu(const float (&acc)[NSL][NT / 2], int ns
         const int chunk = s * NT / 8 + j + (tile >> 1);   // 16-byte column chunk
         const uint32_t addr =
             row_addr + (chunk >> 3) * KB_BYTES + (((chunk & 7) ^ (row & 7)) << 4);
-        stmatrix_x4(addr, relu_bf16x2(acc[s][4 * j], acc[s][4 * j + 1]),
-                    relu_bf16x2(acc[s][4 * j + 2], acc[s][4 * j + 3]),
-                    relu_bf16x2(acc[s][4 * j + 4], acc[s][4 * j + 5]),
-                    relu_bf16x2(acc[s][4 * j + 6], acc[s][4 * j + 7]));
+        stmatrix_x4(addr, cvt(acc[s][4 * j], acc[s][4 * j + 1]),
+                    cvt(acc[s][4 * j + 2], acc[s][4 * j + 3]),
+                    cvt(acc[s][4 * j + 4], acc[s][4 * j + 5]),
+                    cvt(acc[s][4 * j + 6], acc[s][4 * j + 7]));
       }
     }
   }
@@ -536,14 +557,21 @@ __device__ __forceinline__ void epi_dens(const float (&acc)[1][8], const float* 
   }
 }
 
-// sigmoid of columns 0..2 of the 16-wide rgb2 product
+// sigmoid of columns 0..2 of the 16-wide rgb2 product; MIP: widened to
+// 1.002 s - 0.001 (each operation rounded once)
+template <bool MIP = false>
 __device__ __forceinline__ void epi_rgb(const float (&acc)[1][8], const float* __restrict__ bias,
                                         const Wg& w) {
   const int c0 = 2 * (w.lane & 3);
   const int r0 = 16 * w.warp + (w.lane >> 2);
   const float b0 = __ldg(bias + (c0 & 7)), b1 = __ldg(bias + ((c0 + 1) & 7));
-  const float v[4] = {1.0f / (1.0f + expf(-(acc[0][0] + b0))), 1.0f / (1.0f + expf(-(acc[0][1] + b1))),
-                      1.0f / (1.0f + expf(-(acc[0][2] + b0))), 1.0f / (1.0f + expf(-(acc[0][3] + b1)))};
+  float v[4] = {1.0f / (1.0f + expf(-(acc[0][0] + b0))), 1.0f / (1.0f + expf(-(acc[0][1] + b1))),
+                1.0f / (1.0f + expf(-(acc[0][2] + b0))), 1.0f / (1.0f + expf(-(acc[0][3] + b1)))};
+  if constexpr (MIP) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      v[e] = __fsub_rn(__fmul_rn(v[e], 1.0f + 2.0f * RGB_PAD), RGB_PAD);
+  }
 #pragma unroll
   for (int e = 0; e < 2; ++e) {
     if (c0 + e < 3) {
@@ -566,7 +594,11 @@ __device__ __forceinline__ void epi_rgb(const float (&acc)[1][8], const float* _
 // output j (in pass order) at block enc_kb + j act_kb, ceil(n / 64) blocks
 // of it.  Each copy is issued once the rows are published and waited for
 // (its reads) after the next product, before an epilogue overwrites them.
-template <bool WIDE, bool STASH = false>
+//
+// MIP: the mip arch's chain, whose density/feature head's feature pass is
+// P_LIN (stored without ReLU, stashed like the ReLU outputs) and whose rgb
+// head is widened (epi_rgb<true>).
+template <bool WIDE, bool STASH = false, bool MIP = false>
 __device__ __forceinline__ void mlp_chunk(const Plan& plan, const float* __restrict__ B,
                                           int softplus, const Wg& w, const Ring& r, uint32_t& q,
                                           uint32_t k, __nv_bfloat16* rec = nullptr) {
@@ -576,21 +608,22 @@ __device__ __forceinline__ void mlp_chunk(const Plan& plan, const float* __restr
   int slot = 0;
   for (int p = 0; p < plan.n_passes; ++p) {
     const Pass& ps = plan.passes[p];
-    if (ps.kind == P_RELU) {
+    if (ps.kind == P_RELU || (MIP && ps.kind == P_LIN)) {
+      const bool relu = ps.kind == P_RELU;
       if constexpr (WIDE) {
         float acc[1][128];
         init_bias<256, 1, false>(acc, 1, B + ps.b_off, nullptr, w);
         product<256, 1>(acc, 1, plan, ps, w, r, q, true);
         if constexpr (STASH) bulk_wait_read(lead);
         wg_sync(w.g);
-        epi_relu<256, 1>(acc, 1, w);
+        epi_relu<256, 1, MIP>(acc, 1, w, relu);
       } else {
         float acc[16][8];
         init_bias<16, 16, false>(acc, ps.n / 16, B + ps.b_off, nullptr, w);
         product<16, 16>(acc, ps.n / 16, plan, ps, w, r, q, true);
         if constexpr (STASH) bulk_wait_read(lead);
         wg_sync(w.g);
-        epi_relu<16, 16>(acc, ps.n / 16, w);
+        epi_relu<16, 16, MIP>(acc, ps.n / 16, w, relu);
       }
     } else if (ps.kind == P_RGB1) {
       float acc[1][64];
@@ -607,13 +640,13 @@ __device__ __forceinline__ void mlp_chunk(const Plan& plan, const float* __restr
       if (ps.kind == P_DENS)
         epi_dens(acc, B + ps.b_off, softplus, w);
       else
-        epi_rgb(acc, B + ps.b_off, w);
+        epi_rgb<MIP>(acc, B + ps.b_off, w);
     }
     if (p == plan.last_enc_pass) mbar_arrive_lane0(w.enc_empty, w.lane);
     fence_proxy_async();
     wg_sync(w.g);
     if constexpr (STASH) {
-      if (ps.kind == P_RELU || ps.kind == P_RGB1) {
+      if (ps.kind == P_RELU || ps.kind == P_RGB1 || (MIP && ps.kind == P_LIN)) {
         bulk_store(rec + (size_t)(plan.enc_kb + slot * plan.act_kb) * (KB_BYTES / 2), w.act,
                    ((ps.n + 63) / 64) * KB_BYTES, lead);
         ++slot;

@@ -24,6 +24,17 @@ so the device moves a tile with one bulk copy.
 The kernel masks the ragged end of the sample axis itself (samples past a
 ray's last get a zero distance, an exact no-op), so the sample axis is not
 padded and any n_sample runs.
+
+Cones (the mip arch, ``PackedNeRF.mip``): ``fused_render_cones`` and
+``fused_render_cones_weights`` take each ray's un-normalised direction,
+its cone (radius, |d|) and S + 1 interval edges, and the kernel is
+compiled with MIP: the producer encodes each interval's conical frustum
+as a Gaussian (nerf_device.cuh ``frustum_gaussian``) into its integrated
+positional encoding, the view direction takes mip-NeRF's encoding, the
+bottleneck is linear (pass kind 'lin'), the rgb head's sigmoid is widened
+to ``1.002 s - 0.001``, and the compositing runs over the interval
+lengths ``(t1 - t0) |d|``.  Their plain versions are
+``fused_render_rays_reference`` given ``cones``.
 """
 
 from __future__ import annotations
@@ -37,8 +48,11 @@ import torch
 import torch.nn.functional as F
 
 from sfm_nerf_tpu_torch.config import NeRFModelConfig, RenderConfig
-from sfm_nerf_tpu_torch.models.nerf import NeRF, layer_shapes
-from sfm_nerf_tpu_torch.ops.encoding import positional_encoding, trig_constants
+from sfm_nerf_tpu_torch.models.nerf import RGB_PADDING, NeRF, layer_shapes, n_after_skip
+from sfm_nerf_tpu_torch.ops.encoding import (
+    frustum_gaussian, integrated_pos_enc, octaves, positional_encoding, trig_constants,
+    view_encoding,
+)
 from sfm_nerf_tpu_torch.ops.render import sample_dists
 from sfm_nerf_tpu_torch.utils.profiling import count, span
 
@@ -47,11 +61,13 @@ REF_RAY_CHUNK = 1024  # rays per step of the plain version (bounds its memory)
 MAX_FREQ = 16        # the kernel's frequency table length
 RGB_HIDDEN = 128     # rgb1 width, fixed by both archs
 _KINDS = {"fc1": 0, "plain": 1, "skip": 2, "densfeat": 3, "rgb1": 4, "rgb2": 5}
+HEAD_INTS = 9        # the kernels' iparams before the layer table (nerf_device.cuh)
 TILE_K = 64          # weight rows per tile: one 128-byte swizzle atom of bf16
 SWIZZLE = 8          # 16-byte chunks per 128-byte row, permuted by the row
-_PASS_KINDS = {"relu": 0, "dens": 1, "rgb1": 2, "rgb2": 3}   # sm90_mlp.cuh PassKind
+_PASS_KINDS = {"relu": 0, "dens": 1, "rgb1": 2, "rgb2": 3, "lin": 4}   # sm90_mlp.cuh PassKind
 
-LAUNCHES: Dict[str, int] = {"fused_render_rays": 0, "fused_render_rays_weights": 0}
+LAUNCHES: Dict[str, int] = {"fused_render_rays": 0, "fused_render_rays_weights": 0,
+                            "fused_render_cones": 0, "fused_render_cones_weights": 0}
 
 
 def reset_launch_counts() -> None:
@@ -62,12 +78,11 @@ def reset_launch_counts() -> None:
 def _arch_layers(mcfg: NeRFModelConfig):
     """(body, density_act): the hidden-layer program between fc1 and the
     density/feature head, as in the JAX package."""
-    if mcfg.arch == "active":
+    if mcfg.arch in ("active", "mip"):
         body = (
             ("plain", "fc_0"), ("plain", "fc_1"), ("plain", "fc_2"),
             ("plain", "fc_3"), ("skip", "skip"),
-            ("plain", "fc2_0"), ("plain", "fc2_1"), ("plain", "fc2_2"),
-        )
+        ) + tuple(("plain", f"fc2_{i}") for i in range(n_after_skip(mcfg)))
         return body, "softplus"
     if mcfg.arch == "legacy":
         body = tuple(("plain", f"block1_{i}") for i in range(mcfg.n_block1_layers))
@@ -103,6 +118,10 @@ class PackedNeRF:
       then the density column, then zeros;
     - rgb1: (hidden + dir_dim, 128), feature rows then direction rows;
     - rgb2: (128, 16), three real columns.
+
+    ``mip``: the mip arch's network, read by the cone entry points (fc1 over
+    the 6 n_pos_freq columns of the integrated encoding, a linear
+    bottleneck, the widened sigmoid).
     """
 
     weights: torch.Tensor
@@ -115,6 +134,7 @@ class PackedNeRF:
     n_pos_freq: int
     n_dir_freq: int
     density_act: str
+    mip: bool = False
     # the module the weights were packed from: the training wrappers route
     # the packed grads back to its parameters
     model: Optional[NeRF] = None
@@ -160,7 +180,7 @@ def pack_nerf_params(model: NeRF, mcfg: NeRFModelConfig,
         if kind == "skip":
             w = torch.cat([w[:h], rows(w[h:], pos_pad)])
         blocks.append((name, kind, w, b, w.shape[0]))
-    if mcfg.arch == "active":
+    if mcfg.arch in ("active", "mip"):
         feat_w, feat_b = L["feature"]
         dens_w, dens_b = L["density"]
     else:
@@ -190,7 +210,7 @@ def pack_nerf_params(model: NeRF, mcfg: NeRFModelConfig,
         dir_dim=mcfg.dir_dim,
         n_pos_freq=mcfg.n_pos_freq if mcfg.pos_encoding else 0,
         n_dir_freq=mcfg.n_dir_freq if mcfg.pos_encoding else 0,
-        density_act=density_act, model=model,
+        density_act=density_act, mip=mcfg.arch == "mip", model=model,
     )
 
 
@@ -243,11 +263,35 @@ def swizzle128(n: np.ndarray, k: np.ndarray) -> np.ndarray:
     return n * TILE_K + (((k // 8) ^ (n % SWIZZLE)) * 8) + k % 8
 
 
+_BY_LAYOUT: Dict[tuple, object] = {}
+
+
+def by_layout(what: str, packed: PackedNeRF, build, *extra):
+    """``build()``, made once per packing layout (its layer table, widths,
+    frequencies and arch) and ``extra``: a training step packs its weights
+    anew each time, and re-deriving its plans and kernel arguments per
+    launch would cost the host more than a device step at two levels."""
+    if "layout" not in packed.tile_cache:
+        packed.tile_cache["layout"] = (
+            packed.layers, packed.hidden, packed.pos_dim, packed.pos_pad, packed.dir_dim,
+            packed.n_pos_freq, packed.n_dir_freq, packed.density_act, packed.mip)
+    key = (what, packed.tile_cache["layout"]) + extra
+    if key not in _BY_LAYOUT:
+        _BY_LAYOUT[key] = build()
+    return _BY_LAYOUT[key]
+
+
 def render_plan(packed: PackedNeRF) -> RenderPlan:
-    """The render kernel's products in order, each as its weight tiles.
+    """The render kernel's products in order, each as its weight tiles
+    (made once per layout, ``by_layout``).
     The density/feature head is two products (the 16-wide density columns
     first, then the features, which overwrite their own input); the skip
-    layer's rows split into the activation part and the encoding part."""
+    layer's rows split into the activation part and the encoding part.  The
+    mip arch's features are linear ('lin')."""
+    return by_layout("plan", packed, lambda: _render_plan(packed))
+
+
+def _render_plan(packed: PackedNeRF) -> RenderPlan:
     h, pad = packed.hidden, packed.pos_pad
     passes, off = [], 0
 
@@ -272,7 +316,7 @@ def render_plan(packed: PackedNeRF) -> RenderPlan:
             product("relu", spec, 0, h, spec.b_off, [(0, h, "act"), (h, pad, "enc")])
         elif spec.kind == "densfeat":
             product("dens", spec, h, 16, spec.b_off + h, [(0, h, "act")])
-            product("relu", spec, 0, h, spec.b_off, [(0, h, "act")])
+            product("lin" if packed.mip else "relu", spec, 0, h, spec.b_off, [(0, h, "act")])
         elif spec.kind == "rgb1":
             product("rgb1", spec, 0, RGB_HIDDEN, spec.b_off, [(0, h, "act")])
         elif spec.kind == "rgb2":
@@ -285,25 +329,23 @@ def render_plan(packed: PackedNeRF) -> RenderPlan:
                       stage_bytes=_round_up(max_bytes, 1024))
 
 
-_IMAGE_INDEX: Dict[tuple, np.ndarray] = {}
-
-
 def _image_index(packed: PackedNeRF, plan: RenderPlan) -> np.ndarray:
     """For each element of the tile image, the index of the packed weight
-    it copies, or -1 for a zero; cached per layout."""
-    key = (packed.layers, packed.hidden, packed.pos_pad, packed.dir_dim)
-    if key not in _IMAGE_INDEX:
-        specs = {s.name: s for s in packed.layers}
-        idx = np.full(plan.numel, -1, np.int64)
-        for t in plan.tiles:
-            spec = specs[t.layer]
-            n, k = np.meshgrid(np.arange(t.cols), np.arange(t.rows), indexing="ij")
-            idx[t.off + swizzle128(n, k)] = spec.w_off + (t.row0 + k) * spec.n + t.col0 + n
-        rgb1 = specs["rgb1"]
-        start = rgb1.w_off + packed.hidden * rgb1.n
-        idx[plan.dir_off:] = np.arange(start, start + packed.dir_dim * rgb1.n)
-        _IMAGE_INDEX[key] = idx
-    return _IMAGE_INDEX[key]
+    it copies, or -1 for a zero; made once per layout."""
+    return by_layout("image_index", packed, lambda: _build_image_index(packed, plan))
+
+
+def _build_image_index(packed: PackedNeRF, plan: RenderPlan) -> np.ndarray:
+    specs = {s.name: s for s in packed.layers}
+    idx = np.full(plan.numel, -1, np.int64)
+    for t in plan.tiles:
+        spec = specs[t.layer]
+        n, k = np.meshgrid(np.arange(t.cols), np.arange(t.rows), indexing="ij")
+        idx[t.off + swizzle128(n, k)] = spec.w_off + (t.row0 + k) * spec.n + t.col0 + n
+    rgb1 = specs["rgb1"]
+    start = rgb1.w_off + packed.hidden * rgb1.n
+    idx[plan.dir_off:] = np.arange(start, start + packed.dir_dim * rgb1.n)
+    return idx
 
 
 def render_tile_image(packed: PackedNeRF) -> torch.Tensor:
@@ -357,12 +399,59 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-torch.abs(x)))
 
 
+def n_intervals(packed: PackedNeRF, z_vals: torch.Tensor) -> int:
+    """Samples a ray: the depths' count, or for cones the edges' less one."""
+    return z_vals.shape[1] - int(packed.mip)
+
+
+def _dists(packed: PackedNeRF, z, rcfg: RenderConfig, cones=None):
+    """(n, S) distances: diff(z) with the variant's tail, or for cones the
+    interval lengths ``(t1 - t0) |d|``."""
+    if packed.mip:
+        return (z[:, 1:] - z[:, :-1]) * cones[:, 1:2].to(z.dtype)
+    return sample_dists(z, rcfg.variant)
+
+
+def _dir_ext(packed: PackedNeRF, d, cones=None):
+    """The direction head's input (n, dir_dim): PE(d), or for cones
+    mip-NeRF's encoding of the unit view direction ``d / |d|``."""
+    if packed.mip:
+        return view_encoding(d / cones[:, 1:2].to(d.dtype), packed.n_dir_freq)
+    return _ext(d, packed.n_dir_freq, packed.dir_dim)
+
+
+def _chunk_ext(packed: PackedNeRF, o, d, z, c0: int, ch: int, cones=None):
+    """fc1's input (n * ch, pos_pad), ray-major, of samples [c0, c0 + ch):
+    PE of the points ``o + d z``, or for cones the integrated encoding of
+    each interval's Gaussian, zero-padded."""
+    if packed.mip:
+        mean, cov = frustum_gaussian(o, d, cones[:, 0].to(o.dtype), z[:, c0:c0 + ch],
+                                     z[:, c0 + 1:c0 + ch + 1])
+        enc = integrated_pos_enc(mean.reshape(-1, 3), cov.reshape(-1, 3), packed.n_pos_freq)
+        return F.pad(enc, (0, packed.pos_pad - enc.shape[-1]))
+    pts = (o[:, None, :] + d[:, None, :] * z[:, c0:c0 + ch, None]).reshape(-1, 3)
+    return _ext(pts, packed.n_pos_freq, packed.pos_pad)
+
+
+def _heads(packed: PackedNeRF, df, h: int):
+    """(features, pre-activation density) from the merged head's output: a
+    ReLU feature, or the mip arch's linear bottleneck."""
+    return (df[:, :h] if packed.mip else torch.relu(df[:, :h])), df[:, h]
+
+
+def _rgb(packed: PackedNeRF, pre):
+    """The colours from the rgb head: sigmoid, widened for the mip arch."""
+    rgb = torch.sigmoid(pre)
+    return rgb * (1.0 + 2.0 * RGB_PADDING) - RGB_PADDING if packed.mip else rgb
+
+
 def fused_render_rays_reference(
     packed: PackedNeRF, origins: torch.Tensor, directions: torch.Tensor,
     z_vals: torch.Tensor, rcfg: RenderConfig, emit_weights: bool = False,
-    bf16_products: bool = False,
+    bf16_products: bool = False, cones: Optional[torch.Tensor] = None,
 ):
-    """Plain PyTorch version of the kernel's function.
+    """Plain PyTorch version of the kernel's function (for the mip arch the
+    cone kernel's: ``cones`` (N, 2) and the edges (N, S + 1) as ``z_vals``).
 
     Products take operands rounded to the packing dtype and sum in float32
     (bf16 x bf16 -> f32, as the tensor cores); hidden activations and the
@@ -382,7 +471,7 @@ def fused_render_rays_reference(
     body = [s for s in packed.layers if s.kind in ("plain", "skip")]
     Wf = {s.name: packed.w(s).to(ft) for s in packed.layers}
     Bf = {s.name: packed.b(s).to(ft) for s in packed.layers}
-    h, S = packed.hidden, z_vals.shape[1]
+    h, S = packed.hidden, n_intervals(packed, z_vals)
 
     def mm(a, b):
         return (a.bfloat16() @ b.bfloat16()).to(ft) if bf16_products else a @ b
@@ -395,29 +484,28 @@ def fused_render_rays_reference(
         o = origins[r0:r0 + REF_RAY_CHUNK].to(ft)
         d = directions[r0:r0 + REF_RAY_CHUNK].to(ft)
         z = z_vals[r0:r0 + REF_RAY_CHUNK].to(ft)
+        cone = cones[r0:r0 + REF_RAY_CHUNK] if cones is not None else None
         n = o.shape[0]
-        dists = sample_dists(z, rcfg.variant)
-        extd = rnd(_ext(d, packed.n_dir_freq, packed.dir_dim))
+        dists = _dists(packed, z, rcfg, cone)
+        extd = rnd(_dir_ext(packed, d, cone))
         dir_part = mm(extd, Wf["rgb1"][h:])                                # (n, 128)
         T = torch.ones(n, 1, device=o.device, dtype=ft)
         acc = torch.zeros(n, 3, device=o.device, dtype=ft)
         ws = []
         for c0 in range(0, S, CHUNK):
-            zc, dc = z[:, c0:c0 + CHUNK], dists[:, c0:c0 + CHUNK]
-            ch = zc.shape[1]
-            pts = (o[:, None, :] + d[:, None, :] * zc[..., None]).reshape(-1, 3)
-            ext = rnd(_ext(pts, packed.n_pos_freq, packed.pos_pad))
+            dc = dists[:, c0:c0 + CHUNK]
+            ch = dc.shape[1]
+            ext = rnd(_chunk_ext(packed, o, d, z, c0, ch, cone))
             x = rnd(torch.relu(lin("fc1", ext)))
             for s in body:
                 inp = torch.cat([x, ext], -1) if s.kind == "skip" else x
                 x = rnd(torch.relu(lin(s.name, inp)))
-            df = lin("densfeat", x)
-            feat = rnd(torch.relu(df[:, :h]))
-            dens = df[:, h]
+            feat, dens = _heads(packed, lin("densfeat", x), h)
+            feat = rnd(feat)
             dens = _softplus(dens) if packed.density_act == "softplus" else torch.relu(dens)
             fp = mm(feat, Wf["rgb1"][:h]).reshape(n, ch, RGB_HIDDEN)
             rgb_h = rnd(torch.relu(fp + dir_part[:, None, :] + Bf["rgb1"]))
-            rgb = torch.sigmoid(lin("rgb2", rgb_h.reshape(n * ch, -1))[:, :3])
+            rgb = _rgb(packed, lin("rgb2", rgb_h.reshape(n * ch, -1))[:, :3])
             xs = dens.reshape(n, ch) * dc
             csum = torch.cumsum(-xs, 1)
             trans = torch.exp(csum + xs) if rcfg.variant == "train" else torch.exp(csum)
@@ -433,22 +521,37 @@ def fused_render_rays_reference(
 
 
 def _kernel_args(packed: PackedNeRF, rcfg: RenderConfig):
+    """(iparams, fparams pointer, fparams): nerf_device.cuh parse_params,
+    made once per layout and compositor.  The frequency tables are pi 2^l,
+    or the mip arch's 2^l."""
+    return by_layout("args", packed, lambda: _build_kernel_args(packed, rcfg),
+                     rcfg.variant, rcfg.white_background)
+
+
+def _build_kernel_args(packed: PackedNeRF, rcfg: RenderConfig):
     ip = [len(packed.layers), packed.hidden, packed.pos_dim, packed.pos_pad,
           packed.dir_dim, int(packed.density_act == "softplus"),
-          int(rcfg.variant == "train"), int(rcfg.white_background)]
+          int(rcfg.variant == "train"), int(rcfg.white_background), int(packed.mip)]
     for s in packed.layers:
         ip += [_KINDS[s.kind], s.w_off, s.b_off, s.k, s.n]
+    freqs = octaves if packed.mip else (lambda n: trig_constants(n)[0])
     pos_f = np.zeros(MAX_FREQ, np.float32)
     dir_f = np.zeros(MAX_FREQ, np.float32)
-    pos_f[:packed.n_pos_freq] = trig_constants(packed.n_pos_freq)[0]
-    dir_f[:packed.n_dir_freq] = trig_constants(packed.n_dir_freq)[0]
+    pos_f[:packed.n_pos_freq] = freqs(packed.n_pos_freq)
+    dir_f[:packed.n_dir_freq] = freqs(packed.n_dir_freq)
     tail = np.float32(1e-3 if rcfg.variant == "train" else 1.0)
     fp = np.concatenate([[tail, trig_constants(0)[1]], pos_f, dir_f]).astype(np.float32)
     return (ctypes.c_int * len(ip))(*ip), fp.ctypes.data_as(ctypes.c_void_p), fp
 
 
 def _render_kernel_args(packed: PackedNeRF, rcfg: RenderConfig):
-    """_kernel_args with the render plan appended (sm90::parse_plan)."""
+    """_kernel_args with the render plan appended (sm90::parse_plan), made
+    once per layout and compositor."""
+    return by_layout("render_args", packed, lambda: _build_render_kernel_args(packed, rcfg),
+                     rcfg.variant, rcfg.white_background)
+
+
+def _build_render_kernel_args(packed: PackedNeRF, rcfg: RenderConfig):
     plan = render_plan(packed)
     ip, fp_ptr, fp = _kernel_args(packed, rcfg)
     tail = [len(plan.passes), len(plan.tiles), plan.dir_off, plan.act_kb, plan.enc_kb,
@@ -471,11 +574,11 @@ def _kernel_lib() -> ctypes.CDLL:
     lib = _build.load("fused_render")
     lib.sfm_fused_render.restype = ctypes.c_int
     lib.sfm_fused_render.argtypes = (
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6
         + [ctypes.c_int, ctypes.c_void_p])
     lib.sfm_fused_render_stash.restype = ctypes.c_int
     lib.sfm_fused_render_stash.argtypes = (
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6
         + [ctypes.c_int] + [ctypes.c_void_p] * 4)
     lib.sfm_fused_render_tb.restype = ctypes.c_int
     lib.sfm_fused_render_tb.argtypes = (
@@ -500,25 +603,38 @@ def render_smem_layout(packed: PackedNeRF, rcfg: RenderConfig) -> Dict[str, int]
     return {"smem_bytes": out[0], "ring_stages": out[1], "stage_bytes": out[2]}
 
 
-def _launch(packed, origins, directions, z_vals, rcfg, emit_weights):
+def _check_cones(packed: PackedNeRF, cones, z_vals) -> None:
+    """A mip packing takes cones and edges; any other neither."""
+    if packed.mip != (cones is not None):
+        given = "given" if cones is not None else "none"
+        raise ValueError("the mip arch renders cones (fused_render_cones, fused_mse_loss_cones): "
+                         f"packing mip={packed.mip}, cones {given}")
+    if cones is not None and (cones.shape != (z_vals.shape[0], 2) or z_vals.shape[1] < 2):
+        raise ValueError(f"cones {tuple(cones.shape)} and edges {tuple(z_vals.shape)}: "
+                         "expected (N, 2) and (N, S + 1)")
+
+
+def _launch(packed, origins, directions, z_vals, rcfg, emit_weights, cones=None):
     """Check the inputs, allocate the outputs and launch the CUDA kernel."""
     dev = origins.device
-    for name, t in (("directions", directions), ("z_vals", z_vals),
+    _check_cones(packed, cones, z_vals)
+    for name, t in (("directions", directions), ("z_vals", z_vals), ("cones", cones),
                     ("weights", packed.weights), ("biases", packed.biases)):
-        if t.device != dev:
+        if t is not None and t.device != dev:
             raise ValueError(f"fused render: {name} on {t.device}, origins on {dev}")
     if packed.weights.dtype != torch.bfloat16:
         raise ValueError("fused render kernel takes bf16-packed weights, got "
                          f"{packed.weights.dtype}")
     if packed.hidden > 256:
         raise ValueError(f"fused render kernel: hidden {packed.hidden} > 256")
-    n, S = z_vals.shape
+    n, S = z_vals.shape[0], n_intervals(packed, z_vals)
     if origins.shape != (n, 3) or directions.shape != (n, 3):
         raise ValueError(f"fused render: origins {tuple(origins.shape)}, directions "
-                         f"{tuple(directions.shape)}, z_vals {(n, S)}")
+                         f"{tuple(directions.shape)}, z_vals {tuple(z_vals.shape)}")
     o = origins.float().contiguous()
     d = directions.float().contiguous()
     z = z_vals.float().contiguous()
+    c = cones.float().contiguous() if cones is not None else None
     rgb = torch.empty(n, 3, device=dev, dtype=torch.float32)
     w = torch.empty(n, S, device=dev, dtype=torch.float32) if emit_weights else None
     lib = _kernel_lib()
@@ -527,7 +643,8 @@ def _launch(packed, origins, directions, z_vals, rcfg, emit_weights):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.sfm_fused_render(
-            o.data_ptr(), d.data_ptr(), z.data_ptr(), n, S,
+            o.data_ptr(), d.data_ptr(), z.data_ptr(), c.data_ptr() if c is not None else None,
+            n, S,
             image.data_ptr(), packed.biases.data_ptr(),
             ctypes.cast(ip, ctypes.c_void_p), fp_ptr,
             rgb.data_ptr(), w.data_ptr() if w is not None else None,
@@ -545,6 +662,7 @@ def fused_render_rays(
     """rgb (N, 3) of rays (N, 3) x depths (N, S) through the fused kernel
     (CUDA tensors) or its plain version (CPU tensors)."""
     _check_white(rcfg)
+    _check_cones(packed, None, z_vals)
     if origins.device.type == "cpu":
         return fused_render_rays_reference(packed, origins, directions, z_vals, rcfg)
     if origins.device.type != "cuda":
@@ -561,6 +679,7 @@ def fused_render_rays_weights(
     """fused_render_rays that also returns the per-sample compositing
     weights (N, S), the inputs of weight_maps."""
     _check_white(rcfg)
+    _check_cones(packed, None, z_vals)
     if origins.device.type == "cpu":
         return fused_render_rays_reference(packed, origins, directions, z_vals,
                                            rcfg, emit_weights=True)
@@ -568,4 +687,42 @@ def fused_render_rays_weights(
         raise ValueError(f"fused render: no kernel for device {origins.device}")
     rgb, w = _launch(packed, origins, directions, z_vals, rcfg, True)
     LAUNCHES["fused_render_rays_weights"] += 1
+    return rgb, w
+
+
+def fused_render_cones(
+    packed: PackedNeRF, origins: torch.Tensor, directions: torch.Tensor,
+    cones: torch.Tensor, edges: torch.Tensor, rcfg: RenderConfig,
+) -> torch.Tensor:
+    """rgb (N, 3) of cones (origins (N, 3), un-normalised directions (N, 3),
+    cones (N, 2): radius and |d|) over the intervals between edges (N, S +
+    1), through the mip arch's packing: the cone kernel (CUDA tensors) or
+    its plain version (CPU tensors)."""
+    _check_white(rcfg)
+    _check_cones(packed, cones, edges)
+    if origins.device.type == "cpu":
+        return fused_render_rays_reference(packed, origins, directions, edges, rcfg,
+                                           cones=cones)
+    if origins.device.type != "cuda":
+        raise ValueError(f"fused render: no kernel for device {origins.device}")
+    rgb, _ = _launch(packed, origins, directions, edges, rcfg, False, cones)
+    LAUNCHES["fused_render_cones"] += 1
+    return rgb
+
+
+def fused_render_cones_weights(
+    packed: PackedNeRF, origins: torch.Tensor, directions: torch.Tensor,
+    cones: torch.Tensor, edges: torch.Tensor, rcfg: RenderConfig,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """fused_render_cones that also returns each interval's compositing
+    weight (N, S): the coarse level of a mip-NeRF frame."""
+    _check_white(rcfg)
+    _check_cones(packed, cones, edges)
+    if origins.device.type == "cpu":
+        return fused_render_rays_reference(packed, origins, directions, edges, rcfg,
+                                           emit_weights=True, cones=cones)
+    if origins.device.type != "cuda":
+        raise ValueError(f"fused render: no kernel for device {origins.device}")
+    rgb, w = _launch(packed, origins, directions, edges, rcfg, True, cones)
+    LAUNCHES["fused_render_cones_weights"] += 1
     return rgb, w

@@ -62,6 +62,16 @@ dot as one bf16 pass.
 
 Only the 'train' compositor trains through these kernels (white background
 included); the sample axis is masked in the kernel, so any n_sample runs.
+
+Cones (the mip arch): ``fused_mse_loss_cones`` and
+``fused_mse_loss_cones_weights`` are K2 and K4 over cones (origins,
+un-normalised directions, (radius, |d|)) and S + 1 interval edges a ray:
+the same three launches compiled with MIP (fused_render.py's docstring),
+the reverse walk's rgb cotangent scaled by the widened sigmoid's 1.002, no
+ReLU mask on the linear bottleneck's cotangent, and the compositing
+backward over the interval lengths.  Each of their calls adds the points
+it encodes (rays x intervals) to the counter ``ipe_points``.  The plain
+versions take ``cones`` and the edges as ``z_vals``.
 """
 
 from __future__ import annotations
@@ -77,11 +87,11 @@ import torch.nn.functional as F
 from sfm_nerf_tpu_torch.config import RenderConfig
 from sfm_nerf_tpu_torch.kernels import fused_render as _fr
 from sfm_nerf_tpu_torch.kernels.fused_render import (
-    CHUNK, REF_RAY_CHUNK, RGB_HIDDEN, TILE_K, PackedNeRF, _ext, _kernel_args, _softplus,
-    render_plan,
+    CHUNK, REF_RAY_CHUNK, RGB_HIDDEN, TILE_K, PackedNeRF, _check_cones, _chunk_ext, _dir_ext,
+    _dists, _heads, _kernel_args, _rgb, _softplus, n_intervals, render_plan,
 )
-from sfm_nerf_tpu_torch.ops.render import sample_dists
-from sfm_nerf_tpu_torch.utils.profiling import span
+from sfm_nerf_tpu_torch.models.nerf import RGB_PADDING
+from sfm_nerf_tpu_torch.utils.profiling import count, span
 
 IMG_ROWS = 64                   # points per stash record: the render kernel's warpgroup tile
 IMG_BLOCK = IMG_ROWS * TILE_K   # bf16 elements of one 64-row x 64-column stash block
@@ -98,7 +108,8 @@ _GEMM_MAX_TASKS = 64
 
 LAUNCHES: Dict[str, int] = {
     "fused_mse_loss": 0, "fused_mse_loss_weights": 0, "fused_render_train": 0,
-    "fused_render_train_backward": 0}
+    "fused_render_train_backward": 0, "fused_mse_loss_cones": 0,
+    "fused_mse_loss_cones_weights": 0}
 
 
 def reset_launch_counts() -> None:
@@ -169,7 +180,7 @@ def _rounding(packed: PackedNeRF, origins):
 
 
 def _reference_forward(packed: PackedNeRF, origins, directions, z_vals, rcfg: RenderConfig,
-                       chunk: int, keep: bool, tc_order: bool = False):
+                       chunk: int, keep: bool, tc_order: bool = False, cones=None):
     """The plain forward, REF_RAY_CHUNK rays at a time.  Yields (r0, rgb,
     tb, w, saved, extd) per ray chunk: tb the transmittance entering each
     ``chunk``-sample chunk, w the compositing weights, and with ``keep``
@@ -185,7 +196,7 @@ def _reference_forward(packed: PackedNeRF, origins, directions, z_vals, rcfg: Re
     body = [s for s in packed.layers if s.kind in ("plain", "skip")]
     Wf = {s.name: packed.w(s).detach().to(ft) for s in packed.layers}
     Bf = {s.name: packed.b(s).detach().to(ft) for s in packed.layers}
-    h, S = packed.hidden, z_vals.shape[1]
+    h, S = packed.hidden, n_intervals(packed, z_vals)
     dev = origins.device
 
     def lin(x, W, b, bias_first=True):
@@ -201,9 +212,10 @@ def _reference_forward(packed: PackedNeRF, origins, directions, z_vals, rcfg: Re
         o = origins[r0:r0 + REF_RAY_CHUNK].to(ft)
         d = directions[r0:r0 + REF_RAY_CHUNK].to(ft)
         z = z_vals[r0:r0 + REF_RAY_CHUNK].to(ft)
+        cone = cones[r0:r0 + REF_RAY_CHUNK] if cones is not None else None
         n = o.shape[0]
-        dists = sample_dists(z, rcfg.variant)
-        extd = rnd(_ext(d, packed.n_dir_freq, packed.dir_dim))
+        dists = _dists(packed, z, rcfg, cone)
+        extd = rnd(_dir_ext(packed, d, cone))
         if tc_order:
             dir_part = torch.zeros(n, RGB_HIDDEN, device=dev, dtype=ft)
             for k in range(extd.shape[1]):
@@ -214,18 +226,17 @@ def _reference_forward(packed: PackedNeRF, origins, directions, z_vals, rcfg: Re
         acc = torch.zeros(n, 3, device=dev, dtype=ft)
         saved, tb, ws = [], [], []
         for c0 in range(0, S, chunk):
-            zc, dc = z[:, c0:c0 + chunk], dists[:, c0:c0 + chunk]
-            ch = zc.shape[1]
-            pts = (o[:, None, :] + d[:, None, :] * zc[..., None]).reshape(-1, 3)
-            ext = rnd(_ext(pts, packed.n_pos_freq, packed.pos_pad))
+            dc = dists[:, c0:c0 + chunk]
+            ch = dc.shape[1]
+            ext = rnd(_chunk_ext(packed, o, d, z, c0, ch, cone))
             hs = [rnd(torch.relu(lin(ext, Wf["fc1"], Bf["fc1"])))]
             for s in body:
                 inp = torch.cat([hs[-1], ext], -1) if s.kind == "skip" else hs[-1]
                 hs.append(rnd(torch.relu(lin(inp, Wf[s.name], Bf[s.name]))))
-            df = lin(hs[-1], Wf["densfeat"], Bf["densfeat"])
-            feat = rnd(torch.relu(df[:, :h]))
-            dens = (lin(hs[-1], Wf["densfeat"][:, h:h + 1], Bf["densfeat"][h:h + 1], False)[:, 0]
-                    if tc_order else df[:, h])
+            feat, dens = _heads(packed, lin(hs[-1], Wf["densfeat"], Bf["densfeat"]), h)
+            feat = rnd(feat)
+            if tc_order:
+                dens = lin(hs[-1], Wf["densfeat"][:, h:h + 1], Bf["densfeat"][h:h + 1], False)[:, 0]
             dens = _softplus(dens) if packed.density_act == "softplus" else torch.relu(dens)
             if tc_order:
                 head = (dir_part[:, None, :] + Bf["rgb1"]).expand(n, ch, RGB_HIDDEN)
@@ -234,7 +245,7 @@ def _reference_forward(packed: PackedNeRF, origins, directions, z_vals, rcfg: Re
                 pre = (feat @ Wf["rgb1"][:h]).reshape(n, ch, RGB_HIDDEN) + dir_part[:, None, :] \
                     + Bf["rgb1"]
             rgb_h = rnd(torch.relu(pre)).reshape(n * ch, -1)
-            rgb = torch.sigmoid(lin(rgb_h, Wf["rgb2"], Bf["rgb2"], False)[:, :3]).reshape(n, ch, 3)
+            rgb = _rgb(packed, lin(rgb_h, Wf["rgb2"], Bf["rgb2"], False)[:, :3]).reshape(n, ch, 3)
             xs = dens.reshape(n, ch) * dc
             csum = torch.cumsum(-xs, 1)
             Ti = T * torch.exp(csum + xs)
@@ -277,22 +288,28 @@ def _walk_back(packed: PackedNeRF, item, g, gsum, carry, ddir, gB, on_layer):
     dact = (1.0 - torch.exp(-dens2) if packed.density_act == "softplus"
             else (dens2 > 0).to(ft))
     ddens = (dsigma * dact).reshape(-1)
-    drgb = ((w[..., None] * g[:, None, :]) * rgb * (1.0 - rgb)).reshape(-1, 3)
+    if packed.mip:
+        # the widened sigmoid c = 1.002 s - 0.001: s from c, dc/dpre = 1.002 s (1 - s)
+        s = (rgb + RGB_PADDING) / (1.0 + 2.0 * RGB_PADDING)
+        drgb = ((w[..., None] * g[:, None, :]) * (1.0 + 2.0 * RGB_PADDING) * s * (1.0 - s))
+    else:
+        drgb = (w[..., None] * g[:, None, :]) * rgb * (1.0 - rgb)
+    drgb = drgb.reshape(-1, 3)
 
-    def back(name, parts, D):
+    def back(name, parts, D, mask=True):
         """Layer ``name``'s grads from D; the input cotangent, masked by
-        A > 0 and rounded."""
+        A > 0 (the input of a ReLU layer) and rounded."""
         on_layer(name, parts, D)
         gB[name] += D.sum(0)
         A = parts[0][1]
         k = A.shape[1]
         W = packed.w(specs[name]).detach().to(ft)
-        return rnd((D @ W[:k].t()) * (A > 0))
+        return rnd((D @ W[:k].t()) * (A > 0) if mask else D @ W[:k].t())
 
     D = rnd(F.pad(drgb, (0, specs["rgb2"].n - 3)))
     D = back("rgb2", [(0, rgb_h)], D)
     ddir = ddir + D.reshape(n, ch, -1).sum(1)
-    D = back("rgb1", [(0, feat)], D)
+    D = back("rgb1", [(0, feat)], D, mask=not packed.mip)
     D = torch.cat([D, rnd(ddens)[:, None],
                    torch.zeros(D.shape[0], specs["densfeat"].n - h - 1, device=dev, dtype=ft)], 1)
     D = back("densfeat", [(0, hs[-1])], D)
@@ -315,7 +332,7 @@ def _flat_grads(packed: PackedNeRF, gW, gB, like):
 
 
 def _reference_pass(packed: PackedNeRF, origins, directions, z_vals, rcfg: RenderConfig,
-                    cotangent, chunk: int, tc_order: bool = False):
+                    cotangent, chunk: int, tc_order: bool = False, cones=None):
     """Forward and reverse walk of the plain version over all rays.
 
     ``cotangent(rgb, r0)`` -> g for the rays ``[r0, r0 + len(rgb))``, or
@@ -336,7 +353,7 @@ def _reference_pass(packed: PackedNeRF, origins, directions, z_vals, rcfg: Rende
     rgb_parts, tb_parts, w_parts = [], [], []
     for r0, rgb_out, tb, ws, saved, extd in _reference_forward(
             packed, origins, directions, z_vals, rcfg, chunk, cotangent is not None,
-            tc_order):
+            tc_order, cones):
         rgb_parts.append(rgb_out)
         tb_parts.append(tb)
         w_parts.append(ws)
@@ -398,6 +415,11 @@ class StashLayout:
 
 
 def stash_layout(packed: PackedNeRF) -> StashLayout:
+    """The packing's StashLayout, made once per layout."""
+    return _fr.by_layout("stash", packed, lambda: _build_stash_layout(packed))
+
+
+def _build_stash_layout(packed: PackedNeRF) -> StashLayout:
     plan = render_plan(packed)
     n_slots = len(packed.layers) - 1
     offs, b = [], 0
@@ -445,7 +467,7 @@ def _stash_dtype(packed: PackedNeRF, ft):
 
 
 def split_forward_reference(packed: PackedNeRF, origins, directions, z_vals,
-                            rcfg: RenderConfig):
+                            rcfg: RenderConfig, cones=None):
     """Plain version of the split step's forward sweep (fused_render.cu
     STASH) on one ray group: (rgb (n, 3), tb (n, ceil(S / 128)), weights (n,
     S), stash), stash = {"act": (n_rec, rec_act), "pt": (n_rec * 64, 4)}
@@ -455,7 +477,7 @@ def split_forward_reference(packed: PackedNeRF, origins, directions, z_vals,
     _check(rcfg)
     ft, _ = _rounding(packed, origins)
     lay = stash_layout(packed)
-    n, S = z_vals.shape
+    n, S = z_vals.shape[0], n_intervals(packed, z_vals)
     dev = origins.device
     n_rec = n * 2 * -(-S // CHUNK)
     act = torch.zeros(n_rec, lay.rec_act, device=dev, dtype=_stash_dtype(packed, ft))
@@ -466,7 +488,7 @@ def split_forward_reference(packed: PackedNeRF, origins, directions, z_vals,
                  for j, s in enumerate(packed.layers[:-1])]}
     rgb_p, tb_p, w_p = [], [], []
     for r0, rgb_out, tb, ws, saved, _ in _reference_forward(
-            packed, origins, directions, z_vals, rcfg, CHUNK, True):
+            packed, origins, directions, z_vals, rcfg, CHUNK, True, cones=cones):
         rgb_p.append(rgb_out)
         tb_p.append(tb)
         w_p.append(ws)
@@ -483,7 +505,7 @@ def split_forward_reference(packed: PackedNeRF, origins, directions, z_vals,
 
 def split_reverse_reference(packed: PackedNeRF, directions, z_vals, rcfg: RenderConfig,
                             rgb, target, tb, stash, gscale: float,
-                            g: Optional[torch.Tensor] = None):
+                            g: Optional[torch.Tensor] = None, cones=None):
     """Plain version of the split step's reverse walk (fused_train.cu) on
     one ray group: from the forward's tb and stash and the cotangent, ``g``
     (n, 3) or else (rgb - target) * gscale, (cot (n_rec, rec_cot) with every
@@ -492,7 +514,7 @@ def split_reverse_reference(packed: PackedNeRF, directions, z_vals, rcfg: Render
     _check(rcfg)
     ft = stash["pt"].dtype
     lay = stash_layout(packed)
-    n, S = z_vals.shape
+    n, S = z_vals.shape[0], n_intervals(packed, z_vals)
     dev = z_vals.device
     act = stash["act"]
     cot = torch.zeros(act.shape[0], lay.rec_cot, device=dev, dtype=act.dtype)
@@ -506,7 +528,7 @@ def split_reverse_reference(packed: PackedNeRF, directions, z_vals, rcfg: Render
                  for s in packed.layers}
     gB = {s.name: torch.zeros(s.n, device=dev, dtype=ft) for s in packed.layers}
     gdir = torch.zeros(packed.dir_dim, RGB_HIDDEN, device=dev, dtype=ft)
-    dists_all = sample_dists(z_vals.to(ft), rcfg.variant)
+    dists_all = _dists(packed, z_vals.to(ft), rcfg, cones)
     nc = -(-S // CHUNK)
     for r0 in range(0, n, REF_RAY_CHUNK):
         m = min(REF_RAY_CHUNK, n - r0)
@@ -533,7 +555,8 @@ def split_reverse_reference(packed: PackedNeRF, directions, z_vals, rcfg: Render
 
             carry, ddir = _walk_back(packed, item, gr, gsum, carry, ddir, gB, keep_d)
         extd = _rounding(packed, z_vals.to(ft))[1](
-            _ext(directions[r0:r0 + m].to(ft), packed.n_dir_freq, packed.dir_dim))
+            _dir_ext(packed, directions[r0:r0 + m].to(ft),
+                     cones[r0:r0 + m] if cones is not None else None))
         gdir += extd.t() @ ddir
     for name, (i, _) in specs.items():
         to_image(cot, lay.cot_off[i], dense_cot[name])
@@ -571,14 +594,14 @@ def grad_gemm_reference(packed: PackedNeRF, act, cot, dtype=torch.float32):
 
 def split_backward_reference(packed: PackedNeRF, directions, z_vals, rcfg: RenderConfig,
                              rgb, target, tb, stash, gscale: float,
-                             g: Optional[torch.Tensor] = None):
+                             g: Optional[torch.Tensor] = None, cones=None):
     """The plain versions of the reverse walk and the weight GEMM chained on
     one ray group's forward (rgb, tb, stash) under the cotangent of
     split_reverse_reference: (gw, gb), the group's flat grads in the packed
     layout, in the float type of ``stash["pt"]``."""
     ft = stash["pt"].dtype
     cot, gb, gdir = split_reverse_reference(packed, directions, z_vals, rcfg, rgb, target, tb,
-                                            stash, gscale, g)
+                                            stash, gscale, g, cones)
     gw = grad_gemm_reference(packed, stash["act"], cot, ft)
     spec = {s.name: s for s in packed.layers}["rgb1"]
     dir0 = spec.w_off + packed.hidden * spec.n
@@ -588,7 +611,7 @@ def split_backward_reference(packed: PackedNeRF, directions, z_vals, rcfg: Rende
 
 def split_step_reference(packed: PackedNeRF, origins, directions, z_vals, target,
                          rcfg: RenderConfig, group: int = None,
-                         g: Optional[torch.Tensor] = None):
+                         g: Optional[torch.Tensor] = None, cones=None):
     """The three plain versions chained over ray groups of ``group`` rays
     (RAY_GROUP by default), grads summed over the groups in order: (rgb (N,
     3), weights (N, S), gw, gb).  Under the MSE's cotangent (``target``)
@@ -604,12 +627,13 @@ def split_step_reference(packed: PackedNeRF, origins, directions, z_vals, target
     rgb_p, w_p = [], []
     for r0 in range(0, n, group):
         sl = slice(r0, r0 + group)
+        cone = cones[sl] if cones is not None else None
         rgb, tb, w, stash = split_forward_reference(
-            packed, origins[sl], directions[sl], z_vals[sl], rcfg)
+            packed, origins[sl], directions[sl], z_vals[sl], rcfg, cone)
         gw_g, gb_g = split_backward_reference(
             packed, directions[sl], z_vals[sl], rcfg, rgb,
             target[sl] if g is None else None, tb, stash, 2.0 / (3.0 * n),
-            g[sl] if g is not None else None)
+            g[sl] if g is not None else None, cone)
         gw, gb = gw + gw_g, gb + gb_g
         rgb_p.append(rgb)
         w_p.append(w)
@@ -618,7 +642,7 @@ def split_step_reference(packed: PackedNeRF, origins, directions, z_vals, target
 
 def fused_mse_loss_reference(packed: PackedNeRF, origins, directions, z_vals, target,
                              rcfg: RenderConfig, chunk: int = CHUNK,
-                             tc_order: bool = False):
+                             tc_order: bool = False, cones=None):
     """Plain PyTorch version of the step kernel: (rgb (N, 3), gw, gb) with
     gw / gb the grads of mean((rgb - target)^2) in the packed layout.
 
@@ -630,13 +654,13 @@ def fused_mse_loss_reference(packed: PackedNeRF, origins, directions, z_vals, ta
     kernel's wgmma chain, _reference_forward): a witness of how far the
     grads move with the forward's summation order alone."""
     rgb, _, gw, gb = fused_mse_loss_weights_reference(
-        packed, origins, directions, z_vals, target, rcfg, chunk, tc_order)
+        packed, origins, directions, z_vals, target, rcfg, chunk, tc_order, cones)
     return rgb, gw, gb
 
 
 def fused_mse_loss_weights_reference(packed: PackedNeRF, origins, directions, z_vals, target,
                                      rcfg: RenderConfig, chunk: int = CHUNK,
-                                     tc_order: bool = False):
+                                     tc_order: bool = False, cones=None):
     """Plain PyTorch version of the step kernel with its weights output:
     (rgb (N, 3), weights (N, S), gw, gb), the weights those the forward
     sweep composited with, at the caller's sample count."""
@@ -645,7 +669,7 @@ def fused_mse_loss_weights_reference(packed: PackedNeRF, origins, directions, z_
     rgb, _, weights, gw, gb = _reference_pass(
         packed, origins, directions, z_vals, rcfg,
         lambda rgb, r0: (rgb - target[r0:r0 + rgb.shape[0]].to(rgb.dtype)) * scale, chunk,
-        tc_order)
+        tc_order, cones)
     return rgb, weights, gw, gb
 
 
@@ -679,7 +703,7 @@ def _kernel_lib() -> ctypes.CDLL:
     lib = _build.load("fused_train")
     lib.sfm_reverse_walk.restype = ctypes.c_int
     lib.sfm_reverse_walk.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_float] + [ctypes.c_int] * 2
+        [ctypes.c_void_p] * 6 + [ctypes.c_float] + [ctypes.c_int] * 2
         + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
     lib.sfm_reduce_add.restype = ctypes.c_int
     lib.sfm_reduce_add.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int]
@@ -711,12 +735,17 @@ def _ptr(x) -> Optional[int]:
     return x.data_ptr() if x is not None else None
 
 
-def _check_inputs(packed: PackedNeRF, origins, directions, z_vals, **extra) -> None:
-    """The kernels' input checks: devices, shapes, the bf16 packing."""
+def _check_inputs(packed: PackedNeRF, origins, directions, z_vals, cones=None,
+                  **extra) -> None:
+    """The kernels' input checks: devices, shapes, the bf16 packing, cones
+    for the mip arch and for no other."""
     dev = origins.device
-    n, S = z_vals.shape
+    _check_cones(packed, cones, z_vals)
+    n, S = z_vals.shape[0], n_intervals(packed, z_vals)
     tensors = [("directions", directions), ("z_vals", z_vals),
                ("weights", packed.weights), ("biases", packed.biases)]
+    if cones is not None:
+        tensors.append(("cones", cones))
     for name, t in extra.items():
         if t is not None:
             tensors.append((name, t))
@@ -798,22 +827,18 @@ def walk_plan(packed: PackedNeRF) -> Tuple[WalkStage, ...]:
     return tuple(stages)
 
 
-_WALK_INTS: Dict[tuple, ctypes.Array] = {}
-
-
 def _walk_ints(packed: PackedNeRF) -> ctypes.Array:
     """The reverse walk's layout argument (fused_train.cu parse_walk):
     StashLayout.ints(), the stage count, then (layer, k0, kc, pieces,
-    4 piece offsets) per stage; cached per layout."""
-    key = (packed.layers, packed.hidden, packed.pos_pad, packed.dir_dim)
-    if key not in _WALK_INTS:
+    4 piece offsets) per stage; made once per layout."""
+    def build():
         ints = stash_layout(packed).ints()
         stages = walk_plan(packed)
         ints.append(len(stages))
         for s in stages:
             ints += [s.layer, s.k0, s.kc, len(s.offs), *s.offs, *[0] * (4 - len(s.offs))]
-        _WALK_INTS[key] = (ctypes.c_int * len(ints))(*ints)
-    return _WALK_INTS[key]
+        return (ctypes.c_int * len(ints))(*ints)
+    return _fr.by_layout("walk", packed, build)
 
 
 def _gemm_partials(packed: PackedNeRF, n_rec: int, dev) -> torch.Tensor:
@@ -827,11 +852,11 @@ def _gemm_partials(packed: PackedNeRF, n_rec: int, dev) -> torch.Tensor:
 
 
 def _gemm_tasks(packed: PackedNeRF):
-    """(n_tasks, tasks as an int32 array), cached on the packing."""
-    if "gemm_tasks" not in packed.tile_cache:
+    """(n_tasks, tasks as an int32 array), made once per layout."""
+    def build():
         flat = np.asarray(gemm_tasks(packed), np.int32)
-        packed.tile_cache["gemm_tasks"] = (flat.shape[0], flat)
-    return packed.tile_cache["gemm_tasks"]
+        return flat.shape[0], flat
+    return _fr.by_layout("gemm", packed, build)
 
 
 def _gemm_launch(packed: PackedNeRF, act, cot, n_rec: int, partials) -> None:
@@ -876,32 +901,33 @@ def _scratch(shape, dtype, device) -> torch.Tensor:
     return torch.empty(shape, device=device, dtype=dtype)
 
 
-def _split_forward(packed: PackedNeRF, rcfg: RenderConfig, o, d, z, rgb, w, tb, act, pt) -> None:
+def _split_forward(packed: PackedNeRF, rcfg: RenderConfig, o, d, z, rgb, w, tb, act, pt,
+                   c=None) -> None:
     """The forward sweep of one ray group (fused_render.cu STASH, K1's
     arithmetic): writes rgb, the weights ``w`` (or none), tb and the stash
-    records ``act`` and ``pt``."""
-    n, S = z.shape
+    records ``act`` and ``pt``.  ``c``: the cones of a mip packing."""
+    n, S = z.shape[0], n_intervals(packed, z)
     lib = _fr._kernel_lib()
     ip, fp, _fp_keep = _fr._render_kernel_args(packed, rcfg)
     image = _fr.render_tile_image(packed)
     stream = torch.cuda.current_stream(o.device).cuda_stream
     with span("k2.stash"):
         err = lib.sfm_fused_render_stash(
-            o.data_ptr(), d.data_ptr(), z.data_ptr(), n, S, image.data_ptr(),
+            o.data_ptr(), d.data_ptr(), z.data_ptr(), _ptr(c), n, S, image.data_ptr(),
             packed.biases.data_ptr(), ctypes.cast(ip, ctypes.c_void_p), fp, rgb.data_ptr(),
             _ptr(w), int(w is not None), act.data_ptr(), pt.data_ptr(), tb.data_ptr(), stream)
     _raise(lib, err, "split-step forward sweep")
 
 
 def _split_backward(packed: PackedNeRF, rcfg: RenderConfig, o, d, z, t, rgb, tb, act, pt,
-                    gscale: float, grads, g=None) -> None:
+                    gscale: float, grads, g=None, c=None) -> None:
     """The reverse walk (fused_train.cu) and the weight GEMM (grad_gemm.cu)
     of one ray group on its forward's tb and stash, under the cotangent
     ``g`` (n, 3) or, without it, (rgb - t) * gscale, and the two
     fixed-order reductions that add the group's partial grads to ``grads``
     (weights then biases, packed layout)."""
     dev = o.device
-    n, S = z.shape
+    n, S = z.shape[0], n_intervals(packed, z)
     n_rec = n * 2 * -(-S // CHUNK)
     lay = stash_layout(packed)
     n_w, n_b = packed.weights.numel(), packed.biases.numel()
@@ -920,7 +946,7 @@ def _split_backward(packed: PackedNeRF, rcfg: RenderConfig, o, d, z, t, rgb, tb,
     stream = torch.cuda.current_stream(dev).cuda_stream
     with span("k2.walk"):
         err = lib.sfm_reverse_walk(
-            d.data_ptr(), z.data_ptr(), rgb.data_ptr() if mse else None,
+            d.data_ptr(), z.data_ptr(), _ptr(c), rgb.data_ptr() if mse else None,
             t.data_ptr() if mse else None, None if mse else g.data_ptr(), gscale, n, S,
             image.data_ptr(), ctypes.cast(ip, ctypes.c_void_p), fp, tb.data_ptr(),
             act.data_ptr(), pt.data_ptr(), cot.data_ptr(),
@@ -934,17 +960,20 @@ def _split_backward(packed: PackedNeRF, rcfg: RenderConfig, o, d, z, t, rgb, tb,
 
 
 def _split_step(packed: PackedNeRF, origins, directions, z_vals, target, rcfg: RenderConfig,
-                emit_weights: bool, group: int = RAY_GROUP, g: Optional[torch.Tensor] = None):
+                emit_weights: bool, group: int = RAY_GROUP, g: Optional[torch.Tensor] = None,
+                cones=None):
     """The split step on the card: per group of ``group`` rays, in ray
     order, _split_forward then _split_backward, each group's partials added
     to the grads in order.  The cotangent is the MSE's against ``target``,
-    or ``g`` (N, 3) where given (``target`` None).  Returns (rgb, weights or
+    or ``g`` (N, 3) where given (``target`` None).  ``cones``: a mip
+    packing's, with the edges as ``z_vals``.  Returns (rgb, weights or
     None, tb, grads)."""
-    _check_inputs(packed, origins, directions, z_vals, target=target, g=g)
+    _check_inputs(packed, origins, directions, z_vals, cones, target=target, g=g)
     dev = origins.device
-    n, S = z_vals.shape
+    n, S = z_vals.shape[0], n_intervals(packed, z_vals)
     f32 = dict(device=dev, dtype=torch.float32)
     o, d, z = (x.float().contiguous() for x in (origins, directions, z_vals))
+    c = cones.float().contiguous() if cones is not None else None
     cot = (target if g is None else g).float().contiguous()
     nc = -(-S // CHUNK)
     lay = stash_layout(packed)
@@ -959,10 +988,12 @@ def _split_step(packed: PackedNeRF, origins, directions, z_vals, target, rcfg: R
         for r0 in range(0, n, group):
             sl = slice(r0, r0 + group)
             og, dg, zg, rg, tbg = o[sl], d[sl], z[sl], rgb[sl], tb[sl]
+            cg = c[sl] if c is not None else None
             _split_forward(packed, rcfg, og, dg, zg, rg, w[sl] if w is not None else None, tbg,
-                           act, pt)
+                           act, pt, cg)
             _split_backward(packed, rcfg, og, dg, zg, cot[sl] if g is None else None, rg, tbg,
-                            act, pt, 2.0 / (3.0 * n), grads, g=None if g is None else cot[sl])
+                            act, pt, 2.0 / (3.0 * n), grads, g=None if g is None else cot[sl],
+                            c=cg)
     return rgb, w, tb, grads
 
 
@@ -981,6 +1012,7 @@ def fused_mse_loss_grads(packed: PackedNeRF, origins, directions, z_vals, target
     stashes every output cotangent, the weight GEMM over both; three
     forwards' worth of products)."""
     _check(rcfg)
+    _check_cones(packed, None, z_vals)
     if _device_kind(origins) == "cpu":
         return fused_mse_loss_reference(packed, origins, directions, z_vals, target, rcfg)
     rgb, _, _, grads = _split_step(packed, origins, directions, z_vals, target, rcfg, False)
@@ -995,6 +1027,7 @@ def fused_mse_loss_weights_grads(packed: PackedNeRF, origins, directions, z_vals
     per-sample compositing weights of the forward sweep, from the same split
     step (CUDA tensors) or the plain version (CPU tensors)."""
     _check(rcfg)
+    _check_cones(packed, None, z_vals)
     if _device_kind(origins) == "cpu":
         return fused_mse_loss_weights_reference(packed, origins, directions, z_vals, target,
                                                 rcfg)
@@ -1068,6 +1101,7 @@ def fused_render_train_forward(packed: PackedNeRF, origins, directions, z_vals,
     fused_render_rays', tb to the split step's forward sweep's); CPU tensors
     run the plain version."""
     _check(rcfg)
+    _check_cones(packed, None, z_vals)
     if _device_kind(origins) == "cpu":
         return fused_render_train_reference(packed, origins, directions, z_vals, rcfg)
     _check_inputs(packed, origins, directions, z_vals)
@@ -1136,3 +1170,78 @@ def fused_render_train(packed: PackedNeRF, origins, directions, z_vals,
         raise ValueError("fused_render_train: pack with pack_nerf_params(model, ...)")
     return _FusedRenderTrain.apply(packed, origins, directions, z_vals, rcfg,
                                    *packed.model.parameters())
+
+
+# ---------------------------------------------------------------------------
+# cones (the mip arch)
+# ---------------------------------------------------------------------------
+
+
+def fused_mse_loss_cones_grads(packed: PackedNeRF, origins, directions, cones, edges, target,
+                               rcfg: RenderConfig, emit_weights: bool = False):
+    """(rgb (N, 3), weights (N, S) or None, gw, gb): the cone step's raw
+    outputs over the intervals between ``edges`` (N, S + 1), float32 grads
+    of mean((rgb - target)^2) in the packed layout.  CPU tensors run the
+    plain version, CUDA tensors the split step compiled with MIP.  Adds N
+    S to the counter ``ipe_points``."""
+    _check(rcfg)
+    _check_cones(packed, cones, edges)
+    count("ipe_points", edges.shape[0] * (edges.shape[1] - 1))
+    if _device_kind(origins) == "cpu":
+        rgb, w, gw, gb = fused_mse_loss_weights_reference(
+            packed, origins, directions, edges, target, rcfg, cones=cones)
+        return rgb, (w if emit_weights else None), gw, gb
+    rgb, w, _, grads = _split_step(packed, origins, directions, edges, target, rcfg,
+                                   emit_weights, cones=cones)
+    LAUNCHES["fused_mse_loss_cones_weights" if emit_weights else "fused_mse_loss_cones"] += 1
+    n_w = packed.weights.numel()
+    return rgb, w, grads[:n_w], grads[n_w:]
+
+
+class _FusedMSELossCones(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, packed, origins, directions, cones, edges, target, rcfg, *params):
+        rgb, _, gw, gb = fused_mse_loss_cones_grads(packed, origins, directions, cones, edges,
+                                                    target, rcfg)
+        ctx.grads = _param_grads(packed, params, gw, gb)
+        return torch.mean((rgb - target.to(rgb.dtype)) ** 2)
+
+    @staticmethod
+    def backward(ctx, gbar):
+        return (None,) * 7 + tuple(gbar * g for g in ctx.grads)
+
+
+class _FusedMSELossConesWeights(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, packed, origins, directions, cones, edges, target, rcfg, *params):
+        rgb, w, gw, gb = fused_mse_loss_cones_grads(packed, origins, directions, cones, edges,
+                                                    target, rcfg, emit_weights=True)
+        ctx.grads = _param_grads(packed, params, gw, gb)
+        ctx.mark_non_differentiable(w)
+        return torch.mean((rgb - target.to(rgb.dtype)) ** 2), w
+
+    @staticmethod
+    def backward(ctx, gbar, _gw):
+        return (None,) * 7 + tuple(gbar * g for g in ctx.grads)
+
+
+def fused_mse_loss_cones(packed: PackedNeRF, origins, directions, cones, edges, target,
+                         rcfg: RenderConfig) -> torch.Tensor:
+    """fused_mse_loss over cones (origins, un-normalised directions, cones
+    (N, 2): radius and |d|) and the intervals between ``edges`` (N, S + 1):
+    the fine level of a mip-NeRF step."""
+    if packed.model is None:
+        raise ValueError("fused_mse_loss_cones: pack with pack_nerf_params(model, ...)")
+    return _FusedMSELossCones.apply(packed, origins, directions, cones, edges, target, rcfg,
+                                    *packed.model.parameters())
+
+
+def fused_mse_loss_cones_weights(packed: PackedNeRF, origins, directions, cones, edges, target,
+                                 rcfg: RenderConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(loss, weights (N, S)): fused_mse_loss_cones and each interval's
+    compositing weight, detached: the coarse level of a mip-NeRF step, whose
+    weights feed the resampler."""
+    if packed.model is None:
+        raise ValueError("fused_mse_loss_cones_weights: pack with pack_nerf_params(model, ...)")
+    return _FusedMSELossConesWeights.apply(packed, origins, directions, cones, edges, target,
+                                           rcfg, *packed.model.parameters())

@@ -9,6 +9,12 @@ sfm_nerf_tpu/models/nerf.py.
   the density -> the same rgb head.  ``density_fc`` exists in every legacy
   state dict but the forward pass never reads it; it is kept for the round
   trip.
+- ``mip`` (mip-NeRF): fc1 over the integrated positional encoding of a
+  Gaussian -> 4 hidden layers -> skip layer over [h ++ IPE] -> 2 hidden
+  layers -> {softplus density head; linear bottleneck ``feature``} -> rgb
+  head over [bottleneck ++ PE(viewdir)], ``sigmoid * 1.002 - 0.001``.  Its
+  forward takes the Gaussian's mean, the view direction and the diagonal
+  covariance.
 
 Layers are keyed by the JAX parameter names.  ``nn.Linear`` stores its
 weight as (out, in); models/convert.py is the one place that transposes.
@@ -27,17 +33,26 @@ import torch.nn.functional as F
 from torch import nn
 
 from sfm_nerf_tpu_torch.config import NeRFModelConfig
-from sfm_nerf_tpu_torch.ops.encoding import positional_encoding
+from sfm_nerf_tpu_torch.ops.encoding import (
+    integrated_pos_enc, positional_encoding, view_encoding,
+)
+
+RGB_PADDING = 0.001     # mip-NeRF's widened sigmoid: s (1 + 2 p) - p
+
+
+def n_after_skip(cfg: NeRFModelConfig) -> int:
+    """Hidden layers after the skip layer: 3 (active), 2 (mip)."""
+    return 2 if cfg.arch == "mip" else 3
 
 
 def layer_shapes(cfg: NeRFModelConfig) -> Dict[str, Tuple[int, int]]:
     """{name: (fan_in, fan_out)} in the JAX package's layer order."""
     h = cfg.hidden
     shapes: Dict[str, Tuple[int, int]] = {"fc1": (cfg.pos_dim, h)}
-    if cfg.arch == "active":
+    if cfg.arch in ("active", "mip"):
         shapes.update({f"fc_{i}": (h, h) for i in range(4)})
         shapes["skip"] = (h + cfg.pos_dim, h)
-        shapes.update({f"fc2_{i}": (h, h) for i in range(3)})
+        shapes.update({f"fc2_{i}": (h, h) for i in range(n_after_skip(cfg))})
         shapes["density"] = (h, 1)
         shapes["feature"] = (h, h)
     elif cfg.arch == "legacy":
@@ -134,29 +149,36 @@ class NeRF(nn.Module):
                         p.copy_((2.0 * u - 1.0) * bound)
         if cfg.density_bias_init:
             with torch.no_grad():
-                if cfg.arch == "active":
+                if cfg.arch in ("active", "mip"):
                     self.layers["density"].bias += cfg.density_bias_init
                 else:
                     self.layers["block2_2"].bias[0] += cfg.density_bias_init
 
-    def forward(self, pos: torch.Tensor, direction: torch.Tensor):
+    def forward(self, pos: torch.Tensor, direction: torch.Tensor,
+                cov: Optional[torch.Tensor] = None):
         """(density (..., 1), rgb (..., 3)) at ``pos`` seen along
-        ``direction``."""
+        ``direction``; the mip arch reads the Gaussian (mean ``pos``,
+        diagonal covariance ``cov``) and the unit view direction."""
         cfg, L = self.cfg, self.layers
-        if cfg.pos_encoding:
+        if cfg.arch == "mip":
+            pe = integrated_pos_enc(pos, cov, cfg.n_pos_freq)
+            de = view_encoding(direction, cfg.n_dir_freq)
+        elif cfg.pos_encoding:
             pe = positional_encoding(pos, cfg.n_pos_freq)
             de = positional_encoding(direction, cfg.n_dir_freq)
         else:
             pe, de = pos, direction
         h = F.relu(_linear(L["fc1"], pe))
-        if cfg.arch == "active":
+        if cfg.arch in ("active", "mip"):
             for i in range(4):
                 h = F.relu(_linear(L[f"fc_{i}"], h))
             h = F.relu(_linear(L["skip"], torch.cat([h, pe], -1)))
-            for i in range(3):
+            for i in range(n_after_skip(cfg)):
                 h = F.relu(_linear(L[f"fc2_{i}"], h))
             density = F.softplus(_linear(L["density"], h))
-            feature = F.relu(_linear(L["feature"], h))
+            feature = _linear(L["feature"], h)
+            if cfg.arch == "active":
+                feature = F.relu(feature)
         else:
             for i in range(cfg.n_block1_layers):
                 h = F.relu(_linear(L[f"block1_{i}"], h))
@@ -167,7 +189,10 @@ class NeRF(nn.Module):
             out = F.relu(_linear(L["block2_2"], h))
             density, feature = out[..., :1], out[..., 1:]
         rgb_h = F.relu(_linear(L["rgb1"], torch.cat([feature, de], -1)))
-        return density, torch.sigmoid(_linear(L["rgb2"], rgb_h))
+        rgb = torch.sigmoid(_linear(L["rgb2"], rgb_h))
+        if cfg.arch == "mip":
+            rgb = rgb * (1.0 + 2.0 * RGB_PADDING) - RGB_PADDING
+        return density, rgb
 
 
 class NeRFPair(nn.Module):
@@ -197,10 +222,10 @@ def bf16_compute(model: NeRF):
     trainer's ``compute_dtype='bfloat16'`` (``cast_params_bf16`` of the
     float32 masters).  The cast is differentiable: the grads land on the
     float32 parameters, which the optimizer updates."""
-    def fn(pos: torch.Tensor, direction: torch.Tensor):
+    def fn(*inputs: torch.Tensor):
         cast = {name: p.to(torch.bfloat16) if p.ndim == 2 else p
                 for name, p in model.named_parameters()}
-        return torch.func.functional_call(model, cast, (pos, direction))
+        return torch.func.functional_call(model, cast, inputs)
 
     return fn
 

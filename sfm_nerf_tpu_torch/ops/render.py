@@ -21,6 +21,13 @@ a fine pass renders the union.  The JAX package writes the interval lookup
 as one broadcast compare and the union as a bitonic roll network because
 TPU gathers and sorts are slow; here they are ``torch.searchsorted`` +
 ``gather`` and ``torch.sort``, which select the same values.
+
+Cone casting (mip-NeRF, a model of arch 'mip'): ``cone_edges``
+gives the coarse level's ``n_sample + 1`` edges, ``render_cones`` turns
+each interval into its conical frustum's Gaussian and composites over the
+interval lengths (``composite_intervals``), and ``resample_edges`` draws
+the fine level's edges from the coarse weights (mip-NeRF's
+``resample_along_rays``), on the device, weights detached.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from sfm_nerf_tpu_torch.config import RenderConfig
+from sfm_nerf_tpu_torch.ops.encoding import frustum_gaussian
 from sfm_nerf_tpu_torch.utils.profiling import count, span
 
 ModelFn = Callable[[torch.Tensor, torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
@@ -337,3 +345,118 @@ def render_rays_hierarchical_chunked_aux(
         for i in range(0, origins.shape[0], chunk_rays)
     ]
     return tuple(torch.cat(p) for p in zip(*parts))
+
+
+# ---------------------------------------------------------------------------
+# cone casting (mip-NeRF)
+# ---------------------------------------------------------------------------
+
+RESAMPLE_EPS = 1e-5     # sorted_piecewise_constant_pdf's eps: the weights' floor and u's margin
+RESAMPLE_PADDING = 0.01     # mip-NeRF's floor under the blurred coarse weights
+
+
+def cone_edges(
+    n_rays: int,
+    cfg: RenderConfig,
+    generator: Optional[torch.Generator] = None,
+    device="cpu",
+    u: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The coarse level's edges (n_rays, n_sample + 1): ``near (1 - s) + far
+    s`` at ``s = k / n_sample``; with a generator (or the jitter ``u`` given,
+    (n_rays, n_sample + 1)) each edge moves uniformly between the midpoints
+    around it, the first and last edge toward their one neighbour only."""
+    S = cfg.n_sample
+    s = torch.arange(S + 1, dtype=torch.float32, device=device) / S
+    t = (cfg.near * (1.0 - s) + cfg.far * s)[None, :].expand(n_rays, S + 1)
+    if cfg.perturb and (u is not None or generator is not None):
+        if u is None:
+            u = torch.rand((n_rays, S + 1), generator=generator, device=device)
+        mids = 0.5 * (t[..., 1:] + t[..., :-1])
+        upper = torch.cat([mids, t[..., -1:]], -1)
+        lower = torch.cat([t[..., :1], mids], -1)
+        t = lower + (upper - lower) * u.to(device, torch.float32)
+    return t.contiguous()
+
+
+def composite_intervals(
+    density: torch.Tensor,   # (N, S, 1)
+    rgb: torch.Tensor,       # (N, S, 3)
+    t: torch.Tensor,         # (N, S + 1) edges
+    norms: torch.Tensor,     # (N,) |d|
+    cfg: RenderConfig,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """mip-NeRF's compositing over the intervals: ``delta = (t1 - t0) |d|``,
+    exclusive transmittance ``exp(-cumsum(sigma delta))``: (rgb (N, 3),
+    weights (N, S), acc (N,))."""
+    x = density[..., 0] * ((t[..., 1:] - t[..., :-1]) * norms[:, None])
+    alpha = 1.0 - torch.exp(-x)
+    trans = torch.exp(-torch.cat([torch.zeros_like(x[..., :1]),
+                                  torch.cumsum(x[..., :-1], -1)], -1))
+    weights = alpha * trans
+    out = torch.sum(weights[..., None] * rgb, dim=-2)
+    acc = torch.sum(weights, dim=-1)
+    if cfg.white_background:
+        out = out + (1.0 - acc[..., None])
+    return out, weights, acc
+
+
+def render_cones(
+    model_fn,
+    origins: torch.Tensor,
+    directions: torch.Tensor,
+    cones: torch.Tensor,
+    t: torch.Tensor,
+    cfg: RenderConfig,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One level of cone casting through ``model_fn(mean, viewdir, cov) ->
+    (density, rgb)``: (rgb (N, 3), weights (N, S), acc (N,))."""
+    mean, cov = frustum_gaussian(origins, directions, cones[:, 0], t[:, :-1], t[:, 1:])
+    v = directions / cones[:, 1:2]
+    density, rgb = model_fn(mean, v[:, None, :].expand(mean.shape), cov)
+    return composite_intervals(density, rgb, t, cones[:, 1], cfg)
+
+
+def resample_edges(
+    t: torch.Tensor,          # (N, S + 1) coarse edges
+    weights: torch.Tensor,    # (N, S) coarse weights
+    cfg: RenderConfig,
+    generator: Optional[torch.Generator] = None,
+    u: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The fine level's S + 1 edges, sorted: the weights padded with their
+    end values, a 2-tap max and a 2-tap mean, RESAMPLE_PADDING added,
+    then inverse-CDF sampling of that piecewise-constant density over the
+    coarse edges (mip-NeRF's ``sorted_piecewise_constant_pdf``) at ``u_k =
+    k / (S + 1) + r_k (1 / (S + 1) - eps)`` capped at ``1 - eps``, with
+    ``r`` (N, S + 1) uniform from the generator or given as ``u``; with
+    neither, ``u = linspace(0, 1 - eps, S + 1)``.  No gradient; nothing is
+    copied from the host."""
+    eps = RESAMPLE_EPS
+    w = weights.detach()
+    wp = torch.cat([w[..., :1], w, w[..., -1:]], -1)
+    wm = torch.maximum(wp[..., :-1], wp[..., 1:])
+    w = 0.5 * (wm[..., :-1] + wm[..., 1:]) + RESAMPLE_PADDING
+    wsum = torch.sum(w, -1, keepdim=True)
+    pad = torch.clamp(eps - wsum, min=0.0)
+    w = w + pad / w.shape[-1]
+    pdf = w / (wsum + pad)
+    cdf = torch.clamp(torch.cumsum(pdf[..., :-1], -1), max=1.0)
+    n, m = t.shape
+    cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf, torch.ones_like(cdf[..., :1])], -1)
+    if u is None and generator is not None:
+        u = torch.rand((n, m), generator=generator, device=t.device)
+    if u is not None:
+        step = 1.0 / m
+        q = torch.arange(m, dtype=torch.float32, device=t.device) * step + u * (step - eps)
+        q = torch.clamp(q, max=1.0 - eps)
+    else:
+        q = torch.linspace(0.0, 1.0 - eps, m, device=t.device)[None, :].expand(n, m)
+    q = q.contiguous()
+    # cdf[0] = 0 <= q < 1 = cdf[-1]: the bin is [idx - 1, idx]
+    idx = torch.searchsorted(cdf, q, right=True)
+    lo, hi = idx - 1, idx.clamp(max=m - 1)
+    c0, c1 = torch.gather(cdf, -1, lo), torch.gather(cdf, -1, hi)
+    b0, b1 = torch.gather(t, -1, lo), torch.gather(t, -1, hi)
+    frac = torch.clamp(torch.nan_to_num((q - c0) / (c1 - c0), 0.0), 0.0, 1.0)
+    return (b0 + frac * (b1 - b0)).detach()

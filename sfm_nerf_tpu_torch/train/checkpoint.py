@@ -66,14 +66,18 @@ def load_params_untyped(path: str) -> Tuple[dict, int]:
 
 
 def infer_model_config(params: dict) -> NeRFModelConfig:
-    """NeRFModelConfig from a params dict's shapes (active or legacy); of a
-    {'coarse', 'fine'} pair, from the fine side (both share one config)."""
+    """NeRFModelConfig from a params dict's shapes (active, legacy or mip:
+    a feature layer and two layers after the skip); of a {'coarse', 'fine'}
+    pair, from the fine side (both share one config)."""
     if set(params) == {"coarse", "fine"}:
         params = params["fine"]
     arch = "active" if "feature" in params else "legacy"
     hidden = int(params["fc1"]["b"].shape[0])
     pos_in = int(params["fc1"]["w"].shape[0])
     dir_in = int(params["rgb1"]["w"].shape[0]) - hidden
+    if arch == "active" and "fc2_2" not in params:
+        return NeRFModelConfig(n_pos_freq=pos_in // 6, n_dir_freq=(dir_in // 3 - 1) // 2,
+                               hidden=hidden, arch="mip")
     pos_encoding = pos_in != 3
     n_pos = (pos_in // 3 - 1) // 2 if pos_encoding else 10
     n_dir = (dir_in // 3 - 1) // 2 if pos_encoding else 4

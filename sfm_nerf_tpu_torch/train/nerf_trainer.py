@@ -79,6 +79,18 @@ in torch, then the fine pass over the union through
 ``fused_render_rays_weights`` when the maps are wanted and through
 ``fused_render_rays`` (the same rgb, no weights written) when not.
 
+Cone casting (mip-NeRF, ``model.arch='mip'``)
+trains one network over two levels: a step packs the weights once, runs
+the cone K4 (``fused_mse_loss_cones_weights``) over the coarse edges, the
+resampler (``resample_edges``, on the device, in the span
+``train.resample``) and the cone K2 (``fused_mse_loss_cones``) over the
+fine edges, and the loss is COARSE_LOSS_MULT (0.1) times the coarse MSE plus
+the fine MSE; off the kernels' envelope the same math runs through the
+``nn.Module`` (``render_cones``) under autograd.  A frame is the cone K5
+over the coarse edges, the resampler, then the cone K1 (K5 when the maps
+are wanted), or the ``nn.Module`` in ray chunks.  ``lr_schedule=
+'loglinear'`` anneals the learning rate log-linearly (``LambdaLR``).
+
 Nothing catches a kernel error and carries on down the other path.
 
 While recording is on (utils/profiling.py), a step records the span
@@ -101,25 +113,30 @@ import torch.distributed as dist
 
 from sfm_nerf_tpu_torch.config import NeRFPipelineConfig
 from sfm_nerf_tpu_torch.kernels.fused_render import (
-    MAX_FREQ, fused_render_rays, fused_render_rays_weights, pack_nerf_params,
+    MAX_FREQ, fused_render_cones, fused_render_cones_weights, fused_render_rays,
+    fused_render_rays_weights, pack_nerf_params,
 )
 from sfm_nerf_tpu_torch.kernels.fused_train import (
-    fused_mse_loss, fused_mse_loss_weights, fused_render_train,
+    fused_mse_loss, fused_mse_loss_cones, fused_mse_loss_cones_weights, fused_mse_loss_weights,
+    fused_render_train,
 )
 from sfm_nerf_tpu_torch.models.convert import (
     convert_pth, latest_pth, load_params_from_jax, optimizer_state_from_jax,
     optimizer_state_to_jax, params_from_jax, params_to_jax, shard_layout,
 )
 from sfm_nerf_tpu_torch.models.nerf import NeRF, NeRFPair, bf16_compute, layer_shapes
-from sfm_nerf_tpu_torch.ops.rays import image_rays, sample_ray_batch
+from sfm_nerf_tpu_torch.ops.rays import image_cones, image_rays, sample_ray_batch
 from sfm_nerf_tpu_torch.ops.render import (
-    merge_sorted, render_rays, render_rays_chunked, render_rays_chunked_aux,
-    render_rays_hierarchical, render_rays_hierarchical_chunked,
-    render_rays_hierarchical_chunked_aux, sample_pdf, stratified_samples, weight_maps,
+    cone_edges, merge_sorted, render_cones, render_rays, render_rays_chunked,
+    render_rays_chunked_aux, render_rays_hierarchical, render_rays_hierarchical_chunked,
+    render_rays_hierarchical_chunked_aux, resample_edges, sample_pdf, stratified_samples,
+    weight_maps,
 )
 from sfm_nerf_tpu_torch.train import checkpoint as ckpt_lib
 from sfm_nerf_tpu_torch.utils.metrics import mse as host_mse
 from sfm_nerf_tpu_torch.utils.profiling import span
+
+COARSE_LOSS_MULT = 0.1      # mip-NeRF: the coarse level's weight in the loss
 
 
 class UpdateGuard:
@@ -217,6 +234,64 @@ def _fused_hierarchical_render(packed_c, packed_f, o, d, rcfg, generator, want_w
     return rgb_f, w_f, z_all
 
 
+def cone_casting(cfg: NeRFPipelineConfig) -> bool:
+    """Whether the config casts cones (mip-NeRF): the mip arch does, over
+    one network ('train' compositor, no n_importance: the fine level is the
+    resampler's)."""
+    cones = cfg.model.arch == "mip"
+    if cones and (cfg.render.n_importance or cfg.render.variant != "train"
+                  or not cfg.model.pos_encoding):
+        raise ValueError("cone casting: two levels of one network, the 'train' compositor, "
+                         "the integrated encoding (n_importance 0, variant 'train')")
+    return cones
+
+
+def _cone_level_pair(model, packed, o, d, cones, t_c, rcfg, generator, want_weights):
+    """A mip-NeRF frame's two levels: the coarse edges' weights, the
+    resampler, the fine level.  Returns (rgb (N, 3), weights (N, S) of the
+    fine level or None, fine edges (N, S + 1)).  ``packed``: the kernels'
+    packing, or None for the nn.Module route."""
+    if packed is not None:
+        _, w_c = fused_render_cones_weights(packed, o, d, cones, t_c, rcfg)
+        t_f = resample_edges(t_c, w_c, rcfg, generator)
+        del w_c
+        if want_weights:
+            rgb, w_f = fused_render_cones_weights(packed, o, d, cones, t_f, rcfg)
+        else:
+            rgb, w_f = fused_render_cones(packed, o, d, cones, t_f, rcfg), None
+        return rgb, w_f, t_f
+    w_c = render_cones(model, o, d, cones, t_c, rcfg)[1]
+    t_f = resample_edges(t_c, w_c, rcfg, generator)
+    rgb, w_f, _ = render_cones(model, o, d, cones, t_f, rcfg)
+    return rgb, w_f, t_f
+
+
+def _make_render_cones(cfg: NeRFPipelineConfig):
+    """``(model, K, pose, H, W, generator, want_weights) -> (rgb (HW, 3),
+    fine weights or None, fine edges)`` of a frame of cones: the fused
+    route in one launch a level, else the nn.Module in ray chunks."""
+    rcfg = cfg.render
+    fused = use_fused_route(cfg)
+    packed = _packer(cfg)
+
+    @torch.no_grad()
+    def render(model, K, pose, height, width, generator=None, want_weights=False):
+        _check_model(cfg, model)
+        with span("render.rays"):
+            o, d, cones = image_cones(K, pose, height, width)
+            t_c = cone_edges(o.shape[0], rcfg, generator, o.device)
+        if fused:
+            return _cone_level_pair(model, packed(model), o, d, cones, t_c, rcfg, generator,
+                                    want_weights)
+        chunk = 2048
+        parts = [_cone_level_pair(model, None, o[i:i + chunk], d[i:i + chunk],
+                                  cones[i:i + chunk], t_c[i:i + chunk], rcfg, generator, True)
+                 for i in range(0, o.shape[0], chunk)]
+        return tuple(torch.cat(p) for p in zip(*parts))
+
+    return render
+
+
 def _check_model(cfg: NeRFPipelineConfig, model) -> bool:
     """True for a hierarchical config; the model must be of its kind."""
     hier = cfg.render.n_importance > 0
@@ -230,7 +305,10 @@ def _check_model(cfg: NeRFPipelineConfig, model) -> bool:
 def make_render_rays(cfg: NeRFPipelineConfig):
     """Ray renderer ``(model, o, d, generator=None) -> rgb (N, 3)`` through
     the route of ``make_render_image``; parallel/render.py runs it on each
-    rank's slice of a frame."""
+    rank's slice of a frame.  Cones render whole frames only
+    (``make_render_image``)."""
+    if cone_casting(cfg):
+        raise NotImplementedError("cone casting renders whole frames: make_render_image")
     rcfg = cfg.render
     fused = use_fused_route(cfg)
     packed, packed_c = _packer(cfg), _packer(cfg)
@@ -258,7 +336,18 @@ def make_render_image(cfg: NeRFPipelineConfig):
     """Renderer ``(model, K, pose, H, W, generator=None) -> (H, W, 3)`` on
     ``pose``'s device.  Without a generator the samples are the
     deterministic bin midpoints.  With ``render.n_importance > 0`` the
-    model is a NeRFPair and the fine image is returned."""
+    model is a NeRFPair and the fine image is returned; with cone casting
+    the fine level's image."""
+    if cone_casting(cfg):
+        render_cones_of = _make_render_cones(cfg)
+
+        def render_cone_image(model, K, pose: torch.Tensor, height: int, width: int,
+                              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+            with span("render.view"):
+                rgb = render_cones_of(model, K, pose, height, width, generator)[0]
+                return rgb.reshape(height, width, 3)
+
+        return render_cone_image
     render_rays_of = make_render_rays(cfg)
 
     def render_image(model, K, pose: torch.Tensor, height: int, width: int,
@@ -275,7 +364,21 @@ def make_render_image_aux(cfg: NeRFPipelineConfig):
     """Renderer ``(model, K, pose, H, W, generator=None)`` -> (rgb (H,W,3),
     depth (H,W), disp (H,W), acc (H,W)); the fused route feeds the
     kernel's weights output to weight_maps (hierarchical: the fine pass's
-    weights over the sorted union)."""
+    weights over the sorted union; cones: the fine level's weights, depth
+    over the intervals' midpoints)."""
+    if cone_casting(cfg):
+        render_cones_of = _make_render_cones(cfg)
+
+        def render_cone_aux(model, K, pose: torch.Tensor, height: int, width: int,
+                            generator: Optional[torch.Generator] = None):
+            rgb, w, t = render_cones_of(model, K, pose, height, width, generator, True)
+            acc = torch.sum(w, dim=-1)
+            depth, disp = weight_maps(w, 0.5 * (t[:, 1:] + t[:, :-1]), acc)
+            hw = (height, width)
+            return (rgb.reshape(height, width, 3), depth.reshape(hw), disp.reshape(hw),
+                    acc.reshape(hw))
+
+        return render_cone_aux
     rcfg = cfg.render
     fused = use_fused_route(cfg)
     packed, packed_c = _packer(cfg), _packer(cfg)
@@ -314,20 +417,34 @@ def make_render_image_aux(cfg: NeRFPipelineConfig):
 
 def make_schedule(cfg: NeRFPipelineConfig) -> Callable[[int], float]:
     """step -> learning rate: ``lrate * decay ** (step // decay_steps)``,
-    optax's staircase exponential decay and torch's StepLR."""
+    optax's staircase exponential decay and torch's StepLR; or
+    (``lr_schedule='loglinear'``, mip-NeRF) ``exp((1 - s) log(lrate) + s
+    log(lrate_final))`` at ``s = min(step / lr_anneal_steps, 1)``."""
     t = cfg.train
+    if t.lr_schedule == "loglinear":
+        def loglinear(step: int) -> float:
+            s = min(step / t.lr_anneal_steps, 1.0)
+            return float(np.exp(np.log(t.lrate) * (1.0 - s) + np.log(t.lrate_final) * s))
+        return loglinear
+    if t.lr_schedule != "step":
+        raise ValueError(f"lr_schedule {t.lr_schedule!r}: step or loglinear")
     return lambda step: t.lrate * t.lrate_decay ** (step // t.lrate_decay_steps)
 
 
 def make_optimizer(cfg: NeRFPipelineConfig, model):
-    """(Adam, StepLR) over ``model``'s parameters (both networks of a
-    NeRFPair); call ``scheduler.step()``
-    after every ``optimizer.step()``.  Adam's betas (0.9, 0.999) and eps
-    1e-8 are optax.adam's."""
+    """(Adam, its schedule) over ``model``'s parameters (both networks of a
+    NeRFPair): StepLR, or for ``lr_schedule='loglinear'`` a LambdaLR of
+    ``make_schedule``; call ``scheduler.step()`` after every
+    ``optimizer.step()``.  Adam's betas (0.9, 0.999) and eps 1e-8 are
+    optax.adam's."""
     t = cfg.train
     opt = torch.optim.Adam(model.parameters(), lr=t.lrate, betas=(0.9, 0.999), eps=1e-8)
-    sched = torch.optim.lr_scheduler.StepLR(
-        opt, step_size=t.lrate_decay_steps, gamma=t.lrate_decay)
+    lr = make_schedule(cfg)     # refuses an unknown schedule
+    if t.lr_schedule == "loglinear":
+        sched = torch.optim.lr_scheduler.LambdaLR(opt, lambda step: lr(step) / t.lrate)
+    else:
+        sched = torch.optim.lr_scheduler.StepLR(
+            opt, step_size=t.lrate_decay_steps, gamma=t.lrate_decay)
     return opt, sched
 
 
@@ -348,7 +465,7 @@ def fused_train_supported(cfg: NeRFPipelineConfig) -> bool:
     mcfg, rcfg = cfg.model, cfg.render
     return (
         rcfg.use_fused_kernel
-        and mcfg.arch in ("active", "legacy")
+        and mcfg.arch in ("active", "legacy", "mip")
         and (rcfg.n_importance == 0 or rcfg.fused_merged_step)
         and rcfg.variant == "train"
         and fused_network_supported(mcfg)
@@ -371,13 +488,18 @@ def make_loss_fn(cfg: NeRFPipelineConfig, n_rays: Optional[int] = None):
     With ``render.n_importance > 0`` the model is a NeRFPair and the loss is
     the sum of the coarse and the fine pass's MSEs over the hierarchical
     sampler; the coarse weights reach ``sample_pdf`` detached on every
-    route."""
+    route.  With cone casting (one network, two levels) it is
+    COARSE_LOSS_MULT times the coarse level's MSE plus the fine level's;
+    ``u`` (n_rays, n_sample + 1) is the edges' jitter and ``u_pdf``
+    (n_rays, n_sample + 1) the resampler's draw."""
     mcfg, rcfg = cfg.model, cfg.render
     n_rays = n_rays if n_rays is not None else cfg.train.n_rays_batch
     n_imp = rcfg.n_importance
     fused = fused_train_supported(cfg)
     # the nn.Module route: float32, or the JAX trainer's bf16 compute cast
     net = bf16_compute if cfg.train.compute_dtype == "bfloat16" else (lambda m: m)
+    if cone_casting(cfg):
+        return _make_cone_loss_fn(cfg, n_rays, fused, net)
 
     def loss_fn(model, generator, images, poses, K, draws=None, u=None, u_pdf=None):
         _check_model(cfg, model)
@@ -419,6 +541,41 @@ def make_loss_fn(cfg: NeRFPipelineConfig, n_rays: Optional[int] = None):
             if rcfg.fused_merged_step:
                 return fused_mse_loss(packed, o, d, z, target, rcfg)
             return _mse(fused_render_train(packed, o, d, z, rcfg), target)
+
+    return loss_fn
+
+
+def _make_cone_loss_fn(cfg: NeRFPipelineConfig, n_rays: int, fused: bool, net):
+    """make_loss_fn's cone casting loss: one packing a step, the cone K4
+    over the coarse edges, the resampler, the cone K2 over the fine edges;
+    or the nn.Module route's same two levels under autograd."""
+    mcfg, rcfg = cfg.model, cfg.render
+    mult = COARSE_LOSS_MULT
+
+    def loss_fn(model, generator, images, poses, K, draws=None, u=None, u_pdf=None):
+        _check_model(cfg, model)
+        with span("train.sample"):
+            o, d, cones, target = sample_ray_batch(images, poses, K, n_rays, generator, draws,
+                                                   cones=True)
+            t_c = cone_edges(n_rays, rcfg, generator, o.device, u)
+        if not fused:
+            with span("train.loss"):
+                rgb_c, w_c, _ = render_cones(net(model), o, d, cones, t_c, rcfg)
+            with span("train.resample"):
+                t_f = resample_edges(t_c, w_c, rcfg, generator, u_pdf)
+            with span("train.loss"):
+                rgb_f = render_cones(net(model), o, d, cones, t_f, rcfg)[0]
+                return mult * _mse(rgb_c, target) + _mse(rgb_f, target)
+        bf16 = o.device.type == "cuda" or cfg.train.compute_dtype == "bfloat16"
+        with span("train.pack"):
+            packed = pack_nerf_params(model, mcfg, torch.bfloat16 if bf16 else torch.float32)
+        with span("train.loss"):
+            loss_c, w_c = fused_mse_loss_cones_weights(packed, o, d, cones, t_c, target, rcfg)
+        with span("train.resample"):
+            t_f = resample_edges(t_c, w_c, rcfg, generator, u_pdf)
+        with span("train.loss"):
+            loss_f = fused_mse_loss_cones(packed, o, d, cones, t_f, target, rcfg)
+        return mult * loss_c + loss_f
 
     return loss_fn
 

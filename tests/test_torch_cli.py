@@ -153,8 +153,10 @@ def _jax_parser(script):
 
 
 # flags the port adds to a mode's JAX parser
-ADDED = {"test": ["device"], "gif": ["device"],
-         "train": ["device", "log_every", "val_every", "two_kernel_step"]}
+MIP = ["mipnerf"]
+ADDED = {"test": ["device"] + MIP, "gif": ["device"],
+         "train": ["device", "log_every", "val_every", "two_kernel_step", "lr_schedule",
+                   "lrate_final", "lr_anneal_steps"] + MIP}
 
 
 @pytest.mark.parametrize("mode,script", [("test", "train"), ("gif", "Wrapper"),

@@ -501,9 +501,11 @@ def test_hierarchical_step_and_frame_launch_counts():
         assert p.grad.abs().max().item() > 0 or "density_fc" in name, name
     fr.reset_launch_counts()
     img = make_render_image(cfg)(pair, K, poses[0], 24, 24)
-    assert fr.LAUNCHES == {"fused_render_rays": 1, "fused_render_rays_weights": 1}
+    assert fr.LAUNCHES == {"fused_render_rays": 1, "fused_render_rays_weights": 1,
+                           "fused_render_cones": 0, "fused_render_cones_weights": 0}
     rgb, depth, disp, acc = make_render_image_aux(cfg)(pair, K, poses[0], 24, 24)
-    assert fr.LAUNCHES == {"fused_render_rays": 1, "fused_render_rays_weights": 3}
+    assert fr.LAUNCHES == {"fused_render_rays": 1, "fused_render_rays_weights": 3,
+                           "fused_render_cones": 0, "fused_render_cones_weights": 0}
     assert torch.equal(rgb, img) and bool(torch.isfinite(depth).all())
     assert acc.min().item() >= -1e-6 and acc.max().item() <= 1 + 1e-5
 
@@ -610,3 +612,132 @@ def test_async_checkpoint_snapshot_is_the_state_at_save(tmp_path):
             np.testing.assert_array_equal(state["mu"][name][k], want_o["mu"][name][k])
             np.testing.assert_array_equal(state["nu"][name][k], want_o["nu"][name][k])
     assert not np.array_equal(after["fc1"]["w"], want_p["fc1"]["w"])
+
+
+def _mip_packed(hidden=256, seed=1):
+    """A seeded mip-NeRF network (16 + 4 octaves, density bias -1) on the
+    card and its bf16 packing."""
+    from sfm_nerf_tpu_torch.config import NeRFModelConfig
+    from sfm_nerf_tpu_torch.models.nerf import NeRF
+
+    mcfg = NeRFModelConfig(arch="mip", hidden=hidden, n_pos_freq=16, n_dir_freq=4,
+                           density_bias_init=-1.0)
+    model = NeRF(mcfg, device="cuda", seed=seed)
+    return model, fr.pack_nerf_params(model, mcfg, torch.bfloat16)
+
+
+def _cone_batch(n, s, seed):
+    """Cones toward the origin from z = -4 (un-normalised directions, unit
+    z), the radius of an 800-pixel frame's, S + 1 sorted edges in [2, 6],
+    targets in [0, 1)."""
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(-0.5, 0.5, (n, 3)).astype(np.float32)
+    o[:, 2] -= 4.0
+    d = np.concatenate([rng.normal(size=(n, 2)) * 0.3, np.ones((n, 1))], 1).astype(np.float32)
+    t = np.sort(rng.uniform(2.0, 6.0, (n, s + 1)), -1).astype(np.float32)
+    target = rng.uniform(0, 1, (n, 3)).astype(np.float32)
+    o, d, t, target = (torch.from_numpy(a).cuda() for a in (o, d, t, target))
+    norm = torch.linalg.vector_norm(d, dim=-1)
+    cones = torch.stack([torch.full_like(norm, 2.0 / (np.sqrt(12.0) * 1111.0)), norm], -1)
+    return o, d, cones, t, target
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hidden,white,n_rays,n_sample", [
+    (256, True, 8192, 128), (256, False, 777, 100), (64, False, 1000, 128)])
+def test_cone_kernels_match_plain_versions(hidden, white, n_rays, n_sample):
+    """The cone kernels (the mip arch; hidden 256, and 64: the 16-wide
+    slices and the one-piece walk): K2 and K4 over cones
+    against their plain versions, each twice bit-equal; K4's rgb and grads
+    K2's and its weights K5's bit for bit (one arithmetic); K1's rgb K5's.
+    Tolerances as the point kernels': rgb within 1e-2 (bf16 weights and
+    activations), the weights within 1e-2 or the plain version's own
+    float32-vs-float64 spread, the grads under _assert_grads_close."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _, packed = _mip_packed(hidden)
+    o, d, cones, t, target = _cone_batch(n_rays, n_sample, seed=n_sample + hidden)
+    rcfg = RenderConfig(n_sample=n_sample, white_background=white)
+    before = dict(ft.LAUNCHES)
+    rgb, _, gw, gb = ft.fused_mse_loss_cones_grads(packed, o, d, cones, t, target, rcfg)
+    rgb_b, _, gw_b, gb_b = ft.fused_mse_loss_cones_grads(packed, o, d, cones, t, target, rcfg)
+    assert all(torch.equal(a, b) for a, b in ((rgb, rgb_b), (gw, gw_b), (gb, gb_b)))
+    rgb4, w4, gw4, gb4 = ft.fused_mse_loss_cones_grads(packed, o, d, cones, t, target, rcfg,
+                                                       emit_weights=True)
+    rgb4b, w4b, _, _ = ft.fused_mse_loss_cones_grads(packed, o, d, cones, t, target, rcfg,
+                                                     emit_weights=True)
+    assert ft.LAUNCHES["fused_mse_loss_cones"] == before["fused_mse_loss_cones"] + 2
+    assert ft.LAUNCHES["fused_mse_loss_cones_weights"] == \
+        before["fused_mse_loss_cones_weights"] + 2
+    assert torch.equal(rgb4, rgb4b) and torch.equal(w4, w4b)
+    assert torch.equal(rgb, rgb4) and torch.equal(gw, gw4) and torch.equal(gb, gb4)
+    rgb5, w5 = fr.fused_render_cones_weights(packed, o, d, cones, t, rcfg)
+    rgb1 = fr.fused_render_cones(packed, o, d, cones, t, rcfg)
+    assert torch.equal(rgb4, rgb5) and torch.equal(w4, w5) and torch.equal(rgb1, rgb5)
+    rr, wr, gwr, gbr = ft.fused_mse_loss_weights_reference(packed, o, d, t, target, rcfg,
+                                                           cones=cones)
+    _, w64, gw64, gb64 = ft.fused_mse_loss_weights_reference(
+        packed, o.double(), d.double(), t.double(), target.double(), rcfg,
+        cones=cones.double())
+    _, _, gwt, gbt = ft.fused_mse_loss_weights_reference(packed, o, d, t, target, rcfg,
+                                                         tc_order=True, cones=cones)
+    w_tol = max(1e-2, (wr.double() - w64).abs().max().item())
+    assert (rgb - rr).abs().max().item() <= 1e-2
+    assert (w4 - wr).abs().max().item() <= w_tol
+    assert ((w4 - wr).abs() > 1e-3).float().mean().item() <= 1e-4
+    assert bool(torch.isfinite(gw).all()) and bool(torch.isfinite(gb).all())
+    worst = _assert_grads_close(packed, (gw, gb), (gwr, gbr), (gw64, gb64), tc=(gwt, gbt))
+    print(json.dumps({"cone_grads": [hidden, white, n_rays, n_sample], "worst": worst}))
+
+
+@pytest.mark.gpu
+def test_mip_step_and_frame_on_the_card():
+    """One mip-NeRF loss on the card is one cone K4 and one cone K2 launch,
+    counts rays x intervals twice in ``ipe_points`` and fills every grad;
+    a frame is one cone K5 and one cone K1 launch (two K5 with the maps)
+    and agrees with the nn.Module route's frame within the bf16 rule."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import dataclasses
+
+    from sfm_nerf_tpu_torch.config import NeRFPipelineConfig, TrainConfig
+    from sfm_nerf_tpu_torch.train.nerf_trainer import (
+        make_loss_fn, make_render_image, make_render_image_aux,
+    )
+    from sfm_nerf_tpu_torch.utils import profiling
+
+    model, _ = _mip_packed()
+    cfg = NeRFPipelineConfig(
+        model=model.cfg,
+        render=RenderConfig(n_sample=128, use_fused_kernel=True, white_background=True),
+        train=TrainConfig(n_rays_batch=1024, lr_schedule="loglinear"))
+    rng = np.random.default_rng(0)
+    images = torch.from_numpy(rng.uniform(0, 1, (3, 24, 24, 3)).astype(np.float32)).cuda()
+    poses = torch.eye(4).repeat(3, 1, 1).cuda()
+    poses[:, 2, 3] = -4.0
+    K = torch.tensor([[30.0, 0, 12], [0, 30.0, 12], [0, 0, 1]]).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    ft.reset_launch_counts()
+    with profiling.recording():
+        loss = make_loss_fn(cfg)(model, gen, images, poses, K)
+        torch.cuda.synchronize()
+        counters = profiling.summary()["counters"]
+    loss.backward()
+    assert ft.LAUNCHES["fused_mse_loss_cones_weights"] == 1
+    assert ft.LAUNCHES["fused_mse_loss_cones"] == 1
+    assert counters["ipe_points"] == 2 * 1024 * 128
+    assert bool(torch.isfinite(loss))
+    for name, p in model.named_parameters():
+        assert p.grad is not None and bool(torch.isfinite(p.grad).all()), name
+        assert p.grad.abs().max().item() > 0, name
+    fr.reset_launch_counts()
+    img = make_render_image(cfg)(model, K, poses[0], 24, 24)
+    assert fr.LAUNCHES["fused_render_cones_weights"] == 1
+    assert fr.LAUNCHES["fused_render_cones"] == 1
+    rgb, depth, disp, acc = make_render_image_aux(cfg)(model, K, poses[0], 24, 24)
+    assert fr.LAUNCHES["fused_render_cones_weights"] == 3
+    assert torch.equal(rgb, img) and bool(torch.isfinite(depth).all())
+    plain = dataclasses.replace(cfg, render=dataclasses.replace(cfg.render,
+                                                                use_fused_kernel=False))
+    assert (make_render_image(plain)(model, K, poses[0], 24, 24) - img).abs().max().item() <= 1e-2

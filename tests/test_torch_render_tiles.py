@@ -100,7 +100,7 @@ def test_kernel_args_carry_the_plan(name):
     plan = fr.render_plan(packed)
     ip, _, _ = fr._render_kernel_args(packed, RenderConfig())
     ip = list(ip)
-    tail = ip[8 + 5 * len(packed.layers):]
+    tail = ip[fr.HEAD_INTS + 5 * len(packed.layers):]
     n_p, n_t = len(plan.passes), len(plan.tiles)
     assert tail[:6] == [n_p, n_t, plan.dir_off, plan.act_kb, plan.enc_kb, plan.stage_bytes]
     passes = np.array(tail[6:6 + 6 * n_p]).reshape(n_p, 6)
