@@ -220,6 +220,45 @@ __device__ __forceinline__ void bulk_wait_all(bool on) {
       : "memory");
 }
 
+// ---- clusters ---------------------------------------------------------------
+
+// this block's rank in its cluster
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// every thread of the cluster: arrive, then wait for all the others (the
+// blocks' mbarrier inits before, and their remote accesses after, or the
+// reverse at the end)
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive;\nbarrier.cluster.wait;\n" ::: "memory");
+}
+
+// lane l < n of the calling warp arrives on the barrier at the same offset
+// in block l of the cluster (predicated inside the asm, as mbar_arrive_lane0)
+__device__ __forceinline__ void mbar_arrive_cluster_lanes(uint32_t bar, int lane, int n) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b32 remote;\nsetp.lt.s32 p, %1, %2;\n"
+      "@p mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "@p mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n" ::"r"(bar),
+      "r"(lane), "r"(n)
+      : "memory");
+}
+
+// bytes from device memory to the same shared-memory offset of every block
+// in ``mask`` of the cluster, each completing on its barrier at ``bar``'s
+// offset
+__device__ __forceinline__ void bulk_copy_multicast(uint32_t dst, const void* src, int bytes,
+                                                    uint32_t bar, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster "
+      "[%0], [%1], %2, [%3], %4;\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar), "h"(mask)
+      : "memory");
+}
+
 // generic-proxy shared-memory writes become visible to wgmma (async proxy)
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -311,17 +350,17 @@ __device__ __forceinline__ uint64_t desc_sw128_mn(uint32_t addr, uint32_t mn_str
 template <int N, int TRANS_A = 0, int TRANS_B = TRANS_A>
 struct Wgmma;
 
-template <>
-struct Wgmma<16> {
+template <int TA, int TB>
+struct Wgmma<16, TA, TB> {
   static __device__ __forceinline__ void mma(float (&d)[8], uint64_t da, uint64_t db, int scale_d) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
         "%0, %1, %2, %3, %4, %5, %6, %7"
-        "}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+        "}, %8, %9, p, 1, 1, %11, %12;\n}\n"
         :
           "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-        : "l"(da), "l"(db), "r"(scale_d));
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
   }
 };
 

@@ -350,16 +350,29 @@ def _build_image_index(packed: PackedNeRF, plan: RenderPlan) -> np.ndarray:
 
 def render_tile_image(packed: PackedNeRF) -> torch.Tensor:
     """The render kernel's weights (see WeightTile), in the packing dtype on
-    the packing's device; built once per PackedNeRF."""
+    the packing's device; built once per PackedNeRF, by a gather on the
+    device (_tile_gather)."""
     if "image" not in packed.tile_cache:
-        plan = render_plan(packed)
-        host = _image_index(packed, plan)
+        src = torch.cat([packed.weights, packed.weights.new_zeros(1)])
+        packed.tile_cache["image"] = src[_tile_gather(packed)]
+    return packed.tile_cache["image"]
+
+
+def _tile_gather(packed: PackedNeRF) -> torch.Tensor:
+    """The tile image's positions in the packed weights with one zero
+    appended (a pad element points at the zero), on the packing's device.
+    Uploaded once per layout and device: a trainer packs its weights every
+    step, and a copy from a host array there would wait for the stream to
+    drain, holding the host while the card runs out of work."""
+    dev = packed.weights.device
+
+    def build():
+        host = _image_index(packed, render_plan(packed))
         count("upload_bytes", host.nbytes)
         with span("upload.tile_index"):
-            idx = torch.from_numpy(host).to(packed.weights.device)
-        src = torch.cat([packed.weights, packed.weights.new_zeros(1)])
-        packed.tile_cache["image"] = src[torch.where(idx < 0, src.numel() - 1, idx)].contiguous()
-    return packed.tile_cache["image"]
+            idx = torch.from_numpy(host).to(dev)
+        return torch.where(idx < 0, packed.weights.numel(), idx)
+    return by_layout("tile_gather", packed, build, str(dev))
 
 
 def macs_per_point(mcfg: NeRFModelConfig) -> int:

@@ -27,7 +27,9 @@ caller's g), writes every layer's output cotangent to a second stash and
 keeps the bias and direction-row grads in per-warpgroup partials (its
 products read the render tile image's weights as W^T, ``walk_plan``); (3) the
 weight gradient, sum over points of A^T D per layer, a wgmma GEMM over both
-stashes (csrc/grad_gemm.cu); then two fixed-order reductions add the
+stashes on clusters of two blocks (csrc/grad_gemm.cu, ``gemm_jobs``; each
+launch adds the stash bytes it fetches to the counter ``gemm_bytes``);
+then two fixed-order reductions add the
 group's partials to the grads.  Under g = (rgb - target) * 2 / (3 N) the
 backward of ``fused_render_train`` is the MSE step's launches, bit for bit.
 The step's launch classes are spans of utils/profiling.py: ``k2.stash``
@@ -103,8 +105,9 @@ RAY_GROUP = 1024
 # weight columns per ring slot of the reverse walk: a slot of 4 x WALK_KC x
 # 128 bytes at hidden 256
 WALK_KC = 32
-_GEMM_TASK_INTS = 13            # grad_gemm.cu Task
-_GEMM_MAX_TASKS = 64
+_GEMM_CLUSTER = 2               # grad_gemm.cu: blocks a cluster
+_GEMM_MAX_JOBS = 24
+_GEMM_WIDTHS = (16, 64, 128, 256)   # the wgmma widths its consumers issue
 
 LAUNCHES: Dict[str, int] = {
     "fused_mse_loss": 0, "fused_mse_loss_weights": 0, "fused_render_train": 0,
@@ -721,6 +724,8 @@ def _gemm_lib() -> ctypes.CDLL:
     lib.sfm_grad_gemm.argtypes = (
         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_longlong] * 2
         + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
+    lib.sfm_grad_gemm_clusters.restype = ctypes.c_int
+    lib.sfm_grad_gemm_clusters.argtypes = [ctypes.c_void_p]
     lib.sfm_cuda_error_string.restype = ctypes.c_char_p
     lib.sfm_cuda_error_string.argtypes = [ctypes.c_int]
     return lib
@@ -767,28 +772,124 @@ def _check_inputs(packed: PackedNeRF, origins, directions, z_vals, cones=None,
                          "between layers, which the grad reduction would read")
 
 
-def gemm_tasks(packed: PackedNeRF) -> List[List[int]]:
-    """grad_gemm.cu's tasks, each a block's share of one layer's weight
-    gradient: up to 256 columns of it and up to two 64-row tiles (one per
-    consumer warpgroup), as [w_off, n, n0, ncols, d_block, d_blocks,
-    n_tiles, (k0, k_rows, a_block) x 2].  Together they cover every packed
-    weight element but rgb1's direction rows once."""
+@dataclasses.dataclass(frozen=True)
+class GemmUnit:
+    """One block's share of a weight-GEMM job (grad_gemm.cu Unit): up to
+    two 64-row tiles, (first weight row, real rows, activation block), of
+    the layer whose packed weight starts at ``w_off`` with ``n`` columns.
+    Its consumers issue wgmma ``width`` columns wide over columns [0,
+    ``ncols``) from its cotangent blocks, and n16 over columns [256, 256 +
+    ``extra``) from cotangent block 4.  No tiles: the block idles."""
+    w_off: int = 0
+    n: int = 0
+    ncols: int = 0
+    width: int = 16
+    extra: int = 0
+    d_block: int = 0
+    d_blocks: int = 0
+    tiles: Tuple[Tuple[int, int, int], ...] = ()
+
+    def ints(self) -> List[int]:
+        pad = list(self.tiles) + [self.tiles[0] if self.tiles else (0, 1, 0)] * (
+            2 - len(self.tiles))
+        return [self.w_off, self.n, self.ncols, self.width, self.extra, self.d_block,
+                self.d_blocks, len(self.tiles)] + [x for t in pad for x in t]
+
+
+@dataclasses.dataclass(frozen=True)
+class GemmJob:
+    """One job of the weight GEMM: a unit for each block of a cluster over
+    the same records.  ``multicast``: both units read the same cotangent
+    blocks, which the two producers fetch once between them (each
+    ``issued`` of them) into both blocks."""
+    multicast: bool
+    units: Tuple[GemmUnit, GemmUnit]
+
+    def issued(self, c: int) -> int:
+        """Cotangent blocks block ``c``'s producer fetches a record."""
+        d = self.units[c].d_blocks
+        return ((d + 1) // 2 if c == 0 else d // 2) if self.multicast else d
+
+    @property
+    def blocks(self) -> int:
+        """Stash blocks the job fetches a record, a multicast one once: its
+        cost in the schedule and its share of ``gemm_bytes``."""
+        return sum(len(u.tiles) + self.issued(c) for c, u in enumerate(self.units))
+
+    def ints(self) -> List[int]:
+        return [int(self.multicast), self.blocks] + [x for u in self.units for x in u.ints()]
+
+
+def gemm_jobs(packed: PackedNeRF) -> Tuple[GemmJob, ...]:
+    """grad_gemm.cu's jobs, from the packing's layer shapes.  A layer's
+    64-row tiles go four at a time to a multicast job (two a block, the
+    cotangents shared); two or three left over make one more (a block
+    takes the odd one); a single tile left over (skip's encoding rows, a
+    64-row layer) pairs with the next such tile of another layer in a job
+    without multicast, each block on its own cotangents.  Columns: up to
+    256 at the smallest wgmma width that holds them, and a layer of
+    257-272 (the density/feature head) adds its last 16 by n16 in the same
+    job.  Together the jobs cover every packed weight element but rgb1's
+    direction rows once."""
     lay = stash_layout(packed)
-    tasks = []
+    jobs, singles = [], []
     for li, s in enumerate(packed.layers):
         tiles = [(row0 + r, min(TILE_K, rows - r), block + r // TILE_K)
                  for row0, rows, block in _gemm_inputs(packed, lay, s, li)
                  for r in range(0, rows, TILE_K)]
-        for n0 in range(0, s.n, 256):
-            ncols = min(256, s.n - n0)
-            for i in range(0, len(tiles), 2):
-                pair = tiles[i:i + 2]
-                flat = [x for t in pair + pair[:1] * (2 - len(pair)) for x in t]
-                tasks.append([s.w_off, s.n, n0, ncols, lay.cot_off[li] + n0 // TILE_K,
-                              -(-ncols // TILE_K), len(pair), *flat])
-    if len(tasks) > _GEMM_MAX_TASKS:
-        raise ValueError(f"weight GEMM: {len(tasks)} tasks > {_GEMM_MAX_TASKS}")
-    return tasks
+        ncols = min(s.n, 256)
+        extra = s.n - ncols
+        if extra > 16:
+            raise ValueError(f"weight GEMM: layer {s.name} has {s.n} columns > 272")
+        width = next(w for w in _GEMM_WIDTHS if w >= ncols)
+
+        def unit(part):
+            return GemmUnit(s.w_off, s.n, ncols, width, extra, lay.cot_off[li],
+                            -(-s.n // TILE_K), tuple(part))
+        for i in range(0, len(tiles), 2 * _GEMM_CLUSTER):
+            quad = tiles[i:i + 2 * _GEMM_CLUSTER]
+            if len(quad) == 1:
+                singles.append(unit(quad))
+            else:
+                half = -(-len(quad) // 2) if len(quad) > 2 else 1
+                jobs.append(GemmJob(True, (unit(quad[:half]), unit(quad[half:]))))
+    for i in range(0, len(singles), _GEMM_CLUSTER):
+        pair = singles[i:i + _GEMM_CLUSTER]
+        jobs.append(GemmJob(False, tuple(pair + [GemmUnit()] * (_GEMM_CLUSTER - len(pair)))))
+    if len(jobs) > _GEMM_MAX_JOBS:
+        raise ValueError(f"weight GEMM: {len(jobs)} jobs > {_GEMM_MAX_JOBS}")
+    return tuple(jobs)
+
+
+def gemm_bytes_per_record(packed: PackedNeRF) -> int:
+    """Bytes the weight GEMM fetches from the stashes a record, a multicast
+    block once (what the ``gemm_bytes`` counter adds a record)."""
+    return _fr.by_layout("gemm_bytes", packed, lambda: sum(
+        j.blocks for j in gemm_jobs(packed)) * IMG_BLOCK * 2)
+
+
+def gemm_segments(jobs, n_rec: int, n_clusters: int) -> List[Tuple[int, int, int, int, int]]:
+    """grad_gemm.cu's schedule, as its blocks work it out: (cluster, job,
+    first record, end record, partial row) of every non-empty share.  The
+    jobs' records in order make a stream of ``blocks`` a record; cluster q
+    takes the records that start in [q T / Q, (q + 1) T / Q) of its T, and
+    writes its share of job j to row q - (the cluster that holds the job's
+    first record)."""
+    costs = [j.blocks for j in jobs]
+    total = sum(costs) * n_rec
+
+    def first(x, c):
+        return 0 if x <= 0 else min(n_rec, -(-x // c))
+    out = []
+    for q in range(n_clusters):
+        b0, b1 = total * q // n_clusters, total * (q + 1) // n_clusters
+        p = 0
+        for j, c in enumerate(costs):
+            r0, r1 = first(b0 - p, c), first(b1 - p, c)
+            if r1 > r0:
+                out.append((q, j, r0, r1, q - ((p + 1) * n_clusters - 1) // total))
+            p += c * n_rec
+    return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -841,37 +942,58 @@ def _walk_ints(packed: PackedNeRF) -> ctypes.Array:
     return _fr.by_layout("walk", packed, build)
 
 
+_GEMM_CLUSTERS: Dict[int, int] = {}      # clusters a wave, by device index
+
+
+def _gemm_clusters(dev) -> int:
+    """Clusters of grad_gemm.cu that fit on the card at once (one wave)."""
+    index = torch.device(dev).index or 0
+    if index not in _GEMM_CLUSTERS:
+        lib = _gemm_lib()
+        n = ctypes.c_int(0)
+        with torch.cuda.device(index):
+            _raise(lib, lib.sfm_grad_gemm_clusters(ctypes.byref(n)), "weight-GEMM occupancy")
+        if n.value < 1:
+            raise RuntimeError("weight GEMM: no cluster of two blocks fits on the card")
+        _GEMM_CLUSTERS[index] = n.value
+    return _GEMM_CLUSTERS[index]
+
+
+def _gemm_plan(packed: PackedNeRF, n_rec: int, n_clusters: int):
+    """(jobs as an int32 array, partial rows), made once per layout,
+    record count and cluster count."""
+    def build():
+        jobs = gemm_jobs(packed)
+        rows = 1 + max(s[4] for s in gemm_segments(jobs, n_rec, n_clusters))
+        return np.asarray([j.ints() for j in jobs], np.int32), rows
+    return _fr.by_layout("gemm", packed, build, n_rec, n_clusters)
+
+
 def _gemm_partials(packed: PackedNeRF, n_rec: int, dev) -> torch.Tensor:
     """Zeroed float32 partials of the weight GEMM over ``n_rec`` records:
-    one row of the packed weights' length per point slice, as many slices
-    as fill about two blocks per SM (elements no task writes, rgb1's
-    direction rows, stay zero)."""
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    n_split = max(1, min(n_rec, 2 * sms // _gemm_tasks(packed)[0]))
-    return torch.zeros(n_split, packed.weights.numel(), device=dev, dtype=torch.float32)
-
-
-def _gemm_tasks(packed: PackedNeRF):
-    """(n_tasks, tasks as an int32 array), made once per layout."""
-    def build():
-        flat = np.asarray(gemm_tasks(packed), np.int32)
-        return flat.shape[0], flat
-    return _fr.by_layout("gemm", packed, build)
+    one row of the packed weights' length per share of a job
+    (gemm_segments); elements no share writes, rgb1's direction rows
+    among them, stay zero."""
+    rows = _gemm_plan(packed, n_rec, _gemm_clusters(dev))[1]
+    return torch.zeros(rows, packed.weights.numel(), device=dev, dtype=torch.float32)
 
 
 def _gemm_launch(packed: PackedNeRF, act, cot, n_rec: int, partials) -> None:
-    """grad_gemm.cu over ``n_rec`` records into ``partials`` (one row per
-    point slice, _gemm_partials)."""
-    n_tasks, flat = _gemm_tasks(packed)
+    """grad_gemm.cu over ``n_rec`` records into ``partials``
+    (_gemm_partials), one wave of clusters; adds the stash bytes it
+    fetches to the counter ``gemm_bytes``."""
+    n_clusters = _gemm_clusters(act.device)
+    jobs = _gemm_plan(packed, n_rec, n_clusters)[0]
     lay = stash_layout(packed)
     lib = _gemm_lib()
     with torch.cuda.device(act.device):
         stream = torch.cuda.current_stream(act.device).cuda_stream
         err = lib.sfm_grad_gemm(act.data_ptr(), cot.data_ptr(),
-                                flat.ctypes.data_as(ctypes.c_void_p), n_tasks,
-                                partials.shape[0], n_rec, lay.rec_act, lay.rec_cot,
+                                jobs.ctypes.data_as(ctypes.c_void_p), jobs.shape[0],
+                                n_clusters, n_rec, lay.rec_act, lay.rec_cot,
                                 packed.weights.numel(), partials.data_ptr(), stream)
     _raise(lib, err, "weight-gradient GEMM")
+    count("gemm_bytes", n_rec * gemm_bytes_per_record(packed))
 
 
 def _reduce_add(partials, n_rows: int, n_a: int, dst_a, dst_b) -> None:

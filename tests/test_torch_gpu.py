@@ -276,18 +276,22 @@ def test_fused_mse_loss_weights_kernel_matches_plain_version(white, n_rays, n_sa
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("model,n_rec", [
-    ("synth800", 1000), ("synth800", 3), ("hidden64", 257), ("legacy", 130)])
+    ("synth800", 1000), ("synth800", 3), ("hidden64", 257), ("legacy", 130), ("mip", 1000),
+    ("mip", 40), ("hidden48", 300), ("legacy48", 4096)])
 def test_weight_grad_gemm_matches_plain_version(model, n_rec):
     """The weight-gradient GEMM alone (grad_gemm.cu) on random stashes
     against its plain version: the f32 sums of A^T D over every record,
     within 1e-5 of each layer's norm (the two sum in other orders), twice
     bit-equal.  Everything outside the images' real rows and columns is
-    NaN, so a value the GEMM must discard that reached a grad would show;
-    3 records give fewer points than one block takes."""
+    NaN, so a value the GEMM must discard that reached a grad would show.
+    The packings: flat (the density/feature head's 16 columns by n16 beside
+    n256), mip (two encoding tiles of 96 IPE columns, each alone on a block
+    of a multicast job), hidden 48 (every layer a single odd tile, paired
+    without multicast); 3 and 40 records are fewer than the clusters."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
-    packed = _packed_model(model)
+    packed = _mip_packed()[1] if model == "mip" else _packed_model(model)
     lay = ft.stash_layout(packed)
     gen = torch.Generator(device="cuda").manual_seed(n_rec)
     act = torch.full((n_rec, lay.rec_act), float("nan"), device="cuda", dtype=torch.bfloat16)

@@ -233,7 +233,7 @@ def test_ray_groups_give_the_same_grads(white):
 def test_weight_gemm_plain_version_is_each_layers_product():
     """grad_gemm_reference on random stashes: layer l's rows are A_l^T D_l
     with A_l read from the right slots (the skip layer's and fc1's
-    encoding rows included), rgb1's direction rows zero; gemm_tasks covers
+    encoding rows included), rgb1's direction rows zero; gemm_jobs covers
     every other weight element exactly once."""
     _, _, packed, _, _ = _setup("active", 1, 64, seed=5)
     lay = tft.stash_layout(packed)
@@ -256,16 +256,114 @@ def test_weight_gemm_plain_version_is_each_layers_product():
         torch.testing.assert_close(got[:A.shape[1]], A.t() @ D, rtol=1e-5, atol=1e-4)
         if s.kind == "rgb1":
             assert bool((got[h:] == 0).all())
+    _assert_gemm_jobs_cover(packed)
+
+
+def _assert_gemm_jobs_cover(packed):
+    """gemm_jobs' units write every packed weight element but rgb1's
+    direction rows exactly once: each tile's rows over columns [0, ncols)
+    and [256, 256 + extra)."""
     cover = torch.zeros(packed.weights.numel(), dtype=torch.int64)
-    for w_off, n, n0, ncols, _, _, n_tiles, *tiles in tft.gemm_tasks(packed):
-        for k0, k_rows, _ in (tiles[:3], tiles[3:])[:n_tiles]:
-            for k in range(k0, k0 + k_rows):
-                cover[w_off + k * n + n0:w_off + k * n + n0 + ncols] += 1
+    for job in tft.gemm_jobs(packed):
+        for u in job.units:
+            for k0, k_rows, _ in u.tiles:
+                for k in range(k0, k0 + k_rows):
+                    row = u.w_off + k * u.n
+                    cover[row:row + u.ncols] += 1
+                    cover[row + 256:row + 256 + u.extra] += 1
     rgb1 = {s.name: s for s in packed.layers}["rgb1"]
-    dir_rows = slice(rgb1.w_off + h * rgb1.n, rgb1.w_off + rgb1.k_rows * rgb1.n)
+    dir_rows = slice(rgb1.w_off + packed.hidden * rgb1.n, rgb1.w_off + rgb1.k_rows * rgb1.n)
     assert bool((cover[dir_rows] == 0).all())
     cover[dir_rows] = 1
     assert bool((cover == 1).all())
+
+
+GEMM_PACKINGS = {
+    "active": dict(arch="active"),
+    "legacy48": dict(arch="legacy", hidden=48, n_pos_freq=5, n_dir_freq=3),
+    "mip": dict(arch="mip", hidden=256, n_pos_freq=16, n_dir_freq=4),
+}
+
+
+@pytest.mark.parametrize("name", list(GEMM_PACKINGS))
+def test_weight_gemm_jobs_cover_each_weight_once(name):
+    """The cluster GEMM's jobs (grad_gemm.cu) on the active, legacy-48 and
+    mip packings: every packed weight element but rgb1's direction rows is
+    written by exactly one unit; the two units of a multicast job name the
+    same cotangent blocks and width, and a job without multicast holds a
+    single tile a block; each unit's tiles read their own rows' activation
+    blocks, its widths hold its columns; ``gemm_bytes`` a record is the
+    jobs' own sum, a multicast block once.  The flat packing fetches 92
+    blocks a record (the single-block kernel 135: each 128-row task reread
+    its layer's cotangents), within the 87 it needs and 96."""
+    from sfm_nerf_tpu_torch.models.nerf import NeRF
+
+    cfg = NeRFModelConfig(**GEMM_PACKINGS[name])
+    packed = tfr.pack_nerf_params(NeRF(cfg, device="cpu", seed=3), cfg, torch.bfloat16)
+    lay = tft.stash_layout(packed)
+    _assert_gemm_jobs_cover(packed)
+    jobs = tft.gemm_jobs(packed)
+    by_off = {s.w_off: (li, s) for li, s in enumerate(packed.layers)}
+    for job in jobs:
+        assert len(job.ints()) == 2 + 2 * 14
+        for u in job.units:
+            if not u.tiles:
+                assert not job.multicast and u.d_blocks == 0
+                continue
+            li, s = by_off[u.w_off]
+            assert (u.n, u.d_block, u.d_blocks) == (s.n, lay.cot_off[li], -(-s.n // 64))
+            assert u.ncols == min(s.n, 256) <= u.width and u.width in (16, 64, 128, 256)
+            assert u.extra == s.n - u.ncols <= 16 and len(u.tiles) <= 2
+            for k0, k_rows, block in u.tiles:
+                seg = [(r0, block0) for r0, rows, block0 in tft._gemm_inputs(packed, lay, s, li)
+                       if r0 <= k0 < r0 + rows]
+                assert len(seg) == 1 and block == seg[0][1] + (k0 - seg[0][0]) // 64
+                assert 1 <= k_rows <= 64
+        a, b = job.units
+        if job.multicast:
+            assert (a.w_off, a.d_block, a.d_blocks, a.width) == (b.w_off, b.d_block, b.d_blocks,
+                                                                 b.width)
+            assert job.issued(0) + job.issued(1) == a.d_blocks
+        else:
+            assert len(a.tiles) == 1 and len(b.tiles) <= 1
+    blocks = sum(j.blocks for j in jobs)
+    assert tft.gemm_bytes_per_record(packed) == blocks * 8192
+    assert blocks == sum(len(u.tiles) for j in jobs for u in j.units) + sum(
+        j.units[0].d_blocks if j.multicast else j.units[0].d_blocks + j.units[1].d_blocks
+        for j in jobs)
+    if name == "active":
+        assert 87 <= blocks <= 96
+
+
+@pytest.mark.parametrize("name,n_rec,n_clusters", [
+    ("active", 4096, 66), ("active", 6144, 66), ("active", 3, 66), ("mip", 1000, 60),
+    ("legacy48", 257, 66), ("active", 1, 1)])
+def test_weight_gemm_segments_share_the_records_evenly(name, n_rec, n_clusters):
+    """gemm_segments, the schedule the kernel's clusters work out: each
+    job's records are taken once, in order, by clusters in order (fewer
+    records than clusters included), each share to its own partial row;
+    every cluster's bytes lie within one record's of an equal share, its
+    jobs in order."""
+    from sfm_nerf_tpu_torch.models.nerf import NeRF
+
+    cfg = NeRFModelConfig(**GEMM_PACKINGS[name])
+    packed = tfr.pack_nerf_params(NeRF(cfg, device="cpu", seed=3), cfg, torch.bfloat16)
+    jobs = tft.gemm_jobs(packed)
+    segs = tft.gemm_segments(jobs, n_rec, n_clusters)
+    for j, job in enumerate(jobs):
+        mine = [s for s in segs if s[1] == j]
+        assert [s[2] for s in mine] == [0] + [s[3] for s in mine[:-1]] and mine[-1][3] == n_rec
+        # row = cluster - (the cluster holding the job's first byte): one
+        # row a share, from 0 up (a cluster with none of it keeps its row)
+        assert all(s[0] - s[4] == mine[0][0] - mine[0][4] for s in mine)
+        assert 0 <= mine[0][4] <= mine[0][0] and mine[0][4] < n_clusters
+    total = sum(j.blocks for j in jobs) * n_rec
+    worst = max(j.blocks for j in jobs)
+    for q in range(n_clusters):
+        mine = [s for s in segs if s[0] == q]
+        assert [s[1] for s in mine] == sorted(s[1] for s in mine)
+        got = sum(jobs[s[1]].blocks * (s[3] - s[2]) for s in mine)
+        assert abs(got - total / n_clusters) <= worst
 
 
 @pytest.mark.parametrize("mcfg", [

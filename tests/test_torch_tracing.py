@@ -166,9 +166,14 @@ def test_the_record_outlives_its_window():
     assert profiling.summary()["spans"]["train.step"]["calls"] == 1
 
 
-def test_render_tile_image_counts_its_upload():
+def test_render_tile_image_counts_its_upload(monkeypatch):
     """The tile image's index at the default widths: 5,319,680 bytes,
-    counted once per packing, in one ``upload.tile_index`` span."""
+    counted once per layout and device, in one ``upload.tile_index`` span;
+    a later packing of the same layout (a training step's) uploads nothing,
+    a packing of another layout uploads its own index."""
+    from sfm_nerf_tpu_torch.kernels import fused_render
+
+    monkeypatch.setattr(fused_render, "_BY_LAYOUT", {})
     mcfg = NeRFModelConfig()
     model = NeRF(mcfg, device="cpu")
     with profiling.recording():
@@ -178,11 +183,17 @@ def test_render_tile_image_counts_its_upload():
     assert profiling.summary()["counters"] == {"upload_bytes": TILE_INDEX_BYTES}
     assert [r.name for r in profiling.records()] == ["upload.tile_index"]
     with profiling.recording():
+        again = render_tile_image(pack_nerf_params(model, mcfg, torch.bfloat16))
         render_tile_image(pack_nerf_params(model, mcfg, torch.bfloat16))
-        render_tile_image(pack_nerf_params(model, mcfg, torch.bfloat16))
-    assert profiling.summary()["counters"] == {"upload_bytes": 2 * TILE_INDEX_BYTES}
-    _empty_record()
-    render_tile_image(pack_nerf_params(model, mcfg, torch.bfloat16))
+    assert profiling.summary()["counters"] == {}
+    assert torch.equal(again, render_tile_image(packed))
+    small = NeRFModelConfig(hidden=32, n_pos_freq=4, n_dir_freq=2)
+    with profiling.recording():
+        render_tile_image(pack_nerf_params(NeRF(small, device="cpu"), small, torch.bfloat16))
+    assert 0 < profiling.summary()["counters"]["upload_bytes"] < TILE_INDEX_BYTES
+    _empty_record()                 # recording off: an upload is not counted
+    other = NeRFModelConfig(hidden=48, n_pos_freq=5, n_dir_freq=3)
+    render_tile_image(pack_nerf_params(NeRF(other, device="cpu"), other, torch.bfloat16))
     assert profiling.summary()["counters"] == {}
 
 
