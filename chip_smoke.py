@@ -118,9 +118,8 @@ training step; hierarchical: 256 coarse + 128 importance samples):
    200-camera protocol's pose graph), relative_pose_pairs over every pair
    of sfm, the 5-point RANSAC on pair (1, 2) (and torch.linalg.eig's time
    on its action matrices' shape), adaptive F-RANSAC over sfm's pairs
-   through the host and the device driver (bit for bit, beside the fixed
-   run; each driver timed twice, in the order host, device, device, host),
-   adaptive PnP (timed the same way) and the rescue on camera 3;
+   (timed twice, the second run bit for bit the first, beside the fixed
+   run), adaptive PnP (timed the same way) and the rescue on camera 3;
 20. profile (after the kernels line, like 21-25): utils/profiling.trace over
    20 steady K2 training steps at 8,192 x 256 (after 5 warm-up steps) and
    over one 800x800x256 synth800 test view through K1: the device's busy
@@ -185,6 +184,8 @@ import sys
 import time
 import traceback
 
+from benchmark.counts import PEAK_BF16, PEAK_BYTES   # H100 SXM bf16 FLOP/s, HBM3 bytes/s
+
 REPO = os.path.dirname(os.path.abspath(__file__))
 OUT = os.path.join(REPO, "build", "chip_smoke")   # artifacts (git-ignored)
 SUBSET = 16384           # rays held against the plain version
@@ -243,8 +244,6 @@ MIP_INTERVALS, MIP_SEED = 128, 19   # the mip phase: intervals a level, network 
 # version's float32-vs-float64 spread 4.5e-4 / 3.0e-4, and that control
 # 1.83e-2 / 9.2e-3 (fc1.weight): the rule sits near the geometric means
 MIP_GRAD_TOL = (1.5e-3, 1e-3)
-PEAK_BF16 = 989e12       # H100 SXM dense bf16 FLOP/s (NVIDIA data sheet)
-PEAK_BYTES = 3.35e12     # H100 SXM HBM3 bytes/s
 
 
 def emit(phase, **kw):
@@ -764,37 +763,29 @@ def run_sfm_phases(phase, out_root):
                                 "eig_cuda_ms": eig_ms.get("cuda"),
                                 "eig_cpu_ms": eig_ms.get("cpu")}
 
-        # adaptive F-RANSAC over every pair: host vs device driver, vs fixed
+        # adaptive F-RANSAC over every pair, against the fixed run
         total = -(-50000 // 1024) * 1024
         g = torch.Generator(device=dev).manual_seed(9)
         samples = [ep.draw_minimal_samples(total, 8, len(a), g, dev) for a, _ in items]
-        # the two drivers in the order host, device, device, host, so that
-        # neither pays alone for what the first call after another warms
-        runs, ms_runs = {}, {"host": [], "device": []}
-        for tag, kw in (("fixed", {}),
-                        *((t_, dict(confidence=ADAPTIVE_CONF, adaptive_device=t_ == "device"))
-                          for t_ in ("host", "device", "device", "host"))):
+        # the adaptive driver twice, the second run the first's bit for bit
+        runs, ms_runs = {}, []
+        adaptive = dict(confidence=ADAPTIVE_CONF)
+        for tag, kw in (("fixed", {}), ("adaptive", adaptive), ("adaptive", adaptive)):
             iters = []
             (out, ms_) = timed(lambda: ep.ransac_fundamental_pairs_bucketed(
                 items, n_iters=50000, samples=samples, device=dev, iters_out=iters, **kw))
-            if tag in runs and tag != "fixed":
+            if tag in runs:
                 assert all(np.array_equal(a.F, b.F) for a, b in zip(out, runs[tag][0]))
             runs[tag] = (out, iters, ms_)
-            ms_runs.get(tag, []).append(ms_)
-        same = all(np.array_equal(a.F, b.F) and np.array_equal(a.inliers, b.inliers)
-                   and int(a.best_iter) == int(b.best_iter)
-                   for a, b in zip(runs["host"][0], runs["device"][0]))
-        same = same and runs["host"][1] == runs["device"][1]
+            if tag == "adaptive":
+                ms_runs.append(ms_)
         rec["adaptive_f"] = {"pairs": len(items), "cap": total,
-                             "host_equals_device": same,
-                             "iters_scored": sorted(set(runs["host"][1])),
+                             "iters_scored": sorted(set(runs["adaptive"][1])),
                              "fixed_ms": runs["fixed"][2],
-                             "host_ms": sum(ms_runs["host"]) / 2,
-                             "device_ms": sum(ms_runs["device"]) / 2,
-                             "host_ms_runs": ms_runs["host"],
-                             "device_ms_runs": ms_runs["device"]}
+                             "host_ms": sum(ms_runs) / 2,
+                             "host_ms_runs": ms_runs}
 
-        # adaptive PnP, host vs device driver, and the rescue card vs CPU, camera 3
+        # adaptive PnP, and the rescue card vs CPU, camera 3
         cam = 2
         vis = np.flatnonzero(gt["ok"][cam])
         X3, x2 = gt["points"][vis], gt["obs"][cam, vis].copy()
@@ -803,18 +794,15 @@ def run_sfm_phases(phase, out_root):
         g = torch.Generator(device=dev).manual_seed(4)
         psamp = ep.draw_minimal_samples(-(-10000 // 512) * 512, 6, len(vis), g, dev)
         t = lambda a: torch.as_tensor(np.asarray(a, np.float64), device=dev)
-        pn, pn_ms = {}, {"host": [], "device": []}
-        for tag in ("host", "device", "device", "host"):
+        pn, pn_ms = None, []
+        for _ in range(2):
             (out, ms_) = timed(lambda: pnp_ops.pnp_ransac_adaptive(
                 t(X3), t(x2), t(gt["K"]), confidence=ADAPTIVE_CONF, max_iters=10000,
-                samples=psamp, device_loop=tag == "device"))
-            if tag in pn:
-                assert torch.equal(out[0].R, pn[tag][0][0].R) and out[1] == pn[tag][0][1]
-            pn[tag] = (out, ms_)
-            pn_ms[tag].append(ms_)
-        pnp_same = (pn["host"][0][1] == pn["device"][0][1]
-                    and torch.equal(pn["host"][0][0].R, pn["device"][0][0].R)
-                    and torch.equal(pn["host"][0][0].inliers, pn["device"][0][0].inliers))
+                samples=psamp))
+            if pn is not None:
+                assert torch.equal(out[0].R, pn[0].R) and out[1] == pn[1]
+            pn = out
+            pn_ms.append(ms_)
         rs = {}
         rescue_seed = 3 * 31      # the pipeline's seed for camera 3 at --seed 0
         for name, d in sides:
@@ -824,19 +812,15 @@ def run_sfm_phases(phase, out_root):
         rescue_same = bool(np.array_equal(rs["cuda"][0].inliers, rs["cpu"][0].inliers))
         rescue_diff = max(float(np.abs(rs["cuda"][0].R - rs["cpu"][0].R).max()),
                           float(np.abs(rs["cuda"][0].C - rs["cpu"][0].C).max()))
-        rec["pnp"] = {"points": len(vis), "adaptive_host_equals_device": bool(pnp_same),
-                      "adaptive_iters_scored": pn["host"][0][1],
-                      "adaptive_n_inliers": int(pn["host"][0][0].n_inliers),
-                      "adaptive_host_ms": sum(pn_ms["host"]) / 2,
-                      "adaptive_device_ms": sum(pn_ms["device"]) / 2,
-                      "adaptive_host_ms_runs": pn_ms["host"],
-                      "adaptive_device_ms_runs": pn_ms["device"],
+        rec["pnp"] = {"points": len(vis), "adaptive_iters_scored": pn[1],
+                      "adaptive_n_inliers": int(pn[0].n_inliers),
+                      "adaptive_host_ms": sum(pn_ms) / 2, "adaptive_host_ms_runs": pn_ms,
                       "rescue_same_inliers": rescue_same, "rescue_max_diff": rescue_diff,
                       "rescue_n_inliers": int(rs["cuda"][0].n_inliers),
                       "rescue_cuda_ms": rs["cuda"][1], "rescue_cpu_ms": rs["cpu"][1]}
         ok = (rot_diff <= AVG_TOL and cen_diff <= AVG_TOL and rp_diff <= AVG_TOL
               and rec["essential_5pt"]["same_inliers"] and e_diff <= E5_TOL
-              and same and pnp_same and rescue_same and rescue_diff <= AVG_TOL)
+              and rescue_same and rescue_diff <= AVG_TOL)
         if not ok:
             raise AssertionError(f"sfm_global_ops: {rec}")
         emit("sfm_global_ops", **rec)

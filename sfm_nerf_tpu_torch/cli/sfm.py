@@ -60,10 +60,8 @@ def config_parser() -> argparse.ArgumentParser:
                         "caps; 0 keeps the fixed counts")
     p.add_argument("--ransac_adaptive_device", default="auto",
                    choices=["auto", "host", "device"],
-                   help="with --ransac_confidence > 0: 'host' reads each "
-                        "chunk's result before launching the next, 'device' "
-                        "keeps the stop rule on the device, 'auto' is "
-                        "host (same winners either way)")
+                   help="accepted for Phase1/Wrapper.py's command lines: every "
+                        "value runs the one host-driven adaptive loop")
     p.add_argument("--pnp_iters", type=int, default=10000)
     p.add_argument("--pnp_threshold", type=float, default=10.0)
     p.add_argument("--pnp_f64_rescue", default="auto", choices=["auto", "on", "off"],

@@ -143,9 +143,7 @@ class SfMConfig:
     resolves to off and ``'on'`` re-runs a failed camera's PnP RANSAC on
     numpy draws of its own seed (ops/pnp.py:pnp_ransac_f64_host).
     ``ransac_confidence > 0`` stops F- and PnP RANSAC on their confidence
-    bound, ``ransac_adaptive_device`` picks the host-driven (False) or
-    device-predicated (True) driver; None ('auto') the host one on every
-    device, since on an H100 the device driver measured no faster.
+    bound; every ``ransac_adaptive_device`` value runs the one host-driven loop.
     ``global_rotation_init`` / ``global_init`` re-initialize the registered
     cameras by rotation (and translation) averaging before the global BA,
     ``essential_method='5pt'`` takes the two-view E from the 5-point RANSAC.

@@ -1,20 +1,20 @@
 """Fused NeRF render: points -> encoding -> MLP -> alpha compositing.
 
-Counterpart of sfm_nerf_tpu/kernels/fused_render.py.  Two entry points,
-one CUDA source (csrc/fused_render.cu, template flag EMIT_WEIGHTS):
+Counterpart of sfm_nerf_tpu/kernels/fused_render.py.  One CUDA source
+(csrc/fused_render.cu) and one body, ``_render``: rgb (N, 3) of rays (N, 3)
+x depths (N, S) and, with ``emit_weights`` (the kernel's template flag
+EMIT_WEIGHTS), the per-sample compositing weights (N, S).  The public
+entries are its four cases, points or cones by with or without the
+weights, each one call of it under the JAX package's names.
 
-- ``fused_render_rays``: rgb (N, 3);
-- ``fused_render_rays_weights``: rgb and the per-sample compositing
-  weights (N, S).
-
-kernels/fused_train.py launches the same source compiled with TB (the
-forward of ``fused_render_train``) and with STASH (the split step's forward
-sweep).
-
-Beside them, ``fused_render_rays_reference`` is the plain PyTorch version
-of the kernel's function.  A wrapper given CPU tensors runs it; given CUDA
-tensors it launches the kernel or raises.  Each wrapper counts its kernel
-launches in ``LAUNCHES``.
+The body's plain version is ``fused_render_rays_reference``.  Every kernel
+entry of this module and of kernels/fused_train.py keeps one device rule
+(``_on_card``: CPU tensors run the plain version, CUDA tensors launch the
+kernel, any other device raises) and one set of input checks before a
+launch (``_check_launch``).  Each call that launches counts one in
+``LAUNCHES`` under its entry's name.  kernels/fused_train.py launches the
+same source compiled with TB (the forward of ``fused_render_train``) and
+with STASH (the split step's forward sweep).
 
 The kernel reads its weights as a tile image: each 64-row tile of each
 product laid out once, here, as the swizzled shared-memory image wgmma
@@ -25,16 +25,15 @@ The kernel masks the ragged end of the sample axis itself (samples past a
 ray's last get a zero distance, an exact no-op), so the sample axis is not
 padded and any n_sample runs.
 
-Cones (the mip arch, ``PackedNeRF.mip``): ``fused_render_cones`` and
-``fused_render_cones_weights`` take each ray's un-normalised direction,
-its cone (radius, |d|) and S + 1 interval edges, and the kernel is
-compiled with MIP: the producer encodes each interval's conical frustum
-as a Gaussian (nerf_device.cuh ``frustum_gaussian``) into its integrated
-positional encoding, the view direction takes mip-NeRF's encoding, the
-bottleneck is linear (pass kind 'lin'), the rgb head's sigmoid is widened
-to ``1.002 s - 0.001``, and the compositing runs over the interval
-lengths ``(t1 - t0) |d|``.  Their plain versions are
-``fused_render_rays_reference`` given ``cones``.
+Cones (the mip arch, ``PackedNeRF.mip``): the body takes each ray's
+un-normalised direction, its cone (radius, |d|) and S + 1 interval edges
+in place of the depths, and the kernel is compiled with MIP: the producer
+encodes each interval's conical frustum as a Gaussian (nerf_device.cuh
+``frustum_gaussian``) into its integrated positional encoding, the view
+direction takes mip-NeRF's encoding, the bottleneck is linear (pass kind
+'lin'), the rgb head's sigmoid is widened to ``1.002 s - 0.001``, and the
+compositing runs over the interval lengths ``(t1 - t0) |d|``.  A mip
+packing takes cones and any other none (``_check_cones``).
 """
 
 from __future__ import annotations
@@ -627,23 +626,42 @@ def _check_cones(packed: PackedNeRF, cones, z_vals) -> None:
                          "expected (N, 2) and (N, S + 1)")
 
 
+def _on_card(t: torch.Tensor, what: str) -> bool:
+    """The device rule of every kernel entry: a CPU tensor runs the plain
+    version (False), a CUDA tensor launches the kernel (True), any other
+    device raises."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: no kernel for device {t.device}")
+    return t.device.type == "cuda"
+
+
+def _check_launch(packed: PackedNeRF, origins, directions, z_vals, cones, what: str,
+                  **extra) -> None:
+    """The input checks of every launch of the render and training kernels:
+    cones for the mip arch and for no other, every tensor (``extra`` too)
+    on the origins' device, the bf16 packing, hidden <= 256, (N, 3) rays
+    for the N rows of ``z_vals``."""
+    _check_cones(packed, cones, z_vals)
+    dev = origins.device
+    for name, t in (("directions", directions), ("z_vals", z_vals), ("cones", cones),
+                    *extra.items(), ("weights", packed.weights), ("biases", packed.biases)):
+        if t is not None and t.device != dev:
+            raise ValueError(f"{what}: {name} on {t.device}, origins on {dev}")
+    if packed.weights.dtype != torch.bfloat16:
+        raise ValueError(f"{what} kernel takes bf16-packed weights, got {packed.weights.dtype}")
+    if packed.hidden > 256:
+        raise ValueError(f"{what} kernel: hidden {packed.hidden} > 256")
+    n = z_vals.shape[0]
+    if origins.shape != (n, 3) or directions.shape != (n, 3):
+        raise ValueError(f"{what}: origins {tuple(origins.shape)}, directions "
+                         f"{tuple(directions.shape)}, z_vals {tuple(z_vals.shape)}")
+
+
 def _launch(packed, origins, directions, z_vals, rcfg, emit_weights, cones=None):
     """Check the inputs, allocate the outputs and launch the CUDA kernel."""
+    _check_launch(packed, origins, directions, z_vals, cones, "fused render")
     dev = origins.device
-    _check_cones(packed, cones, z_vals)
-    for name, t in (("directions", directions), ("z_vals", z_vals), ("cones", cones),
-                    ("weights", packed.weights), ("biases", packed.biases)):
-        if t is not None and t.device != dev:
-            raise ValueError(f"fused render: {name} on {t.device}, origins on {dev}")
-    if packed.weights.dtype != torch.bfloat16:
-        raise ValueError("fused render kernel takes bf16-packed weights, got "
-                         f"{packed.weights.dtype}")
-    if packed.hidden > 256:
-        raise ValueError(f"fused render kernel: hidden {packed.hidden} > 256")
     n, S = z_vals.shape[0], n_intervals(packed, z_vals)
-    if origins.shape != (n, 3) or directions.shape != (n, 3):
-        raise ValueError(f"fused render: origins {tuple(origins.shape)}, directions "
-                         f"{tuple(directions.shape)}, z_vals {tuple(z_vals.shape)}")
     o = origins.float().contiguous()
     d = directions.float().contiguous()
     z = z_vals.float().contiguous()
@@ -668,21 +686,30 @@ def _launch(packed, origins, directions, z_vals, rcfg, emit_weights, cones=None)
     return rgb, w
 
 
+def _render(packed: PackedNeRF, origins, directions, z_vals, rcfg: RenderConfig,
+            emit_weights: bool, cones=None):
+    """The render entries' one body: rgb, or (rgb, weights) with
+    ``emit_weights``, from the kernel (CUDA tensors, one launch counted
+    under the entry's name) or the plain version (CPU tensors).  ``cones``:
+    a mip packing's, with the edges as ``z_vals``."""
+    _check_white(rcfg)
+    _check_cones(packed, cones, z_vals)
+    if not _on_card(origins, "fused render"):
+        return fused_render_rays_reference(packed, origins, directions, z_vals, rcfg,
+                                           emit_weights=emit_weights, cones=cones)
+    rgb, w = _launch(packed, origins, directions, z_vals, rcfg, emit_weights, cones)
+    LAUNCHES["fused_render_" + ("rays" if cones is None else "cones")
+             + "_weights" * emit_weights] += 1
+    return (rgb, w) if emit_weights else rgb
+
+
 def fused_render_rays(
     packed: PackedNeRF, origins: torch.Tensor, directions: torch.Tensor,
     z_vals: torch.Tensor, rcfg: RenderConfig,
 ) -> torch.Tensor:
     """rgb (N, 3) of rays (N, 3) x depths (N, S) through the fused kernel
     (CUDA tensors) or its plain version (CPU tensors)."""
-    _check_white(rcfg)
-    _check_cones(packed, None, z_vals)
-    if origins.device.type == "cpu":
-        return fused_render_rays_reference(packed, origins, directions, z_vals, rcfg)
-    if origins.device.type != "cuda":
-        raise ValueError(f"fused render: no kernel for device {origins.device}")
-    rgb, _ = _launch(packed, origins, directions, z_vals, rcfg, False)
-    LAUNCHES["fused_render_rays"] += 1
-    return rgb
+    return _render(packed, origins, directions, z_vals, rcfg, False)
 
 
 def fused_render_rays_weights(
@@ -691,16 +718,7 @@ def fused_render_rays_weights(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """fused_render_rays that also returns the per-sample compositing
     weights (N, S), the inputs of weight_maps."""
-    _check_white(rcfg)
-    _check_cones(packed, None, z_vals)
-    if origins.device.type == "cpu":
-        return fused_render_rays_reference(packed, origins, directions, z_vals,
-                                           rcfg, emit_weights=True)
-    if origins.device.type != "cuda":
-        raise ValueError(f"fused render: no kernel for device {origins.device}")
-    rgb, w = _launch(packed, origins, directions, z_vals, rcfg, True)
-    LAUNCHES["fused_render_rays_weights"] += 1
-    return rgb, w
+    return _render(packed, origins, directions, z_vals, rcfg, True)
 
 
 def fused_render_cones(
@@ -711,16 +729,7 @@ def fused_render_cones(
     cones (N, 2): radius and |d|) over the intervals between edges (N, S +
     1), through the mip arch's packing: the cone kernel (CUDA tensors) or
     its plain version (CPU tensors)."""
-    _check_white(rcfg)
-    _check_cones(packed, cones, edges)
-    if origins.device.type == "cpu":
-        return fused_render_rays_reference(packed, origins, directions, edges, rcfg,
-                                           cones=cones)
-    if origins.device.type != "cuda":
-        raise ValueError(f"fused render: no kernel for device {origins.device}")
-    rgb, _ = _launch(packed, origins, directions, edges, rcfg, False, cones)
-    LAUNCHES["fused_render_cones"] += 1
-    return rgb
+    return _render(packed, origins, directions, edges, rcfg, False, cones)
 
 
 def fused_render_cones_weights(
@@ -729,13 +738,4 @@ def fused_render_cones_weights(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """fused_render_cones that also returns each interval's compositing
     weight (N, S): the coarse level of a mip-NeRF frame."""
-    _check_white(rcfg)
-    _check_cones(packed, cones, edges)
-    if origins.device.type == "cpu":
-        return fused_render_rays_reference(packed, origins, directions, edges, rcfg,
-                                           emit_weights=True, cones=cones)
-    if origins.device.type != "cuda":
-        raise ValueError(f"fused render: no kernel for device {origins.device}")
-    rgb, w = _launch(packed, origins, directions, edges, rcfg, True, cones)
-    LAUNCHES["fused_render_cones_weights"] += 1
-    return rgb, w
+    return _render(packed, origins, directions, edges, rcfg, True, cones)

@@ -1,23 +1,25 @@
 """Fused NeRF training step: forward and hand-written backward in CUDA.
 
-Counterpart of sfm_nerf_tpu/kernels/fused_train.py.  Three wrappers named
-as in the JAX package:
+Counterpart of sfm_nerf_tpu/kernels/fused_train.py.  Two kernel families:
 
-- ``fused_mse_loss``: mean((render(rays) - target)^2) as a scalar; the
-  launches give rgb and the grads of every packed weight and bias (the MSE
-  cotangent is made on the card); backward only scales them.
-- ``fused_mse_loss_weights``: the same loss and, from the same launches,
-  the per-sample compositing weights (N, S) of the forward sweep, detached:
-  the coarse pass of hierarchical training, whose weights feed
-  ``sample_pdf``.
-- ``fused_render_train``: rgb (N, 3), differentiable for any loss on it.
-  Forward launches the render kernel compiled with TB
+- the MSE step, one body (``_mse_step``) and one ``torch.autograd.Function``
+  (``_FusedMSELoss``): mean((render(rays) - target)^2) as a scalar, and
+  with ``emit_weights`` the per-sample compositing weights (N, S) of the
+  forward sweep, detached (the coarse pass of hierarchical training, whose
+  weights feed ``sample_pdf``).  The launches give rgb and the grads of
+  every packed weight and bias (the MSE cotangent is made on the card);
+  backward only scales them.  Its public entries, named as in the JAX
+  package, are its four cases, points or cones by with or without the
+  weights, each one call: the ``*_grads`` ones return the raw outputs, the
+  others the loss under autograd;
+- ``fused_render_train`` (K3): rgb (N, 3), differentiable for any loss on
+  it.  Forward launches the render kernel compiled with TB
   (csrc/fused_render.cu, K1's arithmetic: its rgb is K1's) once over all
   rays: rgb and tb, the transmittance entering each 128-sample chunk.
   Backward runs the split step under the caller's cotangent g, its forward
   sweep recomputing what JAX's backward kernel recomputes from tb.
 
-All three run the split step (``_split_step``): per group of RAY_GROUP
+Both run the split step (``_split_step``): per group of RAY_GROUP
 rays, in ray order, (1) the render kernel compiled with STASH (K1's
 arithmetic: its rgb and weights are K1's and K5's), which also writes every
 layer input, the per-point density and colours and tb to a stash
@@ -36,24 +38,25 @@ The step's launch classes are spans of utils/profiling.py: ``k2.stash``
 (1), ``k2.walk`` (2), ``k2.gemm`` (3 and its partials' reduction) and
 ``k2.reduce`` (the reverse walk's partials' reduction).
 
-All are ``torch.autograd.Function``s over the parameters of the module the
+Both autograd Functions work over the parameters of the module the
 weights were packed from (``PackedNeRF.model``): the packed grads go back to
 ``nn.Module`` parameter grads through ``unpack_grads``, the exact transpose
 of ``pack_nerf_params``, so ``loss.backward()`` fills ``.grad`` and the
 optimizer is plain ``torch.optim.Adam``.  No library product and no
 autograd graph computes anything on that path.
 
-Beside them, ``fused_mse_loss_reference``,
-``fused_mse_loss_weights_reference`` and ``fused_render_train_reference``
+Beside them, ``fused_mse_loss_weights_reference`` (``fused_mse_loss_reference``
+without the weights) and ``fused_render_train_reference``
 are the plain PyTorch versions: the chunked
 forward of ``fused_render_rays_reference`` and a hand-written reverse walk
 with the kernel's rounding points; ``split_forward_reference``,
 ``split_reverse_reference`` and ``grad_gemm_reference`` are the plain
 versions of the split step's three launches on the stash layout
 (``split_backward_reference`` chains the last two, ``split_step_reference``
-all three), each under the MSE's cotangent or a given g.  A wrapper given CPU tensors runs
-the plain version; given CUDA tensors it launches the kernels or raises.
-Each wrapper counts its calls that launch in ``LAUNCHES``, one per call.
+all three), each under the MSE's cotangent or a given g.  The device rule
+and the launch checks are kernels/fused_render.py's (``_on_card``,
+``_check_launch``).  Each call that launches counts one in ``LAUNCHES``
+under its entry's name.
 
 Types.  Master weights stay float32 in the ``nn.Module``.  The kernel takes
 them packed in bf16, as the render kernel does; products are bf16 x bf16 ->
@@ -65,14 +68,13 @@ dot as one bf16 pass.
 Only the 'train' compositor trains through these kernels (white background
 included); the sample axis is masked in the kernel, so any n_sample runs.
 
-Cones (the mip arch): ``fused_mse_loss_cones`` and
-``fused_mse_loss_cones_weights`` are K2 and K4 over cones (origins,
-un-normalised directions, (radius, |d|)) and S + 1 interval edges a ray:
-the same three launches compiled with MIP (fused_render.py's docstring),
-the reverse walk's rgb cotangent scaled by the widened sigmoid's 1.002, no
+Cones (the mip arch): the MSE step over cones (origins, un-normalised
+directions, (radius, |d|)) and S + 1 interval edges a ray is K2 and K4's
+same three launches compiled with MIP (fused_render.py's docstring), the
+reverse walk's rgb cotangent scaled by the widened sigmoid's 1.002, no
 ReLU mask on the linear bottleneck's cotangent, and the compositing
-backward over the interval lengths.  Each of their calls adds the points
-it encodes (rays x intervals) to the counter ``ipe_points``.  The plain
+backward over the interval lengths.  Each cone call adds the points it
+encodes (rays x intervals) to the counter ``ipe_points``.  The plain
 versions take ``cones`` and the edges as ``z_vals``.
 """
 
@@ -742,31 +744,15 @@ def _ptr(x) -> Optional[int]:
 
 def _check_inputs(packed: PackedNeRF, origins, directions, z_vals, cones=None,
                   **extra) -> None:
-    """The kernels' input checks: devices, shapes, the bf16 packing, cones
-    for the mip arch and for no other."""
-    dev = origins.device
-    _check_cones(packed, cones, z_vals)
-    n, S = z_vals.shape[0], n_intervals(packed, z_vals)
-    tensors = [("directions", directions), ("z_vals", z_vals),
-               ("weights", packed.weights), ("biases", packed.biases)]
-    if cones is not None:
-        tensors.append(("cones", cones))
+    """The launch checks of fused_render._check_launch, ``extra`` (the
+    target or the cotangent g) among the tensors, then what training alone
+    needs: ``extra`` as (N, 3) and no pad elements between the packed
+    layers."""
+    _fr._check_launch(packed, origins, directions, z_vals, cones, "fused train", **extra)
+    n = z_vals.shape[0]
     for name, t in extra.items():
-        if t is not None:
-            tensors.append((name, t))
-            if t.shape != (n, 3):
-                raise ValueError(f"fused train: {name} {tuple(t.shape)}, expected {(n, 3)}")
-    for name, t in tensors:
-        if t.device != dev:
-            raise ValueError(f"fused train: {name} on {t.device}, origins on {dev}")
-    if packed.weights.dtype != torch.bfloat16:
-        raise ValueError("fused train kernel takes bf16-packed weights, got "
-                         f"{packed.weights.dtype}")
-    if packed.hidden > 256:
-        raise ValueError(f"fused train kernel: hidden {packed.hidden} > 256")
-    if origins.shape != (n, 3) or directions.shape != (n, 3):
-        raise ValueError(f"fused train: origins {tuple(origins.shape)}, directions "
-                         f"{tuple(directions.shape)}, z_vals {(n, S)}")
+        if t is not None and t.shape != (n, 3):
+            raise ValueError(f"fused train: {name} {tuple(t.shape)}, expected {(n, 3)}")
     if sum(s.k_rows * s.n for s in packed.layers) != packed.weights.numel():
         raise ValueError("fused train kernel: the packed weights hold pad elements "
                          "between layers, which the grad reduction would read")
@@ -1119,44 +1105,59 @@ def _split_step(packed: PackedNeRF, origins, directions, z_vals, target, rcfg: R
     return rgb, w, tb, grads
 
 
-def _device_kind(t: torch.Tensor) -> str:
-    if t.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"fused train: no kernel for device {t.device}")
-    return t.device.type
+def _mse_step(packed: PackedNeRF, origins, directions, z_vals, target, rcfg: RenderConfig,
+              emit_weights: bool, cones=None):
+    """The MSE step entries' one body: (rgb (N, 3), weights (N, S) or None,
+    gw, gb), float32 grads of mean((rgb - target)^2) in the packed layout.
+    CPU tensors run the plain version.  CUDA tensors run the split step
+    (per ray group: the wgmma forward sweep that stashes every layer input,
+    the reverse walk that stashes every output cotangent, the weight GEMM
+    over both; three forwards' worth of products), one call counted under
+    the entry's name.  ``cones``: a mip packing's, with the edges as
+    ``z_vals``; a cone call adds N S to the counter ``ipe_points``."""
+    _check(rcfg)
+    _check_cones(packed, cones, z_vals)
+    if cones is not None:
+        count("ipe_points", z_vals.shape[0] * (z_vals.shape[1] - 1))
+    if not _fr._on_card(origins, "fused train"):
+        rgb, w, gw, gb = fused_mse_loss_weights_reference(
+            packed, origins, directions, z_vals, target, rcfg, cones=cones)
+        return rgb, (w if emit_weights else None), gw, gb
+    rgb, w, _, grads = _split_step(packed, origins, directions, z_vals, target, rcfg,
+                                   emit_weights, cones=cones)
+    LAUNCHES["fused_mse_loss" + "_cones" * (cones is not None) + "_weights" * emit_weights] += 1
+    n_w = packed.weights.numel()
+    return rgb, w, grads[:n_w], grads[n_w:]
 
 
 def fused_mse_loss_grads(packed: PackedNeRF, origins, directions, z_vals, target,
                          rcfg: RenderConfig):
-    """(rgb (N, 3), gw, gb): the step's raw outputs, float32 grads of
-    mean((rgb - target)^2) in the packed layout.  CPU tensors run the plain
-    version.  CUDA tensors run the split step (per ray group: the wgmma
-    forward sweep that stashes every layer input, the reverse walk that
-    stashes every output cotangent, the weight GEMM over both; three
-    forwards' worth of products)."""
-    _check(rcfg)
-    _check_cones(packed, None, z_vals)
-    if _device_kind(origins) == "cpu":
-        return fused_mse_loss_reference(packed, origins, directions, z_vals, target, rcfg)
-    rgb, _, _, grads = _split_step(packed, origins, directions, z_vals, target, rcfg, False)
-    LAUNCHES["fused_mse_loss"] += 1
-    n_w = packed.weights.numel()
-    return rgb, grads[:n_w], grads[n_w:]
+    """(rgb (N, 3), gw, gb): the step's raw outputs (``_mse_step``)."""
+    rgb, _, gw, gb = _mse_step(packed, origins, directions, z_vals, target, rcfg, False)
+    return rgb, gw, gb
 
 
 def fused_mse_loss_weights_grads(packed: PackedNeRF, origins, directions, z_vals, target,
                                  rcfg: RenderConfig):
     """(rgb (N, 3), weights (N, S), gw, gb): fused_mse_loss_grads plus the
-    per-sample compositing weights of the forward sweep, from the same split
-    step (CUDA tensors) or the plain version (CPU tensors)."""
-    _check(rcfg)
-    _check_cones(packed, None, z_vals)
-    if _device_kind(origins) == "cpu":
-        return fused_mse_loss_weights_reference(packed, origins, directions, z_vals, target,
-                                                rcfg)
-    rgb, w, _, grads = _split_step(packed, origins, directions, z_vals, target, rcfg, True)
-    LAUNCHES["fused_mse_loss_weights"] += 1
-    n_w = packed.weights.numel()
-    return rgb, w, grads[:n_w], grads[n_w:]
+    per-sample compositing weights of the forward sweep, from the same
+    step."""
+    return _mse_step(packed, origins, directions, z_vals, target, rcfg, True)
+
+
+def fused_mse_loss_cones_grads(packed: PackedNeRF, origins, directions, cones, edges, target,
+                               rcfg: RenderConfig, emit_weights: bool = False):
+    """(rgb (N, 3), weights (N, S) or None, gw, gb): the cone step's raw
+    outputs over the intervals between ``edges`` (N, S + 1)."""
+    return _mse_step(packed, origins, directions, edges, target, rcfg, emit_weights, cones)
+
+
+def _params(packed: PackedNeRF, entry: str):
+    """The parameters of the module ``packed`` was packed from, which the
+    differentiable entries' grads go to."""
+    if packed.model is None:
+        raise ValueError(f"{entry}: pack with pack_nerf_params(model, ...)")
+    return packed.model.parameters()
 
 
 def _param_grads(packed: PackedNeRF, params, gw, gb) -> List[torch.Tensor]:
@@ -1166,15 +1167,26 @@ def _param_grads(packed: PackedNeRF, params, gw, gb) -> List[torch.Tensor]:
 
 
 class _FusedMSELoss(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, packed, origins, directions, z_vals, target, rcfg, *params):
-        rgb, gw, gb = fused_mse_loss_grads(packed, origins, directions, z_vals, target, rcfg)
-        ctx.grads = _param_grads(packed, params, gw, gb)
-        return torch.mean((rgb - target.to(rgb.dtype)) ** 2)
+    """The MSE step under autograd: forward runs ``_mse_step``, whose grads
+    are already exact, and returns the loss, or (loss, weights) with the
+    weights non-differentiable; backward scales the stored grads by the
+    loss's cotangent."""
 
     @staticmethod
-    def backward(ctx, gbar):
-        return (None,) * 6 + tuple(gbar * g for g in ctx.grads)
+    def forward(ctx, packed, origins, directions, z_vals, target, rcfg, emit_weights, cones,
+                *params):
+        rgb, w, gw, gb = _mse_step(packed, origins, directions, z_vals, target, rcfg,
+                                   emit_weights, cones)
+        ctx.grads = _param_grads(packed, params, gw, gb)
+        loss = torch.mean((rgb - target.to(rgb.dtype)) ** 2)
+        if not emit_weights:
+            return loss
+        ctx.mark_non_differentiable(w)
+        return loss, w
+
+    @staticmethod
+    def backward(ctx, gbar, *_gw):
+        return (None,) * 8 + tuple(gbar * g for g in ctx.grads)
 
 
 def fused_mse_loss(packed: PackedNeRF, origins, directions, z_vals, target,
@@ -1183,24 +1195,8 @@ def fused_mse_loss(packed: PackedNeRF, origins, directions, z_vals, target,
     parameters of ``packed.model``.  The forward already gives the exact
     parameter grads, so backward is a scalar rescale: value and grads cost
     one kernel launch."""
-    if packed.model is None:
-        raise ValueError("fused_mse_loss: pack with pack_nerf_params(model, ...)")
-    return _FusedMSELoss.apply(packed, origins, directions, z_vals, target, rcfg,
-                               *packed.model.parameters())
-
-
-class _FusedMSELossWeights(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, packed, origins, directions, z_vals, target, rcfg, *params):
-        rgb, w, gw, gb = fused_mse_loss_weights_grads(
-            packed, origins, directions, z_vals, target, rcfg)
-        ctx.grads = _param_grads(packed, params, gw, gb)
-        ctx.mark_non_differentiable(w)
-        return torch.mean((rgb - target.to(rgb.dtype)) ** 2), w
-
-    @staticmethod
-    def backward(ctx, gbar, _gw):
-        return (None,) * 6 + tuple(gbar * g for g in ctx.grads)
+    return _FusedMSELoss.apply(packed, origins, directions, z_vals, target, rcfg, False, None,
+                               *_params(packed, "fused_mse_loss"))
 
 
 def fused_mse_loss_weights(packed: PackedNeRF, origins, directions, z_vals, target,
@@ -1209,10 +1205,26 @@ def fused_mse_loss_weights(packed: PackedNeRF, origins, directions, z_vals, targ
     weights, the coarse pass of hierarchical training.  The weights carry no
     gradient (sample_pdf reads the histogram without differentiating through
     it), so backward is fused_mse_loss's scalar rescale."""
-    if packed.model is None:
-        raise ValueError("fused_mse_loss_weights: pack with pack_nerf_params(model, ...)")
-    return _FusedMSELossWeights.apply(packed, origins, directions, z_vals, target, rcfg,
-                                      *packed.model.parameters())
+    return _FusedMSELoss.apply(packed, origins, directions, z_vals, target, rcfg, True, None,
+                               *_params(packed, "fused_mse_loss_weights"))
+
+
+def fused_mse_loss_cones(packed: PackedNeRF, origins, directions, cones, edges, target,
+                         rcfg: RenderConfig) -> torch.Tensor:
+    """fused_mse_loss over cones (origins, un-normalised directions, cones
+    (N, 2): radius and |d|) and the intervals between ``edges`` (N, S + 1):
+    the fine level of a mip-NeRF step."""
+    return _FusedMSELoss.apply(packed, origins, directions, edges, target, rcfg, False, cones,
+                               *_params(packed, "fused_mse_loss_cones"))
+
+
+def fused_mse_loss_cones_weights(packed: PackedNeRF, origins, directions, cones, edges, target,
+                                 rcfg: RenderConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(loss, weights (N, S)): fused_mse_loss_cones and each interval's
+    compositing weight, detached: the coarse level of a mip-NeRF step, whose
+    weights feed the resampler."""
+    return _FusedMSELoss.apply(packed, origins, directions, edges, target, rcfg, True, cones,
+                               *_params(packed, "fused_mse_loss_cones_weights"))
 
 
 def fused_render_train_forward(packed: PackedNeRF, origins, directions, z_vals,
@@ -1224,7 +1236,7 @@ def fused_render_train_forward(packed: PackedNeRF, origins, directions, z_vals,
     run the plain version."""
     _check(rcfg)
     _check_cones(packed, None, z_vals)
-    if _device_kind(origins) == "cpu":
+    if not _fr._on_card(origins, "fused train"):
         return fused_render_train_reference(packed, origins, directions, z_vals, rcfg)
     _check_inputs(packed, origins, directions, z_vals)
     dev = origins.device
@@ -1254,7 +1266,7 @@ def fused_render_train_backward(packed: PackedNeRF, origins, directions, z_vals,
     with the stashes); CPU tensors run the plain version (which recomputes
     tb too)."""
     _check(rcfg)
-    if _device_kind(origins) == "cpu":
+    if not _fr._on_card(origins, "fused train"):
         return fused_render_train_reference(packed, origins, directions, z_vals, rcfg, g=g)
     n, S = z_vals.shape
     if tb is None or tb.shape != (n, -(-S // CHUNK)):
@@ -1288,82 +1300,5 @@ def fused_render_train(packed: PackedNeRF, origins, directions, z_vals,
     transmittance entering each chunk, the backward recomputes every
     chunk's activations (the split step's forward sweep) and applies the
     caller's cotangent."""
-    if packed.model is None:
-        raise ValueError("fused_render_train: pack with pack_nerf_params(model, ...)")
     return _FusedRenderTrain.apply(packed, origins, directions, z_vals, rcfg,
-                                   *packed.model.parameters())
-
-
-# ---------------------------------------------------------------------------
-# cones (the mip arch)
-# ---------------------------------------------------------------------------
-
-
-def fused_mse_loss_cones_grads(packed: PackedNeRF, origins, directions, cones, edges, target,
-                               rcfg: RenderConfig, emit_weights: bool = False):
-    """(rgb (N, 3), weights (N, S) or None, gw, gb): the cone step's raw
-    outputs over the intervals between ``edges`` (N, S + 1), float32 grads
-    of mean((rgb - target)^2) in the packed layout.  CPU tensors run the
-    plain version, CUDA tensors the split step compiled with MIP.  Adds N
-    S to the counter ``ipe_points``."""
-    _check(rcfg)
-    _check_cones(packed, cones, edges)
-    count("ipe_points", edges.shape[0] * (edges.shape[1] - 1))
-    if _device_kind(origins) == "cpu":
-        rgb, w, gw, gb = fused_mse_loss_weights_reference(
-            packed, origins, directions, edges, target, rcfg, cones=cones)
-        return rgb, (w if emit_weights else None), gw, gb
-    rgb, w, _, grads = _split_step(packed, origins, directions, edges, target, rcfg,
-                                   emit_weights, cones=cones)
-    LAUNCHES["fused_mse_loss_cones_weights" if emit_weights else "fused_mse_loss_cones"] += 1
-    n_w = packed.weights.numel()
-    return rgb, w, grads[:n_w], grads[n_w:]
-
-
-class _FusedMSELossCones(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, packed, origins, directions, cones, edges, target, rcfg, *params):
-        rgb, _, gw, gb = fused_mse_loss_cones_grads(packed, origins, directions, cones, edges,
-                                                    target, rcfg)
-        ctx.grads = _param_grads(packed, params, gw, gb)
-        return torch.mean((rgb - target.to(rgb.dtype)) ** 2)
-
-    @staticmethod
-    def backward(ctx, gbar):
-        return (None,) * 7 + tuple(gbar * g for g in ctx.grads)
-
-
-class _FusedMSELossConesWeights(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, packed, origins, directions, cones, edges, target, rcfg, *params):
-        rgb, w, gw, gb = fused_mse_loss_cones_grads(packed, origins, directions, cones, edges,
-                                                    target, rcfg, emit_weights=True)
-        ctx.grads = _param_grads(packed, params, gw, gb)
-        ctx.mark_non_differentiable(w)
-        return torch.mean((rgb - target.to(rgb.dtype)) ** 2), w
-
-    @staticmethod
-    def backward(ctx, gbar, _gw):
-        return (None,) * 7 + tuple(gbar * g for g in ctx.grads)
-
-
-def fused_mse_loss_cones(packed: PackedNeRF, origins, directions, cones, edges, target,
-                         rcfg: RenderConfig) -> torch.Tensor:
-    """fused_mse_loss over cones (origins, un-normalised directions, cones
-    (N, 2): radius and |d|) and the intervals between ``edges`` (N, S + 1):
-    the fine level of a mip-NeRF step."""
-    if packed.model is None:
-        raise ValueError("fused_mse_loss_cones: pack with pack_nerf_params(model, ...)")
-    return _FusedMSELossCones.apply(packed, origins, directions, cones, edges, target, rcfg,
-                                    *packed.model.parameters())
-
-
-def fused_mse_loss_cones_weights(packed: PackedNeRF, origins, directions, cones, edges, target,
-                                 rcfg: RenderConfig) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(loss, weights (N, S)): fused_mse_loss_cones and each interval's
-    compositing weight, detached: the coarse level of a mip-NeRF step, whose
-    weights feed the resampler."""
-    if packed.model is None:
-        raise ValueError("fused_mse_loss_cones_weights: pack with pack_nerf_params(model, ...)")
-    return _FusedMSELossConesWeights.apply(packed, origins, directions, cones, edges, target,
-                                           rcfg, *packed.model.parameters())
+                                   *_params(packed, "fused_render_train"))

@@ -354,85 +354,40 @@ def block_solver(solve, samples: torch.Tensor, chunk: int, device, dim: int = 0)
 
 def adaptive_drive(score_chunk, n_chunks: int, chunk: int, n_valid: torch.Tensor,
                    confidence: float, sample_size: int, max_iters: int,
-                   min_iters: Optional[int] = None, device_loop: bool = False):
+                   min_iters: Optional[int] = None):
     """The confidence exit over the chunks of a fixed run, for P problems
-    scored together (sfm_nerf_tpu/ops/epipolar.py:521/446, :740/804).
+    scored together (sfm_nerf_tpu/ops/epipolar.py:521, :740).
 
     ``score_chunk(c)`` scores chunk c of every problem on the device and
     returns (best score (P,), its index in the chunk (P,), that
-    hypothesis' inlier count (P,)).  A problem's running best moves only to
-    a strictly higher score, and moving sets its bound
-    ``_adaptive_trials_needed_device(count, n_valid)``.  The run stops once
-    ``done >= max(max(bound), min_iters)``: on the slowest problem.
-    ``min_iters`` defaults to two chunks.
-
-    - host driver (``device_loop=False``): each chunk's score, index and
-      bound come back to the host before the next chunk is launched, as
-      JAX's host drivers read theirs;
-    - device driver: the running best, its index and the bounds stay on
-      the device, and each chunk's update is predicated on
-      ``done < max(max(bound), min_iters)`` computed there from the state
-      before it, so a chunk launched past the stop changes nothing.  The
-      host reads that flag through a pinned buffer two chunks behind and
-      stops launching; the device never waits on the host.
-
-    Both compute the same values in the same order: the same winners and
-    count, bit for bit.  Returns (best hypothesis index (P,) long on the
-    device, hypotheses scored, at most ``max_iters``)."""
+    hypothesis' inlier count (P,)).  Each chunk's score, index and bound
+    ``_adaptive_trials_needed_device(count, n_valid)`` come back to the
+    host before the next chunk is launched, as JAX's host-side loops read
+    theirs.  A problem's running best moves only to a strictly higher
+    score, and moving sets its bound.  The run stops once ``done >=
+    max(max(bound), min_iters)``: on the slowest problem.  ``min_iters``
+    defaults to two chunks.  Returns (best hypothesis index (P,) long on
+    the device, hypotheses scored, at most ``max_iters``)."""
     dev = n_valid.device
     P = n_valid.shape[0]
     if min_iters is None:
         min_iters = min(2 * chunk, n_chunks * chunk)
-    floor = float(min_iters)
-    if not device_loop:
-        best = np.full(P, -np.inf)
-        best_iter = np.zeros(P, np.int64)
-        needed = np.full(P, float(max_iters))
-        done = 0
-        for c in range(n_chunks):
-            s, b, cnt = score_chunk(c)
-            bound = _adaptive_trials_needed_device(cnt, n_valid, confidence, sample_size)
-            s, b, bound = torch.stack([s, b.to(F64), bound]).cpu().numpy()
-            done += chunk
-            improved = s > best
-            best = np.where(improved, s, best)
-            best_iter = np.where(improved, c * chunk + b.astype(np.int64), best_iter)
-            needed = np.where(improved, bound, needed)
-            if done >= max(float(needed.max()), floor):
-                break
-        return torch.as_tensor(best_iter, device=dev), min(done, max_iters)
-
-    bs = torch.full((P,), -torch.inf, dtype=F64, device=dev)
-    bi = torch.zeros(P, dtype=torch.long, device=dev)
-    nd = torch.full((P,), float(max_iters), dtype=F64, device=dev)
-    applied = torch.zeros((), dtype=torch.long, device=dev)
-    floor_t = torch.tensor(floor, dtype=F64, device=dev)
-    on_card = dev.type == "cuda"
-    flags = torch.ones(n_chunks, dtype=torch.bool, pin_memory=on_card)
-    events = []
+    best = np.full(P, -np.inf)
+    best_iter = np.zeros(P, np.int64)
+    needed = np.full(P, float(max_iters))
+    done = 0
     for c in range(n_chunks):
-        if c >= 2:
-            # the flag written after chunk c - 2: chunk c - 1 is still queued
-            if on_card:
-                events[c - 2].synchronize()
-            if not bool(flags[c - 2]):
-                break
-        go = (applied * chunk).to(F64) < torch.maximum(nd.max(), floor_t)
         s, b, cnt = score_chunk(c)
-        improved = (s > bs) & go
-        bs = torch.where(improved, s, bs)
-        bi = torch.where(improved, c * chunk + b, bi)
-        nd = torch.where(improved,
-                         _adaptive_trials_needed_device(cnt, n_valid, confidence,
-                                                        sample_size), nd)
-        applied = applied + go.long()
-        flags[c].copy_((applied * chunk).to(F64) < torch.maximum(nd.max(), floor_t),
-                       non_blocking=on_card)
-        if on_card:
-            ev = torch.cuda.Event()
-            ev.record()
-            events.append(ev)
-    return bi, min(int(applied) * chunk, max_iters)
+        bound = _adaptive_trials_needed_device(cnt, n_valid, confidence, sample_size)
+        s, b, bound = torch.stack([s, b.to(F64), bound]).cpu().numpy()
+        done += chunk
+        improved = s > best
+        best = np.where(improved, s, best)
+        best_iter = np.where(improved, c * chunk + b.astype(np.int64), best_iter)
+        needed = np.where(improved, bound, needed)
+        if done >= max(float(needed.max()), float(min_iters)):
+            break
+    return torch.as_tensor(best_iter, device=dev), min(done, max_iters)
 
 
 def _ransac_winner(idx_best, T1, T2, p1, p2, h1, h2, threshold, normalize,
@@ -496,15 +451,14 @@ def ransac_fundamental_pairs_adaptive(
     chunk: int = 1024,
     scoring: str = "msac",
     min_iters: Optional[int] = None,
-    device_loop: bool = False,
 ) -> Tuple[RansacResult, int]:
-    """Adaptive F-RANSAC over a pair axis (sfm_nerf_tpu/ops/epipolar.py:740;
-    ``device_loop=True`` is its ``_device`` twin, :804): chunk c scores
-    rows ``[c * chunk, (c + 1) * chunk)`` of every pair's ``samples``, one
-    chunk's solve and scores per launch sequence, until the slowest pair's
-    confidence bound is met (``adaptive_drive``).  Each pair's winner is
-    the fixed run's on the same samples cut at the count scored.  Returns
-    (result, hypotheses scored per pair, at most ``max_iters``)."""
+    """Adaptive F-RANSAC over a pair axis (sfm_nerf_tpu/ops/epipolar.py:740):
+    chunk c scores rows ``[c * chunk, (c + 1) * chunk)`` of every pair's
+    ``samples``, one chunk's solve and scores per launch sequence, until the
+    slowest pair's confidence bound is met (``adaptive_drive``).  Each
+    pair's winner is the fixed run's on the same samples cut at the count
+    scored.  Returns (result, hypotheses scored per pair, at most
+    ``max_iters``)."""
     P, N = pts1.shape[:2]
     n_chunks = max(1, -(-max_iters // chunk))
     if samples.shape[1] < n_chunks * chunk:
@@ -525,7 +479,7 @@ def ransac_fundamental_pairs_adaptive(
         return _chunk_best(*_score_F(F, h1, h2, valid, threshold, scoring), threshold)
 
     best, used = adaptive_drive(score_chunk, n_chunks, chunk, nv, confidence, 8,
-                                max_iters, min_iters, device_loop)
+                                max_iters, min_iters)
     idx_best = torch.gather(samples, 1, best[:, None, None].expand(P, 1, 8))[:, 0]
     F, inliers = _ransac_winner(idx_best, T1, T2, p1, p2, h1, h2, threshold,
                                 normalize, valid)
@@ -545,13 +499,11 @@ def ransac_fundamental_adaptive(
     min_iters: Optional[int] = None,
     generator: Optional[torch.Generator] = None,
     samples: Optional[torch.Tensor] = None,
-    device_loop: bool = False,
 ) -> Tuple[RansacResult, int]:
-    """Adaptive F-RANSAC of one pair (sfm_nerf_tpu/ops/epipolar.py:521;
-    ``device_loop=True``: :446): the fixed run's draws (``generator``, or
-    ``samples``, ``ceil(max_iters / chunk) * chunk`` rows of 8) scored
-    until the confidence bound is met.  Returns (result, hypotheses
-    scored)."""
+    """Adaptive F-RANSAC of one pair (sfm_nerf_tpu/ops/epipolar.py:521): the
+    fixed run's draws (``generator``, or ``samples``, ``ceil(max_iters /
+    chunk) * chunk`` rows of 8) scored until the confidence bound is met.
+    Returns (result, hypotheses scored)."""
     n_pts = pts1.shape[0]
     nv = n_pts if n_valid is None else int(n_valid)
     if n_pts < 8:
@@ -564,8 +516,7 @@ def ransac_fundamental_adaptive(
         pts1[None], pts2[None], samples[None].to(pts1.device),
         None if n_valid is None else torch.tensor([nv], device=pts1.device),
         confidence=confidence, max_iters=max_iters, threshold=threshold,
-        normalize=normalize, chunk=chunk, scoring=scoring, min_iters=min_iters,
-        device_loop=device_loop)
+        normalize=normalize, chunk=chunk, scoring=scoring, min_iters=min_iters)
     return RansacResult(res.F[0], res.inliers[0, :n_pts], res.n_inliers[0],
                         res.best_iter[0]), used
 
@@ -599,23 +550,18 @@ def ransac_fundamental_bucketed(
     device=None,
     confidence: float = 0.0,
     iters_out: Optional[list] = None,
-    adaptive_device: Optional[bool] = None,
 ) -> RansacResult:
     """Host wrapper of ``ransac_fundamental`` (the JAX name; there is no
     shape bucket here): numpy in, numpy out, one copy back.
     ``confidence > 0`` routes to ``ransac_fundamental_adaptive`` with
-    ``n_iters`` as the cap, its driver picked by ``adaptive_device``
-    (True the device-predicated one; False or None, 'auto', the host one:
-    on an H100 the device driver measured no faster, PERF.md);
-    ``iters_out`` gets the count scored."""
+    ``n_iters`` as the cap; ``iters_out`` gets the count scored."""
     p1 = torch.as_tensor(np.asarray(pts1_np, np.float64), device=device)
     p2 = torch.as_tensor(np.asarray(pts2_np, np.float64), device=device)
     kw = dict(threshold=threshold, normalize=normalize, chunk=chunk,
               scoring=scoring, generator=generator)
     if confidence > 0.0:
         res, used = ransac_fundamental_adaptive(
-            p1, p2, confidence=confidence, max_iters=n_iters,
-            device_loop=bool(adaptive_device), **kw)
+            p1, p2, confidence=confidence, max_iters=n_iters, **kw)
         if iters_out is not None:
             iters_out.append(used)
     else:
@@ -655,7 +601,6 @@ def ransac_fundamental_pairs_bucketed(
     samples: Optional[Sequence[torch.Tensor]] = None,
     confidence: float = 0.0,
     iters_out: Optional[list] = None,
-    adaptive_device: Optional[bool] = None,
 ):
     """Host wrapper for the whole refine stage (epipolar.py:883): every
     pair's samples drawn in input order, pairs grouped into launches by
@@ -686,8 +631,7 @@ def ransac_fundamental_pairs_bucketed(
         kw = dict(threshold=threshold, normalize=normalize, chunk=chunk, scoring=scoring)
         if confidence > 0.0:
             res, u = ransac_fundamental_pairs_adaptive(
-                *args, confidence=confidence, max_iters=n_iters,
-                device_loop=bool(adaptive_device), **kw)
+                *args, confidence=confidence, max_iters=n_iters, **kw)
         else:
             res, u = ransac_fundamental_pairs(*args, **kw), n_iters
         for m, r in zip(group, _host_result(res, n)):

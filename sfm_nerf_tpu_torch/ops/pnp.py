@@ -192,14 +192,12 @@ def pnp_ransac_adaptive(
     min_iters: Optional[int] = None,
     generator: Optional[torch.Generator] = None,
     samples: Optional[torch.Tensor] = None,
-    device_loop: bool = False,
 ) -> Tuple[PnPRansacResult, int]:
-    """PnP RANSAC with the confidence exit (sfm_nerf_tpu/ops/pnp.py:289;
-    ``device_loop=True`` is its ``_device`` twin, :348): the fixed run's
-    draws (``generator`` or ``samples``, ``ceil(max_iters / chunk) * chunk``
-    rows of 6), chunk by chunk, until the bound for 6-point samples is met
-    (ops/epipolar.py:adaptive_drive).  Returns (result, hypotheses
-    scored)."""
+    """PnP RANSAC with the confidence exit (sfm_nerf_tpu/ops/pnp.py:289):
+    the fixed run's draws (``generator`` or ``samples``, ``ceil(max_iters /
+    chunk) * chunk`` rows of 6), chunk by chunk, until the bound for
+    6-point samples is met (ops/epipolar.py:adaptive_drive).  Returns
+    (result, hypotheses scored)."""
     n_pts = X3d.shape[0]
     nv = n_pts if n_valid is None else int(n_valid)
     X3d, x2d = pad_rows(X3d, 6), pad_rows(x2d, 6)
@@ -219,7 +217,7 @@ def pnp_ransac_adaptive(
 
     best, used = adaptive_drive(
         score_chunk, n_chunks, chunk, torch.tensor([nv], device=X3d.device),
-        confidence, 6, max_iters, min_iters, device_loop)
+        confidence, 6, max_iters, min_iters)
     R, C, inliers = _pnp_winner(samples[best[0]], X3d, x2d, K, threshold, valid)
     inliers = inliers[:n_pts]
     return PnPRansacResult(R, C, inliers, torch.sum(inliers)), used
@@ -238,20 +236,17 @@ def pnp_ransac_bucketed(X3d_np, x2d_np, K, n_iters: int = 10000,
                         scoring: str = "msac",
                         generator: Optional[torch.Generator] = None,
                         device=None, confidence: float = 0.0,
-                        iters_out: Optional[list] = None,
-                        adaptive_device: Optional[bool] = None) -> PnPRansacResult:
+                        iters_out: Optional[list] = None) -> PnPRansacResult:
     """Host wrapper of ``pnp_ransac`` (the JAX name; no shape bucket here):
     numpy in, one copy back, numpy out.  ``confidence > 0`` routes to
-    ``pnp_ransac_adaptive`` with ``n_iters`` as the cap, its driver picked
-    by ``adaptive_device`` as in ops/epipolar.py; ``iters_out`` gets the
-    count scored."""
+    ``pnp_ransac_adaptive`` with ``n_iters`` as the cap; ``iters_out`` gets
+    the count scored."""
     t = lambda a: torch.as_tensor(np.asarray(a, np.float64), device=device)
     args = (t(X3d_np), t(x2d_np), t(K))
     kw = dict(threshold=threshold, chunk=chunk, scoring=scoring, generator=generator)
     if confidence > 0.0:
         res, used = pnp_ransac_adaptive(
-            *args, confidence=confidence, max_iters=n_iters,
-            device_loop=bool(adaptive_device), **kw)
+            *args, confidence=confidence, max_iters=n_iters, **kw)
         if iters_out is not None:
             iters_out.append(used)
     else:

@@ -183,8 +183,7 @@ class SfMPipeline:
                   generator=self.generator, device=self.device)
         # adaptive RANSAC: each pair's count scored, in sorted pair order
         adaptive_iters: list = []
-        adaptive = dict(confidence=cfg.ransac_confidence, iters_out=adaptive_iters,
-                        adaptive_device=cfg.ransac_adaptive_device)
+        adaptive = dict(confidence=cfg.ransac_confidence, iters_out=adaptive_iters)
         if self.ransac_devices is not None:
             # per pair, the hypotheses over the devices: the single-device
             # draws whenever the device count divides the chunk count
@@ -378,8 +377,7 @@ class SfMPipeline:
             obj_points, img_points, K, n_iters=cfg.pnp_iters,
             threshold=cfg.pnp_threshold, scoring=cfg.ransac_scoring,
             generator=self.generator, device=self.device,
-            confidence=cfg.ransac_confidence,
-            adaptive_device=cfg.ransac_adaptive_device)
+            confidence=cfg.ransac_confidence)
         # 'auto' is off: the port's main path is float64 already
         if int(res.n_inliers) < 6 and cfg.pnp_f64_rescue == "on":
             # re-run this camera's RANSAC on numpy draws of its own seed,

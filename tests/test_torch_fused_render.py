@@ -19,6 +19,7 @@ from sfm_nerf_tpu.models import init_nerf_params
 from sfm_nerf_tpu_torch.config import NeRFModelConfig, RenderConfig
 from sfm_nerf_tpu_torch.kernels import fused_render as tfr
 from sfm_nerf_tpu_torch.models.convert import params_from_jax
+from sfm_nerf_tpu_torch.models.nerf import NeRF
 from sfm_nerf_tpu_torch.train import checkpoint as ckpt
 
 SYNTH800 = os.path.join(os.path.dirname(__file__), "..", "Phase2", "checkpoints",
@@ -136,6 +137,41 @@ def test_chunk_carry_spans_chunks():
     expected, w_exp, _ = composite(dens, col, torch.from_numpy(z), rcfg)
     np.testing.assert_allclose(rgb.numpy(), expected.numpy(), rtol=0, atol=ATOL_F32)
     np.testing.assert_allclose(w.numpy(), w_exp.numpy(), rtol=0, atol=ATOL_F32)
+
+
+@pytest.mark.parametrize("weights", [False, True], ids=["rgb", "weights"])
+@pytest.mark.parametrize("cones", [False, True], ids=["points", "cones"])
+def test_render_entries_are_the_plain_version(cones, weights):
+    """Each of the four render entries on CPU tensors is the plain version
+    with the matching flags (rgb, or rgb and weights; cones and edges for a
+    mip packing) and launches nothing; given the other kind of packing it
+    refuses (_check_cones)."""
+    params, mcfg = _case("active")
+    points = tfr.pack_nerf_params(params_from_jax(params, mcfg), mcfg, torch.float32)
+    mip_cfg = NeRFModelConfig(arch="mip", hidden=32, n_pos_freq=16, n_dir_freq=4,
+                              density_bias_init=0.5)
+    mip = tfr.pack_nerf_params(NeRF(mip_cfg, seed=3), mip_cfg, torch.float32)
+    o, d, z = (torch.from_numpy(a) for a in _rays(12, 24, seed=11))
+    if cones:
+        d = d * torch.linspace(0.5, 2.0, 12)[:, None]       # un-normalised
+        cone = torch.stack([torch.full((12,), 1.2e-3), torch.linalg.vector_norm(d, dim=-1)], -1)
+        packed, other, rays = mip, points, (o, d, cone, z)
+    else:
+        cone, packed, other, rays = None, points, mip, (o, d, z)
+    rcfg = RenderConfig(n_sample=z.shape[1] - int(cones), perturb=False)
+    entry = getattr(tfr, "fused_render_" + ("cones" if cones else "rays") + "_weights" * weights)
+    launches = dict(tfr.LAUNCHES)
+    got = entry(packed, *rays, rcfg)
+    want = tfr.fused_render_rays_reference(packed, o, d, z, rcfg, emit_weights=weights,
+                                           cones=cone)
+    assert tfr.LAUNCHES == launches
+    got, want = (got, want) if weights else ((got,), (want,))
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert got[0].shape == (12, 3) and float(got[0].std()) > 0
+    with pytest.raises(ValueError, match="the mip arch renders cones"):
+        entry(other, *rays, rcfg)
 
 
 def test_legacy_white_background_raises():

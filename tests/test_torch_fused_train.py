@@ -235,17 +235,73 @@ def test_bf16_packing_keeps_the_grads_close():
             assert err <= 0.1 * np.linalg.norm(g32[name][k]) + 1e-9, (name, k)
 
 
-def test_backward_scales_by_the_incoming_cotangent():
+# a mip packing as tests/test_torch_mip.py builds one: hidden 32, cones over
+# S + 1 interval edges
+MIP = dict(arch="mip", hidden=32, n_pos_freq=16, n_dir_freq=4, density_bias_init=-1.0)
+
+
+def _cone_inputs(n_rays=16, n_sample=8, seed=0):
+    """(origins, un-normalised directions, cones (radius, |d|), edges (N, S +
+    1), target) of seeded rays at an 800-pixel camera's cone radius."""
+    rng = np.random.default_rng(seed)
+    o = torch.from_numpy(rng.uniform(-1, 1, (n_rays, 3)).astype(np.float32))
+    d = torch.from_numpy(rng.normal(size=(n_rays, 3)).astype(np.float32))
+    cones = torch.stack([torch.full((n_rays,), 1.2e-3),
+                         torch.linalg.vector_norm(d, dim=-1)], -1)
+    edges = torch.linspace(2.0, 6.0, n_sample + 1).expand(n_rays, -1).contiguous()
+    target = torch.from_numpy(rng.uniform(0, 1, (n_rays, 3)).astype(np.float32))
+    return o, d, cones, edges, target
+
+
+def _step_grads(packed, o, d, cones, z, target, rcfg, weights):
+    """(weights or None, gw, gb) of the ``*_grads`` entry that matches."""
+    if cones is not None:
+        _, w, gw, gb = tft.fused_mse_loss_cones_grads(packed, o, d, cones, z, target, rcfg,
+                                                      emit_weights=weights)
+    elif weights:
+        _, w, gw, gb = tft.fused_mse_loss_weights_grads(packed, o, d, z, target, rcfg)
+    else:
+        (_, gw, gb), w = tft.fused_mse_loss_grads(packed, o, d, z, target, rcfg), None
+    return w, gw, gb
+
+
+@pytest.mark.parametrize("weights", [False, True], ids=["loss", "weights"])
+@pytest.mark.parametrize("cones", [False, True], ids=["points", "cones"])
+def test_backward_scales_by_the_incoming_cotangent(cones, weights):
+    """Each of the four step entries on the CPU: 3 * loss backpropagates 3
+    times the matching ``*_grads`` result into every parameter, the weights
+    output is the plain version's and carries no grad, and the entry
+    refuses the other kind of packing (_check_cones)."""
     jcfg, params, o, d, z, target = _setup()
-    _, g1 = _port_merged(params, jcfg, False, o, d, z, target)
-    model = _port_model(params, jcfg)
+    points_model = _port_model(params, jcfg)
+    mip_model = NeRF(NeRFModelConfig(**MIP), seed=4)
+    if cones:
+        o, d, cone, z, target = _cone_inputs()
+        rays = (o, d, cone, z)
+    else:
+        o, d, z, target = (torch.from_numpy(a) for a in (o, d, z, target))
+        cone, rays = None, (o, d, z)
+    model, other = (mip_model, points_model) if cones else (points_model, mip_model)
     packed = tfr.pack_nerf_params(model, model.cfg, torch.float32)
-    loss = tft.fused_mse_loss(packed, *(torch.from_numpy(a) for a in (o, d, z, target)),
-                              RenderConfig(n_sample=32))
+    rcfg = RenderConfig(n_sample=z.shape[1] - int(cones))
+    entry = getattr(tft, "fused_mse_loss" + "_cones" * cones + "_weights" * weights)
+    out = entry(packed, *rays, target, rcfg)
+    loss, w = out if weights else (out, None)
     (3.0 * loss).backward()
-    g3 = _grads_jax_layout(model)
-    for name in g1:
-        np.testing.assert_allclose(g3[name]["w"], 3.0 * g1[name]["w"], rtol=1e-6, atol=0)
+    w_want, gw, gb = _step_grads(packed, o, d, cone, z, target, rcfg, weights)
+    want = tft.unpack_grads(packed, gw, gb)
+    for name, p in model.named_parameters():
+        torch.testing.assert_close(p.grad, 3.0 * want[name], rtol=1e-6, atol=0)
+    assert max(float(g.abs().max()) for g in want.values()) > 1e-6   # not all zero
+    if weights:
+        _, w_ref, _, _ = tft.fused_mse_loss_weights_reference(packed, o, d, z, target, rcfg,
+                                                              cones=cone)
+        assert torch.equal(w, w_ref) and torch.equal(w_want, w_ref)
+        assert w.shape == (o.shape[0], rcfg.n_sample) and not w.requires_grad
+    else:
+        assert w_want is None
+    with pytest.raises(ValueError, match="the mip arch renders cones"):
+        entry(tfr.pack_nerf_params(other, other.cfg, torch.float32), *rays, target, rcfg)
 
 
 def test_legacy_compositor_raises():
