@@ -9,13 +9,18 @@ each a copy of kernels/csrc/ with one edit, built under
 build/render_probe/<variant>/ (git-ignored):
 
 - base: the kernel as it is;
+- bias_from_l2: the layer chain reads its biases from device memory
+  instead of the block's copy in shared memory (the same arithmetic: its
+  frame must equal base's bit for bit);
 - no_weight_copies: the producer completes each ring slot without copying
   a tile (no weight traffic from L2; the products read stale tiles);
-- no_relu_epilogue: the 256-wide ReLU products skip their epilogue;
+- no_relu_epilogue: the 256-wide ReLU products skip their epilogue (an
+  empty asm still takes every accumulator, so ptxas keeps the products);
 - no_sin: the encoder writes the phases instead of their sines;
 - timeline: clock64() stamps, on block 0, around each product and
   epilogue of one chunk (the 11th ray slot's first chunk) of both
-  consumer warpgroups, in SM cycles.
+  consumer warpgroups, in SM cycles, and when each pass's first tile may
+  be issued.
 
 The variants compute wrong images: they only time.  Then the no-PE
 checkpoint's sensitivity, on the rays of tests/test_torch_gpu.py's no-PE
@@ -38,40 +43,80 @@ OUT = os.path.join(REPO, "build", "render_probe")
 CKPTS = os.path.join(REPO, "Phase2", "checkpoints")
 REPS = 3
 
-_STAMP = ("  if (blockIdx.x == 0 && w.tid == 0 && g_trace_on[w.g]) "
-          "g_trace[w.g][%s] = clock64();\n")
-_KSTAMP = ("        if (blockIdx.x == 0 && w.tid == 0 && sm90::g_trace_on[g]) "
-           "sm90::g_trace[g][%d] = clock64();\n")
+# the timeline's stamp: thread 0 of warpgroup g on block 0 stores the SM
+# clock into slot s of g_trace[g] while ``chunk`` (the warpgroup's chunk
+# count) is TRACE_CHUNK, the 11th ray slot's first chunk; predicated inside
+# the asm, with no load and no branch, so it costs an issue slot
+_TRACE = r"""namespace sm90 {
+__device__ long long g_trace[2][64];
+constexpr uint32_t TRACE_CHUNK = 40;
+__device__ __forceinline__ void trace_stamp(int g, int s, uint32_t chunk, int tid) {
+  asm volatile("{\n.reg .pred p;\n.reg .u64 c;\nsetp.eq.u32 p, %1, 0;\n"
+               "mov.u64 c, %%clock64;\n@p st.u64 [%0], c;\n}\n"
+               :: "l"(&g_trace[g][s]), "r"(blockIdx.x | (uint32_t)tid | (chunk ^ TRACE_CHUNK))
+               : "memory");
+}
+"""
+# stamp slots of a warpgroup: pass p's start 3p, its product's end 3p + 1
+# (drained), its epilogue's end 3p + 2, its first tile ready to issue 39 + p
+# (after the ring's wait); the chunk's start (before its distances) 60, the
+# compositing's start 62 and end 63
 PATCHES = {
     "base": [],
+    "bias_from_l2": [
+        ("fused_render.cu", "sm90::mlp_chunk<WIDE, true, MIP>(plan, bias,",
+         "sm90::mlp_chunk<WIDE, true, MIP>(plan, B,"),
+        ("fused_render.cu", "sm90::mlp_chunk<WIDE, false, MIP>(plan, bias,",
+         "sm90::mlp_chunk<WIDE, false, MIP>(plan, B,")],
     "no_weight_copies": [(
         "sm90_mlp.cuh",
         "      mbar_expect_tx(r.full + 8 * slot, tl.bytes);\n"
         "      bulk_copy(r.base + slot * r.stage_bytes, img + tl.off, tl.bytes, r.full + 8 * slot);\n",
         "      mbar_arrive(r.full + 8 * slot);\n")],
-    "no_relu_epilogue": [("sm90_mlp.cuh", "        epi_relu<256, 1>(acc, 1, w);\n", "")],
-    "no_sin": [("fused_render.cu", "sinf(", "(")],
+    "no_relu_epilogue": [(
+        "sm90_mlp.cuh", "        epi_relu<256, 1, MIP>(acc, 1, w, relu);\n",
+        "#pragma unroll\n"
+        "        for (int i = 0; i < 128; ++i) asm volatile(\"\" ::\"f\"(acc[0][i]));\n")],
+    "no_sin": [(
+        "fused_render.cu",
+        "      put(row, c, sinf(u0));\n"
+        "      put(row, c + 1, sinf(u1));\n"
+        "      put(row, c + 2, sinf(u2));\n"
+        "      put(row, c + 3, sinf(__fadd_rn(u0, P.half_pi)));\n"
+        "      put(row, c + 4, sinf(__fadd_rn(u1, P.half_pi)));\n"
+        "      put(row, c + 5, sinf(__fadd_rn(u2, P.half_pi)));\n",
+        "      put(row, c, u0);\n"
+        "      put(row, c + 1, u1);\n"
+        "      put(row, c + 2, u2);\n"
+        "      put(row, c + 3, __fadd_rn(u0, P.half_pi));\n"
+        "      put(row, c + 4, __fadd_rn(u1, P.half_pi));\n"
+        "      put(row, c + 5, __fadd_rn(u2, P.half_pi));\n")],
     "timeline": [
-        ("sm90_mlp.cuh", "namespace sm90 {\n",
-         "namespace sm90 {\n__device__ long long g_trace[2][64];\n__device__ int g_trace_on[2];\n"),
+        ("sm90_mlp.cuh", "namespace sm90 {\n", _TRACE),
         ("sm90_mlp.cuh",
          "  for (int p = 0; p < plan.n_passes; ++p) {\n    const Pass& ps = plan.passes[p];\n",
          "  for (int p = 0; p < plan.n_passes; ++p) {\n    const Pass& ps = plan.passes[p];\n"
-         + _STAMP % "3 * p"),
+         "    trace_stamp(w.g, 3 * p, k, w.tid);\n"),
+        ("sm90_mlp.cuh", "    const Tile& tl = plan.tiles[ps.first + t];\n    wait_full(r, q);\n",
+         "    const Tile& tl = plan.tiles[ps.first + t];\n    wait_full(r, q);\n"
+         "    trace_stamp(w.g, 39 + (int)(&ps - plan.passes), t == 0 ? q / plan.n_tiles : ~0u,"
+         " w.tid);\n"),
+        ("sm90_mlp.cuh", "  wgmma_wait<0>();\n  release(r, q - 1, w.lane);\n}\n",
+         "  wgmma_wait<0>();\n  release(r, q - 1, w.lane);\n"
+         "  trace_stamp(w.g, 3 * (int)(&ps - plan.passes) + 1, (q - 1) / plan.n_tiles, w.tid);\n"
+         "}\n"),
         ("sm90_mlp.cuh",
-         "        product<256, 1>(acc, 1, plan, ps, w, r, q, true);\n        wg_sync(w.g);\n",
-         "        product<256, 1>(acc, 1, plan, ps, w, r, q, true);\n" + _STAMP % "3 * p + 1"
-         + "        wg_sync(w.g);\n"),
-        ("sm90_mlp.cuh", "    fence_proxy_async();\n    wg_sync(w.g);\n  }\n}\n",
-         _STAMP % "3 * p + 2" + "    fence_proxy_async();\n    wg_sync(w.g);\n  }\n}\n"),
-        ("fused_render.cu", "        chunk_dists(P, w, z_ray, S, c0);\n",
-         "        if (blockIdx.x == 0 && w.tid == 0) sm90::g_trace_on[g] = (slot == 10 && c0 == 0);\n"
-         + _KSTAMP % 60 + "        chunk_dists(P, w, z_ray, S, c0);\n"),
+         "    if (p == plan.last_enc_pass) mbar_arrive_lane0(w.enc_empty, w.lane);\n",
+         "    trace_stamp(w.g, 3 * p + 2, k, w.tid);\n"
+         "    if (p == plan.last_enc_pass) mbar_arrive_lane0(w.enc_empty, w.lane);\n"),
+        ("fused_render.cu", "        chunk_dists<MIP>(P, w, z_ray, S, c0, norm);\n",
+         "        sm90::trace_stamp(g, 60, k, w.tid);\n"
+         "        chunk_dists<MIP>(P, w, z_ray, S, c0, norm);\n"),
         ("fused_render.cu",
          "        composite_chunk<EMIT_WEIGHTS>(P, w, S, c0, w_ray, T, acc_r, acc_g, acc_b);\n",
-         _KSTAMP % 62
-         + "        composite_chunk<EMIT_WEIGHTS>(P, w, S, c0, w_ray, T, acc_r, acc_g, acc_b);\n"
-         + _KSTAMP % 63),
+         "        sm90::trace_stamp(g, 62, k - 1, w.tid);\n"
+         "        composite_chunk<EMIT_WEIGHTS>(P, w, S, c0, w_ray, T, acc_r, acc_g, acc_b);\n"
+         "        sm90::trace_stamp(g, 63, k - 1, w.tid);\n"),
         ("fused_render.cu", "const char* sfm_cuda_error_string(int code) {",
          "int sfm_trace(long long* out) {\n"
          "  return cudaMemcpyFromSymbol(out, sm90::g_trace, sizeof(sm90::g_trace));\n}\n\n"
@@ -80,20 +125,26 @@ PATCHES = {
 }
 
 
-def variant_dir(name):
-    """A copy of csrc/ with the variant's edits; raises if one does not apply."""
-    d = os.path.join(OUT, name)
-    shutil.rmtree(d, ignore_errors=True)
-    shutil.copytree(CSRC, d, ignore=shutil.ignore_patterns("_build"))
+def apply_variant(name, dest):
+    """Copy csrc/ to ``dest`` with the variant's edits; raises unless each
+    edit's text occurs exactly once in its file."""
+    shutil.rmtree(dest, ignore_errors=True)
+    shutil.copytree(CSRC, dest, ignore=shutil.ignore_patterns("_build"))
     for f, old, new in PATCHES[name]:
-        path = os.path.join(d, f)
+        path = os.path.join(dest, f)
         with open(path) as fh:
             src = fh.read()
-        if old not in src:
-            raise RuntimeError(f"variant {name}: edit does not apply to {f}: {old[:60]!r}")
+        if src.count(old) != 1:
+            raise RuntimeError(f"variant {name}: edit occurs {src.count(old)} times in {f}, "
+                               f"not once: {old[:60]!r}")
         with open(path, "w") as fh:
             fh.write(src.replace(old, new))
-    return d
+    return dest
+
+
+def variant_dir(name):
+    """build/render_probe/<name>/: csrc/ with the variant's edits."""
+    return apply_variant(name, os.path.join(OUT, name))
 
 
 def rays(n, s, seed, dev):
@@ -121,6 +172,37 @@ def packed_checkpoint(name):
     return fr.pack_nerf_params(params_from_jax(params, mcfg, "cuda"), mcfg, torch.bfloat16)
 
 
+def timeline_parts(t, passes):
+    """The timeline's stamps (2, 64) as cycles per part of each warpgroup's
+    chunk, from warpgroup 0's chunk start: per pass its start, the wait
+    until its first tile may be issued (the ring's wait included; a
+    source without the stamp reads 0), product (from the pass's start to
+    its products drained, the waits included), epilogue and the barrier
+    after it; per warpgroup the sums of the wide (256-column) products, the
+    narrow ones, the first-tile waits, the epilogues and barriers, the
+    distances and the compositing."""
+    t0 = int(t[0, 60])
+    out = {}
+    for g in range(2):
+        rows, sums = [], {"wide_products": 0, "narrow_products": 0, "issue_waits": 0,
+                          "epilogues": 0, "barriers": 0}
+        for p, (kind, n) in enumerate(passes):
+            a, b, c = (int(x) for x in t[g, 3 * p:3 * p + 3])
+            nxt = int(t[g, 3 * p + 3]) if p + 1 < len(passes) else int(t[g, 62])
+            first = int(t[g, 39 + p]) - a if t[g, 39 + p] else 0
+            rows.append({"kind": kind, "n": n, "start": a - t0, "issue_wait": first,
+                         "product": b - a, "epilogue": c - b, "barrier": nxt - c})
+            sums["issue_waits"] += first
+            sums["wide_products" if n == 256 else "narrow_products"] += b - a
+            sums["epilogues"] += c - b
+            sums["barriers"] += nxt - c
+        out[f"warpgroup_{g}"] = {
+            "chunk_start": int(t[g, 60]) - t0, "dists": int(t[g, 0] - t[g, 60]),
+            "layer_chain": int(t[g, 62] - t[g, 0]), "composite": int(t[g, 63] - t[g, 62]),
+            "chunk": int(t[g, 63] - t[g, 60]), **sums, "passes": rows}
+    return out
+
+
 def run_variant(name):
     import numpy as np
     import torch
@@ -134,7 +216,8 @@ def run_variant(name):
     packed = packed_checkpoint("synth800")
     o, d, z = rays(640000, 256, 1, "cuda")
     rcfg = RenderConfig(n_sample=256)
-    fr.fused_render_rays(packed, o, d, z, rcfg)
+    rgb = fr.fused_render_rays(packed, o, d, z, rcfg)
+    torch.save(rgb.cpu(), os.path.join(OUT, name, "rgb.pt"))
     torch.cuda.synchronize()
     e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     e0.record()
@@ -152,22 +235,8 @@ def run_variant(name):
         if lib.sfm_trace(ctypes.cast(buf, ctypes.c_void_p)) != 0:
             raise RuntimeError("timeline: cudaMemcpyFromSymbol failed")
         t = np.array(list(buf), dtype=np.int64).reshape(2, 64)
-        n_pass = len(fr.render_plan(packed).passes)
-        kinds = [p.kind for p in fr.render_plan(packed).passes]
-        for g in range(2):
-            t0 = t[0, 60]
-            passes = []
-            for p in range(n_pass):
-                a, b, c = t[g, 3 * p], t[g, 3 * p + 1], t[g, 3 * p + 2]
-                nxt = t[g, 3 * p + 3] if p + 1 < n_pass else t[g, 62]
-                passes.append({"kind": kinds[p], "start": int(a - t0),
-                               "product": int(b - a) if b else None,
-                               "epilogue": int(c - b) if b else None,
-                               "product_and_epilogue": int(c - a), "barrier": int(nxt - c)})
-            out[f"warpgroup_{g}"] = {
-                "chunk_start": int(t[g, 60] - t0), "until_first_product": int(t[g, 0] - t[g, 60]),
-                "layer_chain": int(t[g, 62] - t[g, 0]), "composite": int(t[g, 63] - t[g, 62]),
-                "passes": passes}
+        plan = fr.render_plan(packed)
+        out.update(timeline_parts(t, [(p.kind, p.n) for p in plan.passes]))
     print(json.dumps(out), flush=True)
 
 
@@ -226,6 +295,14 @@ def main():
         if r.returncode:
             failed += 1
             print(f"{name}: exit {r.returncode}\n{r.stderr[-2000:]}", file=sys.stderr)
+    frames = [os.path.join(OUT, n, "rgb.pt") for n in ("base", "bias_from_l2")]
+    if all(os.path.exists(f) for f in frames):
+        a, b = (torch.load(f) for f in frames)
+        same = bool(torch.equal(a, b))
+        print(json.dumps({"bias_from_l2_vs_base": {"bit_equal": same,
+                                                   "max_abs": (a - b).abs().max().item()}}),
+              flush=True)
+        failed += not same
     return 1 if failed else 0
 
 

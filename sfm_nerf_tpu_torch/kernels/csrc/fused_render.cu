@@ -36,7 +36,10 @@
 //   accurate sinf) into its encoding buffer as soon as its skip layer has
 //   read the current one: the two consumers run in step (they wait on the
 //   same tiles), so an encoding done by the consumers themselves left the
-//   tensor cores idle for a fifth of the time.
+//   tensor cores idle for a fifth of the time;
+// - the block stages the biases in shared memory once, for every pass's
+//   accumulators to start from (sm90_mlp.cuh, which also says why the two
+//   consumers stay in step).
 //
 // TB and STASH change no arithmetic.  TB walks the ray in whole 128-sample
 // chunks (a pad half has zero distances and adds exactly nothing, so rgb and
@@ -264,6 +267,9 @@ fused_render_kernel(const float* __restrict__ origins, const float* __restrict__
     }
     sm90::mbar_init_fence();
   }
+  float* bias = reinterpret_cast<float*>(base + plan.bias);
+  for (int i = threadIdx.x; i < plan.n_bias / 4; i += blockDim.x)
+    reinterpret_cast<float4*>(bias)[i] = __ldg(reinterpret_cast<const float4*>(B) + i);
   __syncthreads();
 
   const int S = n_sample;
@@ -347,13 +353,13 @@ fused_render_kernel(const float* __restrict__ origins, const float* __restrict__
           st.tb[(size_t)ray * (n_chunks / 2) + c0 / 128] = T;
         if constexpr (STASH) {
           const size_t ch = (size_t)ray * n_chunks + c0 / sm90::ROWS;
-          sm90::mlp_chunk<WIDE, true, MIP>(plan, B, P.density_softplus, w, ring, q, k++,
+          sm90::mlp_chunk<WIDE, true, MIP>(plan, bias, P.density_softplus, w, ring, q, k++,
                                            st.act + ch * rec);
           if (w.tid < sm90::ROWS)
             st.pt[ch * sm90::ROWS + w.tid] = make_float4(
                 w.dens[w.tid], w.rgb[w.tid * 3], w.rgb[w.tid * 3 + 1], w.rgb[w.tid * 3 + 2]);
         } else {
-          sm90::mlp_chunk<WIDE, false, MIP>(plan, B, P.density_softplus, w, ring, q, k++);
+          sm90::mlp_chunk<WIDE, false, MIP>(plan, bias, P.density_softplus, w, ring, q, k++);
         }
         composite_chunk<EMIT_WEIGHTS>(P, w, S, c0, w_ray, T, acc_r, acc_g, acc_b);
       }

@@ -23,6 +23,17 @@
 // with full (bytes arrived) and empty (both consumer warpgroups done)
 // mbarriers.  Both consumer warpgroups read every tile: one fetch from L2
 // serves 128 points.
+//
+// The two consumer warpgroups run in lockstep: they wait on the same ring
+// slots and issue each tile's products together.  Staggering them, so that
+// one's epilogue runs under the other's products, measured slower on the
+// hidden-256 plan in both forms tried: turns at the tensor cores (CUTLASS's
+// ping-pong consumers) left one accumulator chain issuing, K1 +9%; a
+// trailing warpgroup held ring slots the leading one needed, which left
+// 1-2 tiles of lookahead on the 4-slot ring against copies from an L2 the
+// weight stream keeps busy, K1 +0 to +8%.  The biases are staged in shared
+// memory once per block (bias_floats): read from that L2 at each pass's
+// start, they held both warpgroups' first product.
 
 #pragma once
 
@@ -77,9 +88,19 @@ struct Plan {
   int act_kb, enc_kb;       // 64-column blocks of the activation / encoding buffers
   int stage_bytes, stages;  // ring slot size and count
   int last_enc_pass;        // after it, the encoding buffer may be refilled
+  int n_bias;               // floats of the biases the block stages (bias_floats)
   // shared-memory layout, bytes from the 1024-aligned base
-  int act, enc, small, bars, ring, total;
+  int act, enc, small, bias, bars, ring, total;
 };
+
+// The biases the passes read, [0, max(b_off + n)) of the flat buffer, in
+// whole float4: the block's copy in shared memory, made with 16-byte loads.
+inline int bias_floats(const Plan& p) {
+  int n = 0;
+  for (int i = 0; i < p.n_passes; ++i)
+    if (p.passes[i].b_off + p.passes[i].n > n) n = p.passes[i].b_off + p.passes[i].n;
+  return (n + 3) & ~3;
+}
 
 // ip: n_passes, n_tiles, dir_off, act_kb, enc_kb, stage_bytes, then
 // (kind, n, b_off, first, n_tiles, n_act) per pass, then (off, bytes,
@@ -127,6 +148,9 @@ inline cudaError_t parse_plan(const int* ip, Plan* p) {
   off += CONSUMERS * p->enc_kb * KB_BYTES;
   p->small = off;
   off += CONSUMERS * SMALL_FLOATS * 4;
+  p->n_bias = bias_floats(*p);
+  p->bias = off;
+  off += p->n_bias * 4;
   p->bars = off;
   off += 2 * MAX_STAGES * 8 + 2 * CONSUMERS * 8;   // ring full/empty, encoding full/empty
   off = (off + 1023) & ~1023;
@@ -507,7 +531,8 @@ __device__ __forceinline__ void product(float (&acc)[NSL][NT / 2], int nsl, cons
 }
 
 // The accumulators of a ReLU product start at its bias (with ADD: at
-// add + bias, rgb1's direction head), so its epilogue loads nothing
+// add + bias, rgb1's direction head), so its epilogue loads nothing; bias
+// is the block's copy in shared memory
 template <int NT, int NSL, bool ADD>
 __device__ __forceinline__ void init_bias(float (&acc)[NSL][NT / 2], int nsl,
                                           const float* __restrict__ bias, const float* add,
@@ -519,7 +544,7 @@ __device__ __forceinline__ void init_bias(float (&acc)[NSL][NT / 2], int nsl,
 #pragma unroll
       for (int j = 0; j < NT / 8; ++j) {
         const int col = s * NT + 8 * j + c_lane;
-        float2 b = __ldg(reinterpret_cast<const float2*>(bias + col));
+        float2 b = *reinterpret_cast<const float2*>(bias + col);
         if (ADD) {
           b.x = add[col] + b.x;
           b.y = add[col + 1] + b.y;
@@ -583,7 +608,7 @@ __device__ __forceinline__ void epi_relu(const float (&acc)[NSL][NT / 2], int ns
 __device__ __forceinline__ void epi_dens(const float (&acc)[1][8], const float* __restrict__ bias,
                                          int softplus, const Wg& w) {
   const int r0 = 16 * w.warp + (w.lane >> 2);
-  const float b = __ldg(bias);
+  const float b = bias[0];
   float v[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -603,7 +628,7 @@ __device__ __forceinline__ void epi_rgb(const float (&acc)[1][8], const float* _
                                         const Wg& w) {
   const int c0 = 2 * (w.lane & 3);
   const int r0 = 16 * w.warp + (w.lane >> 2);
-  const float b0 = __ldg(bias + (c0 & 7)), b1 = __ldg(bias + ((c0 + 1) & 7));
+  const float b0 = bias[c0 & 7], b1 = bias[(c0 + 1) & 7];
   float v[4] = {1.0f / (1.0f + expf(-(acc[0][0] + b0))), 1.0f / (1.0f + expf(-(acc[0][1] + b1))),
                 1.0f / (1.0f + expf(-(acc[0][2] + b0))), 1.0f / (1.0f + expf(-(acc[0][3] + b1)))};
   if constexpr (MIP) {
@@ -621,7 +646,8 @@ __device__ __forceinline__ void epi_rgb(const float (&acc)[1][8], const float* _
 }
 
 // The whole layer chain of one 64-row chunk, the warpgroup's k-th (its
-// encoding arrives in w.enc, the direction head is in w.dirpart): leaves
+// encoding arrives in w.enc, the direction head is in w.dirpart, B is the
+// block's copy of the biases in shared memory): leaves
 // the density in w.dens and the colours in w.rgb, published to the
 // warpgroup.  WIDE: every ReLU product
 // is 256 wide and runs as one m64n256k16 per k16 step; otherwise as

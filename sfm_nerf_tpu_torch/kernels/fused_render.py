@@ -639,8 +639,9 @@ def _check_launch(packed: PackedNeRF, origins, directions, z_vals, cones, what: 
                   **extra) -> None:
     """The input checks of every launch of the render and training kernels:
     cones for the mip arch and for no other, every tensor (``extra`` too)
-    on the origins' device, the bf16 packing, hidden <= 256, (N, 3) rays
-    for the N rows of ``z_vals``."""
+    on the origins' device, the bf16 packing, float32 biases on a 16-byte
+    boundary (the block stages them with 16-byte loads), hidden <= 256,
+    (N, 3) rays for the N rows of ``z_vals``."""
     _check_cones(packed, cones, z_vals)
     dev = origins.device
     for name, t in (("directions", directions), ("z_vals", z_vals), ("cones", cones),
@@ -651,6 +652,8 @@ def _check_launch(packed: PackedNeRF, origins, directions, z_vals, cones, what: 
         raise ValueError(f"{what} kernel takes bf16-packed weights, got {packed.weights.dtype}")
     if packed.hidden > 256:
         raise ValueError(f"{what} kernel: hidden {packed.hidden} > 256")
+    if packed.biases.dtype != torch.float32 or packed.biases.data_ptr() % 16:
+        raise ValueError(f"{what} kernel takes float32 biases on a 16-byte boundary")
     n = z_vals.shape[0]
     if origins.shape != (n, 3) or directions.shape != (n, 3):
         raise ValueError(f"{what}: origins {tuple(origins.shape)}, directions "

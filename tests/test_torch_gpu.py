@@ -8,6 +8,7 @@ JAX.  There, run it without the suite's conftest (which imports jax):
 Without a card every test here skips.
 """
 
+import dataclasses
 import json
 import os
 
@@ -59,7 +60,10 @@ def _rays(n, s, seed):
     ("synth800", "train", False, 256, 2048), ("synth800", "legacy", False, 200, 2048),
     ("synth800", "train", True, 64, 2048), ("legacy", "train", False, 128, 1024),
     ("synth800_nope", "train", False, 128, 1024), ("hidden64", "legacy", False, 96, 1024),
-    ("synth800", "train", False, 384, 50)])       # fewer rays than the card has SMs
+    ("synth800", "train", False, 384, 50),        # fewer rays than the card has SMs
+    # a last ray slot that leaves warpgroup 1 of some blocks without a ray
+    # (skip_chunk), at hidden 256 and on the narrow chain
+    ("synth800", "train", False, 256, 1001), ("hidden48", "train", False, 130, 777)])
 def test_fused_render_kernel_matches_plain_version(model, variant, white, n_sample, n_rays):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
@@ -109,6 +113,19 @@ def test_fused_render_kernel_rejects_f32_packing():
     o, d, z = _rays(64, 32, seed=0)
     with pytest.raises(ValueError):
         fr.fused_render_rays(packed, o, d, z, RenderConfig(n_sample=32))
+
+
+@pytest.mark.gpu
+def test_fused_render_kernel_rejects_unaligned_biases():
+    """The block stages the biases in shared memory with 16-byte loads."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    packed = _packed_model("synth800")
+    shifted = torch.cat([packed.biases[:1], packed.biases])[1:]
+    o, d, z = _rays(64, 32, seed=0)
+    with pytest.raises(ValueError, match="16-byte"):
+        fr.fused_render_rays(dataclasses.replace(packed, biases=shifted), o, d, z,
+                             RenderConfig(n_sample=32))
 
 
 def _train_batch(n, s, seed):

@@ -113,3 +113,21 @@ def test_kernel_args_carry_the_plan(name):
     assert list(tiles[:, 1]) == [t.cols * 128 for t in plan.tiles]
     assert list(tiles[:, 2]) == [t.rows // 16 for t in plan.tiles]
     assert fr.render_tile_image(packed) is fr.render_tile_image(packed)
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS) + ["mip"])
+def test_staged_biases_lie_inside_the_packing(name):
+    """The kernel's block copies [0, max(b_off + n)) of the biases, rounded
+    up to whole float4 (sm90_mlp.cuh bias_floats), to shared memory: every
+    pass's bias, the padded density and rgb heads included, lies in the
+    packed buffer, and so does the copy's rounded end; each pass's bias
+    starts on an even float, for the 8-byte reads of init_bias."""
+    mcfg = NeRFModelConfig(arch="mip", n_pos_freq=16, n_dir_freq=4) if name == "mip" \
+        else CONFIGS[name]
+    packed = fr.pack_nerf_params(NeRF(mcfg, seed=3), mcfg, torch.bfloat16)
+    plan = fr.render_plan(packed)
+    end = max(p.b_off + p.n for p in plan.passes)
+    assert -(-end // 4) * 4 <= packed.biases.numel()
+    assert packed.biases.dtype == torch.float32 and packed.biases.is_contiguous()
+    for p in plan.passes:
+        assert p.b_off % 2 == 0, (p.kind, p.b_off)
